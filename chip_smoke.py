@@ -2,19 +2,39 @@
 """Chip smoke test of the PyTorch/CUDA port (sam2_video_tpu_torch) on one
 NVIDIA GPU. Run from the repository root:
 
-    python3 chip_smoke.py [--seed 0] [--phases build,kernels,serve,cpu]
+    python3 chip_smoke.py [--seed 0]
+        [--phases build,kernels,train,train_cpu,serve,cpu]
 
 Phases (all by default):
-  build    compile both CUDA kernels from csrc/ (one nvcc each, in parallel)
-  kernels  each kernel against its plain PyTorch version at the shapes the
-           serving path gives it (SAM2-tiny, 384 px, 8-frame encode chunk,
-           8 objects), with error, tolerance and CUDA-event times
-  serve    the streaming VideoPredictor at full SAM2-tiny width (384 px,
-           bf16, 8 objects, 7 memory slots, use_flash_attention=False):
-           2 synthetic 480x854 videos, point prompts on frame 0, propagate;
-           encode and propagate frames/s; every kernel must have launched
-  cpu      the first 4 frames of one video on the card and on the CPU in
-           float32 (plain versions); low-res logits must agree
+  build      compile every CUDA kernel from csrc/ (one nvcc per source, all
+             started together)
+  kernels    each kernel against its plain PyTorch version at the shapes
+             the training and serving paths give it, with error, tolerance
+             and CUDA-event times: #1 fused_block (12 trunk blocks, one
+             8-frame encode chunk at 384 px), #2 fused_memory_encoder (8
+             objects), and, forward and backward (autograd through the
+             plain forward, one random cotangent), #4 fused_self_block and
+             #5 fused_tail_block (8 objects, 576 tokens) and #3
+             flash_attention_kproj (Lk 580 and 4068 in training, 4096 with
+             two invalid slots in serving; its limit is 2e-2 of max|plain|
+             of each tensor, the others' of max(1, max|plain|))
+  train      the headline train step (SAM2-tiny 384 px, bf16, T=10, O=8,
+             C=7, B=2, point prompts, trainable memory attention and memory
+             encoder, AdamW lr 1e-4): 1 warm-up and 5 timed steps; finite
+             losses, frozen leaves bit-for-bit unchanged, every memory
+             attention leaf moved, every kernel (and the three backward
+             programs) launched
+  train_cpu  one step of a short clip (T=3, O=4, 384 px) on the card (bf16)
+             and on the CPU (float32, plain versions): loss and each
+             trainable top-level entry's gradient must agree
+  serve      the streaming VideoPredictor in the usual configuration
+             (use_flash_attention=True, 384 px, bf16, 8 objects, 7 memory
+             slots): 2 synthetic 480x854 videos, point prompts on frame 0,
+             propagate; encode and propagate frames/s; every forward kernel
+             must have launched; then 4 frames with
+             use_flash_attention=False (plain memory attention)
+  cpu        the first 4 frames of one video on the card and on the CPU in
+             float32 (plain versions); low-res logits must agree
 
 Weights are ``synthetic_params``: the port's seeded random init moved off
 its constants (every parameter + 0.05 N(0, 1), the memory encoder's CXBlock
@@ -23,7 +43,7 @@ CXBlocks) and the object-score head's last bias at +10, so every object
 reads present and the card-vs-CPU check compares mask logits rather than a
 presence threshold. TF32 is off for both matmuls and cuDNN. The last lines
 are the card's name and power limit, a JSON line of per-kernel numbers
-(``launches`` null when the serve phase did not run), and
+(``launches`` from the train phase, else the serve phase, else null), and
 {"ok": true, "device": ...}.
 The script needs the repository beside it and a CUDA device; without
 either it exits non-zero and prints no result.
@@ -47,8 +67,12 @@ from sam2_video_tpu_torch.models import memory_encoder as me
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 KERNEL_TOL = 2e-2             # of max(1, |plain|): bf16 rounding points differ
+# flash_attention_kproj's output and dq, dkin, dv are softmax averages of
+# O(1) values, well below 1: its limit is KERNEL_TOL of max|plain| itself
+KPROJ_FLOOR = 0.0
 CPU_REL_L2_TOL = 0.1          # card bf16 vs CPU float32, over 4 frames
-PHASES = ("build", "kernels", "serve", "cpu")
+PHASES = ("build", "kernels", "train", "train_cpu", "serve", "cpu")
+DEVICE = "cuda"
 FRAMES, OBJECTS, CHUNK = 16, 8, 8   # frames per video, objects, encode chunk
 TINY_GEOMETRY = {0: "window 8, no pad", 1: "q-pool, even window 8",
                  4: "window 14, pad 24->28", 5: "global 24x24",
@@ -227,6 +251,289 @@ def phase_kernels(params, cfg, seed: int, chunk: int, objects: int):
     return rows
 
 
+def kproj_cost(BH, Lq, Lk, backward: bool, tensors):
+    """(flops, bytes) of flash_attention_kproj. Forward: the key projection
+    once per key (2 Lk 64 256), QK^T (2 Lq Lk 256) and PV (2 Lq Lk 64) per
+    object. Backward, from the saved q, kin, v, out and lse: the projection
+    and QK^T again, dP, dV (2 Lq Lk 64 each), dQ, dK (2 Lq Lk 256 each),
+    dkin and dWk (2 Lk 256 64 each). Bytes: every input read once, every
+    output written once."""
+    proj, qk, pv = 2 * Lk * 64 * 256, 2 * Lq * Lk * 256, 2 * Lq * Lk * 64
+    flops = proj + qk + pv if not backward else \
+        3 * proj + 3 * qk + 2 * pv
+    return BH * flops, _nbytes(*tensors)
+
+
+def self_block_cost(N, L, backward: bool, tensors):
+    """(flops, bytes) of fused_self_block: forward qkv (2 L 256 768), the
+    scores and PV (2 L L 256 each), out-proj and the cross q-proj (2 L 256
+    256 each) per object; backward recomputes all but the q-proj and adds
+    the q-proj's two products, out-proj's two, the attention's four L x L
+    products and qkv's two (2 L 256 768 each)."""
+    D = 256
+    lin, qkv, att = 2 * L * D * D, 2 * L * D * 3 * D, 2 * L * L * D
+    flops = qkv + 2 * att + 2 * lin if not backward else \
+        (qkv + 2 * att + lin) + 4 * lin + 4 * att + 2 * qkv
+    return N * flops, _nbytes(*tensors)
+
+
+def tail_block_cost(N, L, kv, hid, backward: bool, tensors):
+    """(flops, bytes) of fused_tail_block: v-proj (2 L kv 256), out-proj
+    (2 L 256 256), linear1 and linear2 (2 L 256 hid each) per object;
+    backward recomputes all but linear2 and adds two products for each of
+    the four linears."""
+    D = 256
+    vp, op, mlp = 2 * L * kv * D, 2 * L * D * D, 2 * L * D * hid
+    flops = vp + op + 2 * mlp if not backward else \
+        (vp + op + mlp) + 2 * (vp + op + 2 * mlp)
+    return N * flops, _nbytes(*tensors)
+
+
+def _check_grads(label, got, want, failures, floor: float = 1.0):
+    """Worst err / scale over the tensors of one kernel call; a tensor
+    outside KERNEL_TOL of max(floor, max|plain|) is added to
+    ``failures``."""
+    worst_err, worst_rel, each = 0.0, 0.0, []
+    for name, a, b in zip(label, got, want, strict=True):
+        a, b = a.float(), b.float()
+        err = (a - b).abs().max().item()
+        scale = max(floor, b.abs().max().item())
+        each.append(f"{name}: {err / scale:.3g}")
+        if not (bool(torch.isfinite(a).all()) and err <= KERNEL_TOL * scale):
+            failures.append(f"{name}: kernel disagrees with its plain "
+                            f"version: max_abs_err {err:.4g} > "
+                            f"{KERNEL_TOL * scale:.4g}")
+            print("FAIL " + failures[-1], flush=True)
+        worst_err = max(worst_err, err)
+        worst_rel = max(worst_rel, err / scale)
+    print("  err/scale " + ", ".join(each), flush=True)
+    return worst_err, worst_rel
+
+
+def _leaves(tensors):
+    return [t.detach().clone().requires_grad_(True) for t in tensors]
+
+
+def _time_backward(outs, inputs, cots):
+    """ms of one backward through the graph of ``outs``."""
+    return cuda_ms(lambda: torch.autograd.grad(outs, inputs, cots,
+                                               retain_graph=True))
+
+
+def _kernel_row(name, source, replaces, err, t_k, t_p, cost, library=None):
+    b, by = bound_ms(*cost)
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b,
+                bound_by=by, library_ms=library)
+
+
+def _print_row(label, err, rel, r):
+    print(f"{label} max_abs_err={err:.4g} max_err/scale={rel:.4g} "
+          f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+          f"bound_ms={r['bound_ms']:.4f}({r['bound_by']})"
+          + (f" library_ms={r['library_ms']:.4f}" if r["library_ms"]
+             else ""), flush=True)
+
+
+def phase_memattn_kernels(params, cfg, seed: int, objects: int):
+    """Kernels #3-#5, forward and backward, against their plain versions
+    (backward: autograd through the plain forward with the same random
+    cotangent) at the training shapes: 8 objects, 576 queries; the cross-
+    attention at Lk = 580 and 4068 (training, no bias) and 4096 (serving,
+    -1e9 on two invalid slots). Returns the rows of the JSON line."""
+    from sam2_video_tpu_torch.models import memory_attention as ma
+    from sam2_video_tpu_torch.ops import flash_attention as fa
+    from sam2_video_tpu_torch.ops import memattn_layer_kernel as mlk
+    from sam2_video_tpu_torch.ops.position_encoding import \
+        axial_rope_table_half
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(seed + 7)
+    mcfg = cfg.memory_attention_config
+    lp = ma.prepare(params["memory_attention"], mcfg)["layers"]["0"]
+    sp, cp = lp["self_attn"], lp["cross_attn_image"]
+    F_, O = cfg.feat_size, objects
+    L, D, KV = F_ * F_, cfg.d_model, cfg.mem_dim
+    cos, sin = axial_rope_table_half(D, F_, F_, mcfg.rope_theta, device=dev)
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen)).to(
+            dev, torch.bfloat16)
+
+    rows, failures = [], []
+    src = "sam2_video_tpu_torch/csrc/memattn_layer.cu"
+    rep = "sam2_video_tpu/ops/memattn_layer_kernel.py"
+
+    # ---- fused_self_block
+    names = ["ln1w", "ln1b", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo",
+             "ln2w", "ln2b", "wqc", "bqc"]
+    qp, kp = sp["_qp"], sp["_kp"]
+    w0 = [lp["norm1"]["weight"], lp["norm1"]["bias"], qp["weight"],
+          qp["bias"], kp["weight"], kp["bias"], sp["v_proj"]["weight"],
+          sp["v_proj"]["bias"], sp["out_proj"]["weight"],
+          sp["out_proj"]["bias"], lp["norm2"]["weight"],
+          lp["norm2"]["bias"], cp["_qp"]["weight"], cp["_qp"]["bias"]]
+
+    def self_args(w):
+        lin = lambda i: {"weight": w[i], "bias": w[i + 1]}  # noqa: E731
+        return ({"q": lin(2), "k": lin(4), "v": lin(6), "out": lin(8)},
+                lin(12), lin(0), lin(10))
+
+    x = rnd(O, L, D)
+    cots = [rnd(O, L, D), rnd(O, L, D)]
+    res = {}
+    for kind, fn in (("kernel", mlk.fused_self_block),
+                     ("plain", mlk.fused_self_block_plain)):
+        w, xl = _leaves(w0), x.detach().clone().requires_grad_(True)
+        outs = fn(*self_args(w), xl, cos, sin)
+        grads = torch.autograd.grad(outs, [xl] + w, cots, retain_graph=True)
+        t_f = cuda_ms(lambda: fn(*self_args(w), xl, cos, sin))
+        t_b = _time_backward(outs, [xl] + w, cots)
+        res[kind] = (outs, grads, t_f, t_b)
+    torch.cuda.synchronize()
+    (ko, kg, kf, kb), (po, pg, pf, pb) = res["kernel"], res["plain"]
+    err, rel = _check_grads(["self out", "self q3"], ko, po, failures)
+    wb = _nbytes(*w0) // 2
+    fl, nb = self_block_cost(O, L, False, [x, *ko])
+    r = _kernel_row("fused_self_block", src, f"{rep}:382", err, kf, pf,
+                    (fl, nb + wb))
+    _print_row(f"fused_self_block x{tuple(x.shape)}", err, rel, r)
+    rows.append(r)
+    err, rel = _check_grads(["self dx"] + ["self d" + n for n in names],
+                            kg, pg, failures)
+    fl, nb = self_block_cost(O, L, True, [x, *cots, *kg])
+    r = _kernel_row("fused_self_block_bwd", src, f"{rep}:402", err, kb, pb,
+                    (fl, nb + wb))
+    _print_row("fused_self_block backward", err, rel, r)
+    rows.append(r)
+
+    # ---- fused_tail_block (hidden 2048)
+    t0 = [cp["v_proj"]["weight"], cp["v_proj"]["bias"],
+          cp["out_proj"]["weight"], cp["out_proj"]["bias"],
+          lp["norm3"]["weight"], lp["norm3"]["bias"],
+          lp["linear1"]["weight"], lp["linear1"]["bias"],
+          lp["linear2"]["weight"], lp["linear2"]["bias"]]
+    HID = t0[6].shape[0]
+
+    def tail_args(w):
+        lin = lambda i: {"weight": w[i], "bias": w[i + 1]}  # noqa: E731
+        return lin(0), lin(2), lin(4), lin(6), lin(8)
+
+    y, a = rnd(O, L, D), rnd(O, L, KV)
+    cot = rnd(O, L, D)
+    res = {}
+    for kind, fn in (("kernel", mlk.fused_tail_block),
+                     ("plain", mlk.fused_tail_block_plain)):
+        w = _leaves(t0)
+        yl, al = (t.detach().clone().requires_grad_(True) for t in (y, a))
+        out = fn(*tail_args(w), yl, al)
+        grads = torch.autograd.grad(out, [yl, al] + w, cot,
+                                    retain_graph=True)
+        t_f = cuda_ms(lambda: fn(*tail_args(w), yl, al))
+        t_b = _time_backward(out, [yl, al] + w, cot)
+        res[kind] = (out, grads, t_f, t_b)
+    torch.cuda.synchronize()
+    (ko, kg, kf, kb), (po, pg, pf, pb) = res["kernel"], res["plain"]
+    err, rel = _check_grads(["tail out"], [ko], [po], failures)
+    wb = _nbytes(*t0) // 2
+    fl, nb = tail_block_cost(O, L, KV, HID, False, [y, a, ko])
+    r = _kernel_row("fused_tail_block", src, f"{rep}:482", err, kf, pf,
+                    (fl, nb + wb))
+    _print_row(f"fused_tail_block y{tuple(y.shape)} hid={HID}", err, rel, r)
+    rows.append(r)
+    err, rel = _check_grads(
+        ["tail dy", "tail da", "tail dwv", "tail dbv", "tail dwo",
+         "tail dbo", "tail dln3w", "tail dln3b", "tail dw1", "tail db1",
+         "tail dw2", "tail db2"], kg, pg, failures)
+    fl, nb = tail_block_cost(O, L, KV, HID, True, [y, a, cot, *kg])
+    r = _kernel_row("fused_tail_block_bwd", src, f"{rep}:502", err, kb, pb,
+                    (fl, nb + wb))
+    _print_row("fused_tail_block backward", err, rel, r)
+    rows.append(r)
+
+    # ---- flash_attention_kproj at three key counts
+    HW = L
+    fsrc = "sam2_video_tpu_torch/csrc/flash_kproj.cu"
+    frep = "sam2_video_tpu/ops/flash_attention.py"
+    kw, kbias = cp["_kp"]["weight"], cp["_kp"]["bias"]
+    cases = [("training, frame 1", 1, 1 * 4, False),
+             ("training, frame 9", 7, 9 * 4, False),
+             ("serving", 7, 16 * 4, True)]
+    fwd_rows, bwd_rows = [], []
+    for label, slots, ptr_tokens, masked in cases:
+        nsp = slots * HW
+        Lk = nsp + ptr_tokens
+        q3, kin, v = rnd(O, L, D), rnd(O, Lk, KV), rnd(O, Lk, KV)
+        bias = None
+        if masked:
+            valid = torch.ones(Lk, dtype=torch.bool)
+            valid[2 * HW: 4 * HW] = False
+            bias = torch.where(valid, 0.0, -1e9).float().to(dev)
+        cot = rnd(O, L, KV)
+        res = {}
+        for kind, fn in (("kernel", fa.flash_attention_kproj),
+                         ("plain", fa.flash_attention_kproj_plain)):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (q3, kin, v, kw, kbias)]
+            args = lambda: (*leaves, bias, nsp, (F_, F_),  # noqa: E731
+                            mcfg.rope_theta)
+            out = fn(*args())
+            grads = torch.autograd.grad(out, leaves, cot, retain_graph=True)
+            t_f = cuda_ms(lambda: fn(*args()))
+            t_b = _time_backward(out, leaves, cot)
+            res[kind] = (out, grads, t_f, t_b)
+        torch.cuda.synchronize()
+        (ko, kg, kf, kb), (po, pg, pf, pb) = res["kernel"], res["plain"]
+        err, rel = _check_grads([f"kproj out Lk={Lk}"], [ko], [po],
+                                failures, KPROJ_FLOOR)
+        lib = _sdpa_ms(q3, kin, v, kw, kbias, bias, nsp, F_, mcfg, fa)
+        fl, nb = kproj_cost(O, L, Lk, False, [q3, kin, v, bias, ko])
+        r = _kernel_row("flash_attention_kproj", fsrc, f"{frep}:391", err,
+                        kf, pf, (fl, nb + 2 * kw.numel()), lib)
+        _print_row(f"flash_attention_kproj {label}: Lk={Lk}", err, rel, r)
+        fwd_rows.append(r)
+        err, rel = _check_grads(
+            [f"kproj d{n} Lk={Lk}" for n in ("q", "kin", "v", "wk", "bk")],
+            kg, pg, failures, KPROJ_FLOOR)
+        fl, nb = kproj_cost(O, L, Lk, True, [q3, kin, v, bias, ko, cot, *kg])
+        r = _kernel_row("flash_attention_kproj_bwd", fsrc, f"{frep}:440",
+                        err, kb, pb, (fl, nb + 2 * kw.numel()))
+        _print_row(f"flash_attention_kproj backward Lk={Lk}", err, rel, r)
+        bwd_rows.append(r)
+    # the JSON rows: the largest training shape (frame 9), worst error
+    for group in (fwd_rows, bwd_rows):
+        r = dict(group[1])
+        r["max_abs_err"] = max(x["max_abs_err"] for x in group)
+        rows.append(r)
+    if failures:
+        raise SystemExit(f"{len(failures)} kernel outputs disagree with "
+                         "their plain versions:\n" + "\n".join(failures))
+    return rows
+
+
+def _sdpa_ms(q3, kin, v, kw, kbias, bias, nsp, F_, mcfg, fa):
+    """ms of F.scaled_dot_product_attention (bf16) over the keys the kernel
+    projects, materialised beforehand: context for the JSON line only."""
+    import torch.nn.functional as F
+
+    with torch.no_grad():
+        cos, sin = fa.kproj_rope_tables(q3.shape[-1], (F_, F_),
+                                        mcfg.rope_theta, torch.float32,
+                                        q3.device)
+        D = q3.shape[-1]
+        kpre = kin.float() @ kw.float().t() + kbias.float()
+        Lk = kin.shape[1]
+        reps = nsp // cos.shape[0]
+        c = torch.cat([cos.repeat(reps, 1), cos.new_ones((Lk - nsp, D // 2))])
+        s = torch.cat([sin.repeat(reps, 1), sin.new_zeros((Lk - nsp, D // 2))])
+        k1, k2 = kpre[..., :D // 2], kpre[..., D // 2:]
+        k = torch.cat([k1 * c - k2 * s, k2 * c + k1 * s], -1).to(q3.dtype)
+        vv = v.to(q3.dtype)
+        mask = None if bias is None else bias.to(q3.dtype)[None, None, :]
+        return cuda_ms(lambda: F.scaled_dot_product_attention(
+            q3, k, vv, attn_mask=mask))
+
+
 # ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
@@ -247,16 +554,55 @@ def run_video(pred, video, centres):
     return t1 - t0, t2 - t1, np.stack(outs)
 
 
-def phase_serve(params, cfg, seed: int, frames: int, objects: int):
-    from sam2_video_tpu_torch import VideoPredictor
+def _counters():
+    """Every kernel wrapper's launch counter: name -> (wrapper, attribute);
+    the backward programs of kernels #3-#5 count on their own."""
+    from sam2_video_tpu_torch.ops import flash_attention as fa
     from sam2_video_tpu_torch.ops import hiera_block_kernel as hbk
+    from sam2_video_tpu_torch.ops import memattn_layer_kernel as mlk
     from sam2_video_tpu_torch.ops import memory_encoder_kernel as mek
 
-    pred = VideoPredictor(params, cfg, max_objects=objects, device="cuda")
+    out = {"fused_block": (hbk.fused_block, "launches"),
+           "fused_memory_encoder": (mek.fused_memory_encoder, "launches")}
+    for name, fn in (("flash_attention_kproj", fa.flash_attention_kproj),
+                     ("fused_self_block", mlk.fused_self_block),
+                     ("fused_tail_block", mlk.fused_tail_block)):
+        out[name] = (fn, "launches")
+        out[name + "_bwd"] = (fn, "backward_launches")
+    return out
+
+
+def reset_counts():
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr)
+            in _counters().items()}
+
+
+def _require(counts: dict, names, path: str):
+    print(f"kernels launched on the {path} path " + json.dumps(counts),
+          flush=True)
+    for name in names:
+        if counts[name] <= 0:
+            raise SystemExit(f"kernel {name} never launched on the {path} "
+                             "path")
+
+
+def phase_serve(params, cfg, seed: int, frames: int, objects: int):
+    """The usual configuration (use_flash_attention=True: kernels #1-#5
+    forward) on two videos, then a shorter pass of one video with
+    use_flash_attention=False (the plain memory attention)."""
+    import dataclasses
+
+    from sam2_video_tpu_torch import VideoPredictor
+
+    pred = VideoPredictor(params, cfg, max_objects=objects, device=DEVICE)
     videos = [synthetic_video(seed + v, frames, objects=objects)
               for v in range(2)]
-    hbk.fused_block.launches = 0
-    mek.fused_memory_encoder.launches = 0
+    reset_counts()
     for v, (video, centres) in enumerate(videos):
         enc_s, prop_s, logits = run_video(pred, video, centres)
         S4 = cfg.image_size // 4
@@ -268,14 +614,27 @@ def phase_serve(params, cfg, seed: int, frames: int, objects: int):
               f"{frames / enc_s:.2f} frames/s ({enc_s:.3f} s), propagate "
               f"{frames / prop_s:.2f} frames/s ({prop_s:.3f} s), "
               f"logits {logits.shape} finite", flush=True)
-    launches = {"fused_block": hbk.fused_block.launches,
-                "fused_memory_encoder": mek.fused_memory_encoder.launches}
-    print("kernels " + json.dumps(launches), flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            raise SystemExit(f"kernel {name} never launched on the "
-                             "serving path")
-    return launches
+    counts = read_counts()
+    _require(counts, [n for n in counts if not n.endswith("_bwd")],
+             "serving")
+    plain_cfg = dataclasses.replace(cfg, use_flash_attention=False)
+    pred = VideoPredictor(params, plain_cfg, max_objects=objects,
+                          device=DEVICE)
+    video, centres = synthetic_video(seed + 50, frames // 4,
+                                     objects=objects)
+    reset_counts()
+    _, _, logits = run_video(pred, video, centres)
+    if not np.isfinite(logits.astype(np.float32)).all():
+        raise SystemExit("use_flash_attention=False: non-finite logits")
+    plain = read_counts()
+    print(f"serve use_flash_attention=False: {frames // 4} frames, logits "
+          f"{logits.shape} finite", flush=True)
+    _require(plain, ["fused_block", "fused_memory_encoder"], "plain-memory"
+             "-attention serving")
+    if plain["fused_self_block"] or plain["flash_attention_kproj"]:
+        raise SystemExit("use_flash_attention=False ran a memory-attention "
+                         "kernel")
+    return counts
 
 
 def phase_cpu(params, cfg, seed: int, objects: int):
@@ -304,6 +663,133 @@ def phase_cpu(params, cfg, seed: int, objects: int):
           f"{'OK' if rel <= CPU_REL_L2_TOL else 'FAIL'}", flush=True)
     if not rel <= CPU_REL_L2_TOL:
         raise SystemExit(f"card and CPU disagree: rel_l2 {rel}")
+
+
+TRAINABLE = ["memory_attention", "memory_encoder"]
+TRAIN_T, TRAIN_O, TRAIN_C, TRAIN_B = 10, 8, 7, 2
+TRAIN_STEPS = 5
+TRAIN_CPU_LOSS_TOL = 5e-2     # relative; bf16 through 4 layers, 2 frames
+TRAIN_CPU_GRAD_TOL = 0.1      # relative L2 of a trainable module's gradient
+# a bare embedding's gradient sums the bf16-rounded contributions of every
+# position of the grid (maskmem_tpos_enc, no_mem_embed): 0.103 and 0.111
+# in the first card run, so its limit is 0.2
+TRAIN_CPU_BARE_TOL = 0.2
+
+
+def _train_setup(cfg, params, device, T, O, C, B):
+    from sam2_video_tpu_torch.data.synthetic import example_clip
+    from sam2_video_tpu_torch.models.video_model import VideoModelConfig
+    from sam2_video_tpu_torch.training.loop import (TrainState,
+                                                    make_train_step)
+    from sam2_video_tpu_torch.training.losses import LossConfig
+    from sam2_video_tpu_torch.training.optimizer import make_optimizer
+
+    tx = make_optimizer(params, {"lr": 1e-4, "type": "AdamW"},
+                        {"enabled": False}, total_steps=1000,
+                        trainable_modules=TRAINABLE)
+    step = make_train_step(VideoModelConfig(sam2=cfg, prompt_type="point"),
+                           LossConfig(), tx, trainable_modules=TRAINABLE,
+                           device=device)
+    batch = example_clip(cfg.image_size, T=T, O=O, C=C, B=B).to(device)
+    return TrainState.create(params, tx), step, batch
+
+
+def phase_train(cfg, seed: int):
+    """The headline train step (bench.py's _build_step): SAM2-tiny 384 px,
+    bf16, T=10, O=8, C=7, B=2, point prompts, trainable memory attention
+    and memory encoder, AdamW lr 1e-4 without a schedule. One warm-up step,
+    then TRAIN_STEPS timed steps with every launch counter at 0 just before
+    them. Returns the counts."""
+    params = synthetic_params(cfg, seed).to(DEVICE)
+    state, step, batch = _train_setup(cfg, params, DEVICE, TRAIN_T, TRAIN_O,
+                                      TRAIN_C, TRAIN_B)
+    before = {n: t.detach().clone() for n, t in params.named_parameters()}
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    print(f"train warm-up step: loss {float(m['total_loss']):.6g}",
+          flush=True)
+    reset_counts()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["total_loss"]))
+    counts = read_counts()
+    ms = 1e3 * float(np.median(times))
+    print(f"train B={TRAIN_B} T={TRAIN_T} O={TRAIN_O} {cfg.image_size}px "
+          f"{cfg.compute_dtype}: step ms median {ms:.3f} (each: "
+          + ", ".join(f"{1e3 * t:.3f}" for t in times) + f"), clips/s "
+          f"{TRAIN_B / (ms / 1e3):.3f}; losses "
+          + ", ".join(f"{x:.6g}" for x in losses)
+          + f"; grad_norm {float(m['grad_norm']):.6g}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"train: non-finite loss {losses}")
+    moved = frozen_changed = 0
+    for n, t in params.named_parameters():
+        same = torch.equal(t, before[n])
+        if n.split(".")[0] in ("image_encoder", "sam_prompt_encoder",
+                               "sam_mask_decoder", "obj_ptr_proj",
+                               "obj_ptr_tpos_proj"):
+            frozen_changed += not same
+        elif n.startswith("memory_attention."):
+            if same:
+                raise SystemExit(f"train: memory_attention leaf {n} did "
+                                 "not move")
+            moved += 1
+    if frozen_changed:
+        raise SystemExit(f"train: {frozen_changed} frozen leaves changed")
+    print(f"train: all {moved} memory_attention leaves moved, frozen "
+          "leaves bit-for-bit unchanged", flush=True)
+    _require(counts, list(counts), "training")
+    return counts, ms
+
+
+def phase_train_cpu(cfg, seed: int):
+    """One step of a short clip (T=3, O=4, B=1, 384 px) on the card in bf16
+    (kernels) and on the CPU in float32 (plain versions), from the same
+    weights and clip: the loss and each trainable top-level entry's
+    gradient must agree."""
+    import dataclasses
+
+    out = {}
+    for dev, c in ((DEVICE, cfg),
+                   ("cpu", dataclasses.replace(cfg, compute_dtype="float32"))):
+        params = synthetic_params(c, seed).to(dev)
+        state, step, batch = _train_setup(c, params, dev, 3, 4, 2, 1)
+        _, m, grads = step.with_grads(state, batch)
+        out[dev] = (float(m["total_loss"]),
+                    {n: g.detach().float().cpu() for n, g in grads.items()})
+    (lc, gc), (lp, gp) = out[DEVICE], out["cpu"]
+    rel = abs(lc - lp) / max(abs(lp), 1e-12)
+    print(f"train card vs cpu: loss {lc:.6g} vs {lp:.6g} rel {rel:.4g} "
+          f"(tol {TRAIN_CPU_LOSS_TOL})", flush=True)
+    bad = [] if rel <= TRAIN_CPU_LOSS_TOL else [f"loss rel {rel}"]
+    for top in sorted({n.split(".")[0] for n in gp}):
+        names = [n for n in gp if n.split(".")[0] == top]
+        a = torch.cat([gc[n].flatten() for n in names])
+        b = torch.cat([gp[n].flatten() for n in names])
+        nb = float(b.norm())
+        if nb == 0.0:
+            ok = float(a.norm()) == 0.0
+            print(f"  grad {top}: zero on the cpu, card norm "
+                  f"{float(a.norm()):.4g} {'OK' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                bad.append(f"{top}: nonzero card gradient")
+            continue
+        r = float((a - b).norm()) / nb
+        tol = TRAIN_CPU_GRAD_TOL if len(names) > 1 else TRAIN_CPU_BARE_TOL
+        print(f"  grad {top}: rel_l2 {r:.4g} (|cpu| {nb:.4g}, tol {tol})",
+              flush=True)
+        if not r <= tol:
+            bad.append(f"{top}: rel_l2 {r}")
+    if bad:
+        raise SystemExit("train card vs cpu: " + "; ".join(bad))
 
 
 def main() -> int:
@@ -335,9 +821,11 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
 
+    # the usual configuration; training turns rematerialisation off
     cfg = sam2_mod.SAM2Config(backbone="tiny", image_size=384,
                               compute_dtype="bfloat16", num_maskmem=7,
-                              use_flash_attention=False)
+                              use_flash_attention=True,
+                              use_activation_checkpoint=False)
     params = synthetic_params(cfg, args.seed).to("cuda")
 
     rows = []
@@ -345,13 +833,19 @@ def main() -> int:
         with torch.no_grad():
             rows = phase_kernels(sam2_mod.prepare(params, cfg), cfg,
                                  args.seed, CHUNK, OBJECTS)
+        rows += phase_memattn_kernels(params, cfg, args.seed, OBJECTS)
     launches = {}
+    if "train" in phases:
+        launches, _ = phase_train(cfg, args.seed)
+    if "train_cpu" in phases:
+        phase_train_cpu(cfg, args.seed)
     if "serve" in phases:
-        launches = phase_serve(params, cfg, args.seed, FRAMES, OBJECTS)
+        served = phase_serve(params, cfg, args.seed, FRAMES, OBJECTS)
+        launches = launches or served
     if "cpu" in phases:
         phase_cpu(params, cfg, args.seed, OBJECTS)
 
-    for r in rows:      # null where this run did not drive the serving path
+    for r in rows:      # the train path's counts (else serving's), or null
         r["launches"] = launches.get(r["name"])
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -60,3 +60,37 @@ def prompt_all(pred, state, centres, frame_idx: int = 0):
     for o, (cy, cx) in enumerate(centres):
         pred.add_new_points_or_box(state, frame_idx, o, points=[[cx, cy]],
                                    labels=[1])
+
+
+def example_clip(image_size: int, T: int, O: int, C: int,
+                 B: int | None = None, seed: int = 0):
+    """The JAX package's example clip (``__graft_entry__.py``
+    ``_example_clip``), made with the same numpy calls from ``seed``, so both
+    packages get the same arrays: normal images, two square objects in
+    categories 0 and 1 (the other objects padding), one positive point each.
+    A ``VideoClip``, or a ``VideoClipBatch`` of B copies when B is given."""
+    from .types import VideoClip, VideoClipBatch
+
+    rng = np.random.default_rng(seed)
+    lead = () if B is None else (B,)
+    H = image_size
+    images = rng.standard_normal(lead + (T, H, H, 3)).astype(np.float32)
+    cat_masks = np.zeros(lead + (T, C, H, H), bool)
+    cat_masks[..., 0, H // 8: H // 3, H // 8: H // 3] = True
+    cat_masks[..., 1, H // 2: 7 * H // 8, H // 2: 7 * H // 8] = True
+    obj_masks = np.zeros(lead + (O, H, H), np.float32)
+    obj_masks[..., 0, H // 8: H // 3, H // 8: H // 3] = 1.0
+    obj_masks[..., 1, H // 2: 7 * H // 8, H // 2: 7 * H // 8] = 1.0
+    obj_to_cat = np.broadcast_to(
+        np.asarray([0, 1] + [-1] * (O - 2), np.int32), lead + (O,)).copy()
+    coords = np.zeros(lead + (O, 1, 2), np.float32)
+    coords[..., 0, 0, :] = (H // 4, H // 4)
+    coords[..., 1, 0, :] = (3 * H // 4, 3 * H // 4)
+    labels = np.where(obj_to_cat >= 0, 1, -1)[..., None].astype(np.int32)
+    cls = VideoClip if B is None else VideoClipBatch
+    return cls(images=torch.from_numpy(images),
+               cat_masks=torch.from_numpy(cat_masks),
+               obj_masks=torch.from_numpy(obj_masks),
+               obj_to_cat=torch.from_numpy(obj_to_cat),
+               point_coords=torch.from_numpy(coords),
+               point_labels=torch.from_numpy(labels))

@@ -32,12 +32,12 @@ import torch.nn.functional as F
 
 from ..convert import to_param_tree
 from ..models import sam2 as sam2_mod
-from ..models.sam2 import FLASH_NOT_PORTED, SAM2Config
+from ..models.sam2 import SAM2Config
 from ..ops.position_encoding import sine_pe_2d
 from ..ops.resize import resize_bilinear
 from .utils import select_closest_cond_frames
 
-_LATER = ("is not ported yet: see ROADMAP.md, queue 1, item 5 "
+_LATER = ("is not ported yet: see ROADMAP.md, queue 1, item 7 "
           "(Eval (rest): the predictor features after the first slice)")
 
 
@@ -106,8 +106,6 @@ class VideoPredictor:
         """``params``: a ParamTree, a flat state_dict keyed by the JAX
         paths (torch layout), or a nested JAX parameter tree."""
         self.device = torch.device(device)
-        if cfg.use_flash_attention and self.device.type == "cuda":
-            raise NotImplementedError(FLASH_NOT_PORTED)
         if max_cond_frames != 1:
             raise NotImplementedError(f"max_cond_frames={max_cond_frames} "
                                       + _LATER)

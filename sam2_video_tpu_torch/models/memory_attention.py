@@ -1,17 +1,26 @@
-"""Memory attention, plain path (counterpart of
-``sam2_video_tpu/models/memory_attention.py`` with ``use_flash=False``).
+"""Memory attention (counterpart of
+``sam2_video_tpu/models/memory_attention.py``).
 
 The memory sequence is a fixed-shape concatenation of spatial-memory slots
 and object-pointer tokens; invalid keys are removed by an additive float32
 bias. RoPE runs in the de-interleaved layout: the permutation is applied to
-the q/k projection rows once, by ``prepare``, under the derived entries
-``_qp``/``_kp`` (as in the JAX package). With one head the cross-attention
-commutes the value projection: softmax rows sum to 1, so
-P (m Wv + bv) = (P m) Wv + bv, and PV runs on the raw 64-dim memory.
+the q/k projection rows by ``prepare``, under the derived entries
+``_qp``/``_kp`` (as in the JAX package; under autograd when the weights
+train). With one head the cross-attention commutes the value projection:
+softmax rows sum to 1, so P (m Wv + bv) = (P m) Wv + bv, and PV runs on the
+raw 64-dim memory.
 
-The fused memory-attention kernels (``use_flash_attention=True``) belong
-to a later slice; ``fuse_memory`` refuses that configuration on a CUDA
-tensor.
+``use_flash=True`` takes the fused layer path where the kernels cover the
+configuration (``fused_eligible``: one head, ReLU, the default pos-enc
+flags, d_model 256, kv_in_dim 64): per layer ``fused_self_block`` ->
+``flash_attention_kproj`` -> ``fused_tail_block``, the kernels on a CUDA
+tensor and their plain versions on a CPU tensor. The block kernels take a
+grid of h*w % 32 == 0 tokens; another grid raises on a CUDA tensor
+(ROADMAP.md, queue 2, item 9). Otherwise the layers run plain, with the
+single-head flash-kproj cross-attention where only that kernel applies. A
+flash configuration that needs the generic flash attention (several heads,
+or keys without the k-projection) runs plain on the CPU and raises on a
+CUDA tensor: that kernel is not ported (ROADMAP.md, queue 2, item 7).
 """
 
 from __future__ import annotations
@@ -22,7 +31,10 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import common as nn
+from ..ops import memattn_layer_kernel as mlk
 from ..ops.attention import merge_heads, sdpa, split_heads
+from ..ops.flash_attention import (KERNEL_DIM, KERNEL_KV,
+                                   flash_attention_kproj)
 from ..ops.position_encoding import (apply_rope_half, axial_rope_table_half,
                                      deinterleave_perm)
 
@@ -41,6 +53,32 @@ class MemoryAttentionConfig:
     pos_enc_at_cross_attn_queries: bool = False
     activation: str = "relu"
     use_flash: bool = True
+
+
+GENERIC_FLASH_NOT_PORTED = (
+    "use_flash_attention=True with several heads or without the fused "
+    "k-projection needs the generic flash-attention kernel, which is not "
+    "ported to CUDA yet: see ROADMAP.md, queue 2, item 7")
+RAGGED_GRID_NOT_PORTED = (
+    "the fused memory-attention block kernels take a grid of h*w % 32 == 0 "
+    "tokens; other grids are not ported to CUDA yet: see ROADMAP.md, queue "
+    "2, item 9")
+
+
+def kproj_eligible(cfg: MemoryAttentionConfig) -> bool:
+    """The cross-attention fits ``flash_attention_kproj``: one head (the
+    v-commute), d_model 256 and kv_in_dim 64 (the kernel's widths)."""
+    return (cfg.num_heads == 1 and cfg.d_model == KERNEL_DIM
+            and cfg.kv_in_dim == KERNEL_KV)
+
+
+def fused_eligible(cfg: MemoryAttentionConfig) -> bool:
+    """The whole layer fits the three kernels: the cross-attention's
+    conditions, a ReLU feed-forward and the default pos-enc flags (no
+    positional encoding added inside the blocks)."""
+    return (cfg.use_flash and kproj_eligible(cfg) and cfg.activation == "relu"
+            and not cfg.pos_enc_at_attn
+            and not cfg.pos_enc_at_cross_attn_queries)
 
 
 def _rope_attn_init(gen, embed_dim, num_heads, kv_in_dim=None):
@@ -86,16 +124,21 @@ def _perm(ap, num_heads: int):
 
 
 def prepare(p, cfg: MemoryAttentionConfig) -> dict:
-    """``p`` as a nested dict with the de-interleave permutation applied
-    once to every q/k projection's output rows, under ``_qp``/``_kp`` (the
-    JAX ``prepare``)."""
-    tree = p.tree()
+    """``p`` as a nested dict with the de-interleave permutation applied to
+    every q/k projection's output rows, under ``_qp``/``_kp`` (the JAX
+    ``prepare``). Differentiable: the train step calls it in every step."""
+    tree = p.tree() if isinstance(p, nn.ParamTree) else _copy_tree(p)
     for lp in tree["layers"].values():
         for ap in (lp["self_attn"], lp["cross_attn_image"]):
             perm = _perm(ap, cfg.num_heads)
             ap["_qp"] = _perm_rows(ap["q_proj"], perm)
             ap["_kp"] = _perm_rows(ap["k_proj"], perm)
     return tree
+
+
+def _copy_tree(p: dict) -> dict:
+    return {k: _copy_tree(v) if isinstance(v, dict) else v
+            for k, v in p.items()}
 
 
 def _permed(ap, key: str, num_heads: int):
@@ -124,7 +167,7 @@ def _self_attn(p, cfg, tgt, query_pos, rope_q):
 
 
 def _cross_attn(p, cfg, tgt, memory, query_pos, pos, rope_q, rope_k,
-                num_spatial_k: int, key_valid):
+                num_spatial_k: int, key_valid, feat_hw):
     """q gets RoPE; the leading ``num_spatial_k`` keys get the tiled RoPE,
     the trailing object-pointer keys none; invalid keys get a -1e9 bias."""
     tgt2 = nn.layer_norm(p["norm2"], tgt)
@@ -132,6 +175,18 @@ def _cross_attn(p, cfg, tgt, memory, query_pos, pos, rope_q, rope_k,
     k_in = memory + pos if cfg.pos_enc_at_cross_attn_keys else memory
     ap = p["cross_attn_image"]
     q = nn.linear(_permed(ap, "q_proj", cfg.num_heads), q_in)
+    if cfg.use_flash and kproj_eligible(cfg):
+        # the k-projection and RoPE fused into the attention kernel
+        kp = _permed(ap, "k_proj", cfg.num_heads)
+        key_bias = (torch.where(key_valid, 0.0, -1e9).float()
+                    if key_valid is not None else None)
+        h, w = feat_hw
+        attn = flash_attention_kproj(
+            apply_rope_half(q, *rope_q), k_in, memory, kp["weight"],
+            kp["bias"], key_bias, num_spatial_k, (w, h), cfg.rope_theta)
+        return tgt + nn.linear(ap["out_proj"], nn.linear(ap["v_proj"], attn))
+    if cfg.use_flash and tgt.is_cuda:
+        raise NotImplementedError(GENERIC_FLASH_NOT_PORTED)
     k = nn.linear(_permed(ap, "k_proj", cfg.num_heads), k_in)
     if cfg.num_heads > 1:
         q = split_heads(q, cfg.num_heads)
@@ -176,14 +231,48 @@ def apply(p, cfg: MemoryAttentionConfig, curr, memory, curr_pos, memory_pos,
     output = curr
     if cfg.pos_enc_at_input and curr_pos is not None:
         output = output + 0.1 * curr_pos
+    if fused_eligible(cfg):
+        if curr.is_cuda and h * w % 32:
+            raise NotImplementedError(RAGGED_GRID_NOT_PORTED)
+        return _fused_layers(p, cfg, output, memory, memory_pos, rope_q,
+                             num_spatial_k, key_valid, (w, h))
 
     act = {"relu": F.relu, "gelu": nn.gelu}[cfg.activation]
     for i in range(cfg.num_layers):
         lp = p["layers"][str(i)]
         output = _self_attn(lp, cfg, output, curr_pos, rope_q)
         output = _cross_attn(lp, cfg, output, memory, curr_pos, memory_pos,
-                             rope_q, rope_k, num_spatial_k, key_valid)
+                             rope_q, rope_k, num_spatial_k, key_valid,
+                             feat_hw)
         tgt2 = nn.layer_norm(lp["norm3"], output)
         tgt2 = nn.linear(lp["linear2"], act(nn.linear(lp["linear1"], tgt2)))
         output = output + tgt2
+    return nn.layer_norm(p["norm"], output)
+
+
+def _fused_layers(p, cfg, output, memory, memory_pos, rope_q, num_spatial_k,
+                  key_valid, grid_wh):
+    """Each layer as self block -> flash cross-attention (k-projection and
+    RoPE fused, v-commuted) -> tail block (``ops/memattn_layer_kernel.py``,
+    ``ops/flash_attention.py``), then the final LayerNorm."""
+    k_in = (memory + memory_pos if cfg.pos_enc_at_cross_attn_keys
+            else memory)
+    key_bias = (torch.where(key_valid, 0.0, -1e9).float()
+                if key_valid is not None else None)
+    cos32, sin32 = (t.float() for t in rope_q)
+    for i in range(cfg.num_layers):
+        lp = p["layers"][str(i)]
+        sp, cp = lp["self_attn"], lp["cross_attn_image"]
+        p_self = {"q": _permed(sp, "q_proj", 1), "k": _permed(sp, "k_proj", 1),
+                  "v": sp["v_proj"], "out": sp["out_proj"]}
+        output, q3 = mlk.fused_self_block(
+            p_self, _permed(cp, "q_proj", 1), lp["norm1"], lp["norm2"],
+            output, cos32, sin32)
+        kp = _permed(cp, "k_proj", 1)
+        attn = flash_attention_kproj(q3, k_in, memory, kp["weight"],
+                                     kp["bias"], key_bias, num_spatial_k,
+                                     grid_wh, cfg.rope_theta)
+        output = mlk.fused_tail_block(
+            cp["v_proj"], cp["out_proj"], lp["norm3"], lp["linear1"],
+            lp["linear2"], output, attn)
     return nn.layer_norm(p["norm"], output)

@@ -199,13 +199,16 @@ def apply_unfused(p, cfg: MemoryEncoderConfig, pix_proj, masks):
     return x
 
 
-def apply(p, cfg: MemoryEncoderConfig, pix_feat, masks):
+def apply(p, cfg: MemoryEncoderConfig, pix_feat, masks,
+          allow_fused: bool = True):
     """pix_feat [B, H16, W16, C]; masks [B, H, W, 1], already through the
     scaled sigmoid. Returns (memory [B, H16, W16, out_dim], pos enc
-    [H16, W16, out_dim] float32)."""
+    [H16, W16, out_dim] float32). ``allow_fused`` routes through the
+    forward-only kernel's wrapper, else the plain path (differentiable)."""
     from ..ops.memory_encoder_kernel import fused_memory_encoder
 
     pix_proj = nn.conv2d(p["pix_feat_proj"], pix_feat)
-    x = fused_memory_encoder(p, cfg, pix_proj, masks)
+    x = (fused_memory_encoder(p, cfg, pix_proj, masks) if allow_fused
+         else apply_unfused(p, cfg, pix_proj, masks))
     pos = sine_pe_2d(x.shape[1], x.shape[2], cfg.num_pos_feats).to(x.device)
     return x, pos

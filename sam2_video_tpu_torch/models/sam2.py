@@ -23,11 +23,18 @@ from .hiera import HIERA_PRESETS, HieraConfig
 
 NO_OBJ_SCORE = -1024.0
 
-FLASH_NOT_PORTED = (
-    "use_flash_attention=True runs the fused memory-attention kernels "
-    "(flash_attention_kproj, fused_self_block, fused_tail_block), which are "
-    "not ported to CUDA yet: see ROADMAP.md, queue 2 (TPU kernels to port). "
-    "Build the config with use_flash_attention=False.")
+
+# Named sub-modules for freezing / fine-tuning combos (the JAX package's
+# MODULE_MAPPING, sam2model.py:550-565 of the reference).
+MODULE_MAPPING = {
+    "image_encoder": ("image_encoder",),
+    "memory_attention": ("memory_attention",),
+    "memory_encoder": ("memory_encoder",),
+    "prompt_encoder": ("sam_prompt_encoder",),
+    "mask_decoder": ("sam_mask_decoder",),
+    "obj_ptr_proj": ("obj_ptr_proj",),
+    "obj_ptr_tpos_proj": ("obj_ptr_tpos_proj",),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +95,15 @@ class SAM2Config:
     def dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.compute_dtype == "bfloat16"
                 else torch.float32)
+
+    def bank_dtype(self) -> torch.dtype:
+        return (torch.bfloat16 if self.memory_bank_dtype == "bfloat16"
+                else torch.float32)
+
+    def resolved_remat_mode(self) -> str:
+        if self.remat_mode:
+            return self.remat_mode
+        return "body" if self.use_activation_checkpoint else "none"
 
     @property
     def trunk_config(self) -> HieraConfig:
@@ -188,21 +204,37 @@ def prepare(p: nn.ParamTree, cfg: SAM2Config) -> nn.ParamTree:
     ``add_compute_casts``). ``p`` itself is left as it was. Derived
     entries do not follow a later ``.to`` or change of the parameters:
     prepare the tree again after either."""
-    from ..ops import hiera_block_kernel as hbk
-    from ..ops import memory_encoder_kernel as mek
-
     tree = p.tree()
     tree["memory_attention"] = memory_attention_mod.prepare(
         p["memory_attention"], cfg.memory_attention_config)
-    blocks = tree["image_encoder"]["trunk"]["blocks"]
-    for i, spec in enumerate(cfg.trunk_config.block_specs()):
-        blocks[str(i)]["_ops"] = hbk.pack(blocks[str(i)], spec)
-    if mek.eligible(cfg.memory_encoder_config):
-        tree["memory_encoder"]["_ops"] = mek.pack(
-            tree["memory_encoder"], cfg.memory_encoder_config)
+    return nn.ParamTree(derive(tree, cfg))
+
+
+def derive(tree: dict, cfg: SAM2Config, modules=None) -> dict:
+    """Add the derived entries of the top-level ``modules`` (all when None)
+    to the nested dict ``tree`` in place: the kernels' packed operands,
+    made without gradient (the kernels are forward-only), and the
+    compute-dtype casts, made under autograd. The train step derives its
+    frozen modules once and its trainable ones in every step."""
+    from ..ops import hiera_block_kernel as hbk
+    from ..ops import memory_encoder_kernel as mek
+
+    def want(top):
+        return top in tree and (modules is None or top in modules)
+
+    with torch.no_grad():
+        if want("image_encoder"):
+            blocks = tree["image_encoder"]["trunk"]["blocks"]
+            for i, spec in enumerate(cfg.trunk_config.block_specs()):
+                blocks[str(i)]["_ops"] = hbk.pack(blocks[str(i)], spec)
+        if want("memory_encoder") and mek.eligible(cfg.memory_encoder_config):
+            tree["memory_encoder"]["_ops"] = mek.pack(
+                tree["memory_encoder"], cfg.memory_encoder_config)
     if cfg.dtype() != torch.float32:
-        nn.add_compute_casts(tree, cfg.dtype())
-    return nn.ParamTree(tree)
+        for top, sub in tree.items():
+            if want(top) and isinstance(sub, dict):
+                nn.add_compute_casts(sub, cfg.dtype())
+    return tree
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +246,9 @@ def forward_image(p, cfg: SAM2Config, images: torch.Tensor):
     """images [B, H, W, 3], uint8 (normalised here) or float32 already
     ImageNet-normalised -> dict(backbone_fpn=[s0, s1, s16], vision_pos_enc),
     with levels 0/1 projected by the decoder's conv_s0/conv_s1. The trunk's
-    blocks run through the block kernel's wrapper."""
+    blocks run through the block kernel's wrapper: forward-only on a CUDA
+    tensor, which is right for eval and for a frozen image encoder (the JAX
+    package's ``fused_backbone``); a trainable trunk on the card raises."""
     if images.dtype == torch.uint8:
         mean = torch.as_tensor(IMAGENET_MEAN, device=images.device)
         std = torch.as_tensor(IMAGENET_STD, device=images.device)
@@ -370,20 +404,26 @@ def use_mask_as_output(p, cfg: SAM2Config, backbone_features,
 
 
 def encode_new_memory(p, cfg: SAM2Config, pix_feat, high_res_masks,
-                      object_score_logits, apply_non_overlap=False):
+                      object_score_logits, training=False,
+                      apply_non_overlap=False):
     """pix_feat [B, H16, W16, C] (raw backbone); high_res_masks
     [B, 1, H, W] logits. Returns (mem [B, H16, W16, mem_dim],
     pos [H16, W16, mem_dim]). The encoder runs through the memory-encoder
-    kernel's wrapper (eval only: no gradient reaches it)."""
-    if apply_non_overlap:
+    kernel's wrapper, forward-only, at eval and in training when the bank
+    is detached (its output's only consumer), under ``torch.no_grad``; as
+    in the JAX package (``allow_fused``), training through an attached bank
+    takes the plain, differentiable path, for which there is no kernel."""
+    if apply_non_overlap and not training:
         high_res_masks = apply_non_overlapping_constraints(high_res_masks)
     mask_for_mem = torch.sigmoid(high_res_masks)
     mask_for_mem = (mask_for_mem * cfg.sigmoid_scale_for_mem_enc
                     + cfg.sigmoid_bias_for_mem_enc)
     mask_nhwc = mask_for_mem.permute(0, 2, 3, 1).to(cfg.dtype())
-    mem, pos = memory_encoder_mod.apply(
-        p["memory_encoder"], cfg.memory_encoder_config,
-        pix_feat.to(cfg.dtype()), mask_nhwc)
+    forward_only = (not training) or cfg.detach_memory_bank
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not forward_only):
+        mem, pos = memory_encoder_mod.apply(
+            p["memory_encoder"], cfg.memory_encoder_config,
+            pix_feat.to(cfg.dtype()), mask_nhwc, allow_fused=forward_only)
     if cfg.no_obj_embed_spatial:
         is_obj = (object_score_logits > 0).to(mem.dtype)          # [B, 1]
         mem = mem + (1.0 - is_obj[:, :, None, None]) * \
@@ -438,8 +478,6 @@ def fuse_memory(p, cfg: SAM2Config, layout: MemoryLayout,
     (slot 0 the conditioning frame); spatial_valid [M] bool or None;
     mem_pos_spatial [HW, mem_dim]; tpos_index [M] long; obj_ptrs [P, O, C];
     ptr_valid [P] bool or None; ptr_tpos [P] float. Returns [O, HW, C]."""
-    if cfg.use_flash_attention and curr_feat.is_cuda:
-        raise NotImplementedError(FLASH_NOT_PORTED)
     M, O, HW, mem_dim = spatial_mem.shape
     C = cfg.d_model
     dt = cfg.dtype()

@@ -75,6 +75,24 @@ class ParamTree(nn.Module):
         return out
 
 
+def requires_grad(tree) -> bool:
+    """Whether any parameter of a ParamTree or nested dict requires grad
+    (derived entries, keys starting with ``_``, are not parameters)."""
+    if isinstance(tree, ParamTree):
+        return any(t.requires_grad for t in tree.parameters())
+    return any(requires_grad(v) if isinstance(v, dict) else
+               (isinstance(v, torch.Tensor) and v.requires_grad)
+               for k, v in tree.items() if not k.startswith("_"))
+
+
+def forward_only(name: str, why: str, p, *tensors) -> None:
+    """Raise when a forward-only kernel would have to carry a gradient:
+    grad mode on and a parameter of ``p`` or an input requiring grad."""
+    if torch.is_grad_enabled() and (
+            requires_grad(p) or any(t.requires_grad for t in tensors)):
+        raise NotImplementedError(f"{name} is a forward-only kernel: {why}")
+
+
 # ---------------------------------------------------------------------------
 # Initialisers (torch defaults, drawn from an explicit generator)
 # ---------------------------------------------------------------------------

@@ -36,6 +36,7 @@ import ctypes
 import torch
 
 from ..models import hiera
+from . import common as nn
 from . import kernel_build
 
 
@@ -100,13 +101,21 @@ def _check(x, spec, q_stride, hidden: int):
     return B, H, W, Cin, Cout, heads, hd
 
 
+TRUNK_BACKWARD_NOT_PORTED = (
+    "a trainable image_encoder needs the Hiera block backward kernel "
+    "(fused_block_trainable), which is not ported to CUDA yet: see "
+    "ROADMAP.md, queue 2, item 6")
+
+
 def fused_block(p, x, spec, q_stride, mlp_ratio: float = 4.0):
     """One Hiera block, same contract as ``models/hiera.py`` ``_block``:
-    x [B, H, W, Cin] -> [B, H', W', Cout]."""
+    x [B, H, W, Cin] -> [B, H', W', Cout]. Forward only: on a CUDA tensor
+    it raises where autograd would need the block's backward."""
     if x.device.type == "cpu":
         return fused_block_plain(p, x, spec, q_stride, mlp_ratio)
     if not x.is_cuda:
         raise ValueError(f"fused_block: unsupported device {x.device}")
+    nn.forward_only("fused_block", TRUNK_BACKWARD_NOT_PORTED, p, x)
     hidden = int(spec["dim_out"] * mlp_ratio)
     B, H, W, Cin, Cout, heads, _ = _check(x, spec, q_stride, hidden)
     wsh, wsw = _window(spec, H, W)

@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from ..models import memory_encoder as me
+from . import common as nn
 from . import kernel_build
 
 _NUM_WEIGHTS = 38
@@ -110,6 +111,10 @@ def fused_memory_encoder(p, cfg, pix_proj, masks):
     if not masks.is_cuda:
         raise ValueError(f"fused_memory_encoder: unsupported device "
                          f"{masks.device}")
+    nn.forward_only("fused_memory_encoder", "its output may feed only a "
+                    "detached memory bank (models/sam2.py "
+                    "encode_new_memory runs it under torch.no_grad)", p,
+                    masks, pix_proj)
     if not eligible(cfg):
         raise ValueError("fused_memory_encoder kernel takes the default "
                          "SAM2 geometry (k3/s2/p1 stride-16 downsampler, "

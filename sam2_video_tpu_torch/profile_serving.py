@@ -3,7 +3,7 @@
     python3 -m sam2_video_tpu_torch.profile_serving
 
 Builds the SAM2-tiny 384-px bf16 predictor (``synthetic_params`` weights,
-use_flash_attention=False), warms it up on a video of the same length, then
+the usual use_flash_attention=True), warms it up on a video of the same length, then
 runs under
 ``torch.profiler`` three windows of one synthetic 480x854 video:
 ``encode`` (init_state: resize + trunk + neck), ``prompt`` (8 point
@@ -36,7 +36,7 @@ def _device_us(evt) -> float:
 FRAMES, OBJECTS, SEED, TOP = 8, 8, 0, 8
 
 
-def report(prof, label: str, wall_s: float):
+def report(prof, label: str, wall_s: float, top: int = TOP):
     """Device time counts only device-side events (kernels, copies), so
     an operator and the kernels it launched are not counted twice."""
     avgs = prof.key_averages()
@@ -46,14 +46,14 @@ def report(prof, label: str, wall_s: float):
     dev_us = sum(_device_us(e) for e in events)
     print(f"[{label}] wall {wall_s * 1e3:.3f} ms, device {dev_us / 1e3:.3f} "
           f"ms, busy {dev_us / 1e6 / wall_s:.3f}", flush=True)
-    for e in events[:TOP]:
+    for e in events[:top]:
         print(f"  {_device_us(e) / 1e3:9.3f} ms {e.count:6d}x  "
               f"{e.key[:100]}", flush=True)
     host = sorted((e for e in avgs
                    if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     print(f"  host ops by self CPU time:", flush=True)
-    for e in host[:TOP // 2]:
+    for e in host[:top // 2]:
         print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms {e.count:6d}x  "
               f"{e.key[:100]}", flush=True)
 
@@ -64,8 +64,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    cfg = sam2_mod.SAM2Config(image_size=384, compute_dtype="bfloat16",
-                              use_flash_attention=False)
+    cfg = sam2_mod.SAM2Config(image_size=384, compute_dtype="bfloat16")
     pred = VideoPredictor(synthetic_params(cfg, SEED), cfg,
                           max_objects=OBJECTS, device="cuda")
     # warm up at the profiled length: new batch shapes pay one-time costs

@@ -1,0 +1,66 @@
+"""Where the headline train step's device time goes, on one NVIDIA GPU.
+
+    python3 -m sam2_video_tpu_torch.profile_train
+
+Builds the train step of ``bench.py``'s headline configuration in the port
+(SAM2-tiny 384 px, bf16, T=10, O=8, C=7, B=2, point prompts, trainable
+memory attention and memory encoder, AdamW lr 1e-4; ``synthetic_params``
+weights, the example clip), runs one warm-up step, then one step under
+``torch.profiler``. Prints the step's wall time, the summed device (kernel)
+time, the device busy share, the kernels that take the most device time
+and the host operations that take the most CPU time (``profile_serving``'s
+report).
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from .data.synthetic import example_clip, synthetic_params
+from .models import sam2 as sam2_mod
+from .models.video_model import VideoModelConfig
+from .profile_serving import report
+from .training.loop import TrainState, make_train_step
+from .training.losses import LossConfig
+from .training.optimizer import make_optimizer
+
+T, O, C, B, SEED = 10, 8, 7, 2, 0
+TRAINABLE = ["memory_attention", "memory_encoder"]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    cfg = sam2_mod.SAM2Config(image_size=384, compute_dtype="bfloat16",
+                              use_flash_attention=True,
+                              use_activation_checkpoint=False)
+    params = synthetic_params(cfg, SEED).to("cuda")
+    tx = make_optimizer(params, {"lr": 1e-4, "type": "AdamW"},
+                        {"enabled": False}, total_steps=1000,
+                        trainable_modules=TRAINABLE)
+    step = make_train_step(VideoModelConfig(sam2=cfg), LossConfig(), tx,
+                           trainable_modules=TRAINABLE, device="cuda")
+    state = TrainState.create(params, tx)
+    batch = example_clip(cfg.image_size, T=T, O=O, C=C, B=B).to("cuda")
+    state, _ = step(state, batch)                  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report(prof, f"train step B={B} T={T} O={O}", wall, top=16)
+    print(f"loss {float(metrics['total_loss']):.6g}", flush=True)
+    print(torch.cuda.get_device_name(0), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -13,7 +13,12 @@ which would hide both CXBlocks of the memory encoder).
 Tolerance: 2e-2 of max(1, |plain|). Both sides run in bf16, but the plain
 version rounds to bf16 after every op and the kernels once per fused
 epilogue, so they differ by a few bf16 ulps (2^-8 relative each).
+``flash_attention_kproj``'s output and its dq, dkin and dv are softmax
+averages well below 1 in size, so its limit is 2e-2 of max|plain| of each
+tensor, with no floor of 1.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -26,6 +31,10 @@ from sam2_video_tpu_torch.ops import hiera_block_kernel as hbk
 from sam2_video_tpu_torch.ops import memory_encoder_kernel as mek
 
 TOL = 2e-2
+# fused_tail_block's 512 px gradients against float32, relative L2: within
+# REL_L2, or within REL_RATIO times the plain bf16 version's own distance
+# (dy and da sit ~4% from float32 in both: ReLU units near zero flip)
+REL_L2, REL_RATIO = 2e-2, 1.5
 
 
 @pytest.fixture(scope="module")
@@ -38,11 +47,11 @@ def card():
     return cfg, synthetic_params(cfg, seed=0).to("cuda")
 
 
-def _assert_close(got, want):
+def _assert_close(got, want, floor=1.0):
     got, want = got.float(), want.float()
     assert got.shape == want.shape
     assert torch.isfinite(got).all()
-    scale = max(1.0, want.abs().max().item())
+    scale = max(floor, want.abs().max().item())
     assert (got - want).abs().max().item() <= TOL * scale
 
 
@@ -93,3 +102,192 @@ def test_kernels_refuse_float32_on_the_card(card):
     with pytest.raises(TypeError, match="bfloat16"):
         hbk.fused_block(params["image_encoder"]["trunk"]["blocks"]["0"], x,
                         tcfg.block_specs()[0], tcfg.q_stride)
+
+
+def _vjp(fn, inputs, cots):
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return outs, torch.autograd.grad(outs, leaves, cots)
+
+
+def _rel_l2(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def _check_vjp(kernel_fn, plain_fn, inputs, cots, floor=1.0,
+               grads_vs_f32=False):
+    """Outputs and the VJP of the same cotangents of the kernel and of the
+    plain version (autograd through its forward), each within TOL of
+    max(floor, max|plain|). With ``grads_vs_f32`` the gradients are held
+    instead to the plain version run in float32 on the same values, by
+    relative L2: within REL_L2, or within REL_RATIO times the plain bf16
+    version's own distance from float32."""
+    outs, grads = _vjp(kernel_fn, inputs, cots)
+    p_outs, p_grads = _vjp(plain_fn, inputs, cots)
+    for got, want in zip(outs, p_outs, strict=True):
+        _assert_close(got, want, floor)
+    if not grads_vs_f32:
+        for got, want in zip(grads, p_grads, strict=True):
+            _assert_close(got, want, floor)
+        return
+    _, f_grads = _vjp(plain_fn, [t.float() for t in inputs],
+                      [c.float() for c in cots])
+    bad = []
+    for i, (got, plain, want) in enumerate(zip(grads, p_grads, f_grads,
+                                               strict=True)):
+        assert torch.isfinite(got).all()
+        rel, rel_plain = _rel_l2(got, want), _rel_l2(plain, want)
+        print(f"gradient {i}: rel_l2 to float32: kernel {rel:.4g}, "
+              f"plain bf16 {rel_plain:.4g}")
+        if rel > max(REL_L2, REL_RATIO * rel_plain):
+            bad.append((i, rel, rel_plain))
+    assert not bad, bad
+
+
+def _layer(params, cfg):
+    from sam2_video_tpu_torch.models import memory_attention as ma
+    return ma.prepare(params["memory_attention"],
+                      cfg.memory_attention_config)["layers"]["1"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("image_size, objects", [(384, 8), (512, 16)])
+def test_memattn_blocks_match_plain(card, image_size, objects):
+    """Kernels #4 and #5, forward and backward, at the 384 px training
+    grid (576 tokens, 8 objects) and the 512 px one (1024 tokens, two clips
+    of 8 objects stacked).
+
+    The tail's ReLU backward is discontinuous: where a pre-activation
+    rounds to zero in one product and not in the other (the kernel and
+    cuBLAS sum in different orders), the two masks differ, and one such
+    unit moves a row of the gradient by |dr| |W1| ~ 0.5. At 512 px with 16
+    objects (34M pre-activations) that reached 2.6% of the max-abs scale
+    on the card. So at 512 px the tail's gradients are held to the plain
+    version in float32 by relative L2, where a few flipped units weigh
+    what they are, and a wrong mask or a lost partial does not pass."""
+    from sam2_video_tpu_torch.ops import memattn_layer_kernel as mlk
+    from sam2_video_tpu_torch.ops.position_encoding import \
+        axial_rope_table_half
+
+    cfg, params = card
+    lp = _layer(params, cfg)
+    sp, cp = lp["self_attn"], lp["cross_attn_image"]
+    F = image_size // 16
+    gen = torch.Generator().manual_seed(image_size)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to("cuda", torch.bfloat16)
+
+    cos, sin = axial_rope_table_half(256, F, F, device="cuda")
+    w = [lp["norm1"]["weight"], lp["norm1"]["bias"], sp["_qp"]["weight"],
+         sp["_qp"]["bias"], sp["_kp"]["weight"], sp["_kp"]["bias"],
+         sp["v_proj"]["weight"], sp["v_proj"]["bias"],
+         sp["out_proj"]["weight"], sp["out_proj"]["bias"],
+         lp["norm2"]["weight"], lp["norm2"]["bias"], cp["_qp"]["weight"],
+         cp["_qp"]["bias"]]
+
+    def self_fn(fn):
+        def run(x, *w):
+            lin = lambda i: {"weight": w[i], "bias": w[i + 1]}  # noqa: E731
+            return fn({"q": lin(2), "k": lin(4), "v": lin(6),
+                       "out": lin(8)}, lin(12), lin(0), lin(10), x, cos, sin)
+        return run
+
+    x = rnd(objects, F * F, 256)
+    launches = (mlk.fused_self_block.launches,
+                mlk.fused_self_block.backward_launches)
+    _check_vjp(self_fn(mlk.fused_self_block),
+               self_fn(mlk.fused_self_block_plain), [x] + w,
+               [rnd(*x.shape), rnd(*x.shape)])
+    assert (mlk.fused_self_block.launches,
+            mlk.fused_self_block.backward_launches) == \
+        (launches[0] + 1, launches[1] + 1)
+
+    t = [cp["v_proj"]["weight"], cp["v_proj"]["bias"],
+         cp["out_proj"]["weight"], cp["out_proj"]["bias"],
+         lp["norm3"]["weight"], lp["norm3"]["bias"],
+         lp["linear1"]["weight"], lp["linear1"]["bias"],
+         lp["linear2"]["weight"], lp["linear2"]["bias"]]
+
+    def tail_fn(fn):
+        def run(y, a, *w):
+            lin = lambda i: {"weight": w[i], "bias": w[i + 1]}  # noqa: E731
+            return fn(lin(0), lin(2), lin(4), lin(6), lin(8), y, a)
+        return run
+
+    _check_vjp(tail_fn(mlk.fused_tail_block),
+               tail_fn(mlk.fused_tail_block_plain),
+               [x, rnd(objects, F * F, 64)] + t, [rnd(*x.shape)],
+               grads_vs_f32=image_size == 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("image_size, objects, slots, ptr_tokens, masked", [
+    (384, 8, 1, 4, False),      # training, frame 1: Lk = 580
+    (384, 8, 7, 36, False),     # training, frame 9: Lk = 4068
+    (384, 8, 7, 64, True),      # serving: Lk = 4096, two invalid slots
+    (512, 16, 7, 36, False),    # 512 px, two clips stacked: Lk = 7204
+])
+def test_flash_attention_kproj_matches_plain(card, image_size, objects, slots,
+                                             ptr_tokens, masked):
+    from sam2_video_tpu_torch.ops import flash_attention as fa
+
+    cfg, params = card
+    kp = _layer(params, cfg)["cross_attn_image"]["_kp"]
+    F = image_size // 16
+    HW = F * F
+    nsp = slots * HW
+    Lk = nsp + ptr_tokens
+    gen = torch.Generator().manual_seed(Lk)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to("cuda", torch.bfloat16)
+
+    bias = None
+    if masked:
+        valid = torch.ones(Lk, dtype=torch.bool)
+        valid[2 * HW: 4 * HW] = False
+        bias = torch.where(valid, 0.0, -1e9).float().cuda()
+
+    def run(fn):
+        return lambda q, kin, v, w, b: fn(q, kin, v, w, b, bias, nsp, (F, F))
+
+    launches = fa.flash_attention_kproj.backward_launches
+    _check_vjp(run(fa.flash_attention_kproj),
+               run(fa.flash_attention_kproj_plain),
+               [rnd(objects, HW, 256), rnd(objects, Lk, 64),
+                rnd(objects, Lk, 64), kp["weight"], kp["bias"]],
+               [rnd(objects, HW, 64)], floor=0.0)
+    assert fa.flash_attention_kproj.backward_launches == launches + 1
+
+
+@pytest.mark.cuda
+def test_memattn_kernels_refuse_float32_on_the_card(card):
+    from sam2_video_tpu_torch.ops import flash_attention as fa
+    from sam2_video_tpu_torch.ops import memattn_layer_kernel as mlk
+
+    x = torch.zeros((1, 64, 256), device="cuda")
+    with pytest.raises(TypeError, match="bfloat16"):
+        mlk.fused_tail_block(None, None, None, {"weight": x}, None, x,
+                             x[..., :64])
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attention_kproj(x, x[..., :64], x[..., :64], None, None,
+                                 None, 64, (8, 8))
+
+
+@pytest.mark.cuda
+def test_fused_memory_attention_refuses_a_ragged_grid_on_the_card(card):
+    """The block kernels take h*w % 32 == 0 tokens: a 6x6 grid raises on a
+    CUDA tensor instead of running the layers plain."""
+    from sam2_video_tpu_torch.models import memory_attention as ma
+
+    cfg, params = card
+    mcfg = dataclasses.replace(cfg.memory_attention_config, use_flash=True)
+    assert ma.fused_eligible(mcfg)
+    curr = torch.zeros((2, 36, 256), device="cuda", dtype=torch.bfloat16)
+    mem = torch.zeros((2, 36 + 4, 64), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="queue 2, item 9"):
+        ma.apply(params["memory_attention"], mcfg, curr, mem, None, mem,
+                 feat_hw=(6, 6), num_spatial_k=36)

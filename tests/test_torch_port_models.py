@@ -411,13 +411,37 @@ def test_block_specs_and_presets_match_jax():
         jie.ImageEncoderConfig().backbone_channel_list
 
 
-def test_flash_config_refused_on_cuda_tensor():
-    """use_flash_attention=True has no CUDA port yet: fuse_memory says so
-    instead of switching config (checked before any tensor is read)."""
-    cfg = tsam2.SAM2Config(use_flash_attention=True)
-
-    class _CudaLike:
-        is_cuda = True
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsam2.fuse_memory(None, cfg, None, _CudaLike(), *([None] * 8))
+def test_fuse_memory_with_flash_attention_matches_jax(params):
+    """use_flash_attention=True: the port's fused layer path (the plain
+    versions of kernels #3-#5 on the CPU) against the JAX package's
+    fuse_memory, over 3 spatial slots (one invalid) and 4 pointer slots."""
+    jp, tp = params
+    kw = dict(KW, use_flash_attention=True)
+    jcfg, tcfg = jsam2.SAM2Config(**kw), tsam2.SAM2Config(**kw)
+    assert tma.fused_eligible(tcfg.memory_attention_config)
+    g = _rng(13)
+    F, C, D, O = IMG // 16, 256, 64, 2
+    HW = F * F
+    layout_j = jsam2.MemoryLayout(num_maskmem=3, tokens_per_slot=HW,
+                                  num_ptrs=4, tokens_per_ptr=4)
+    layout_t = tsam2.MemoryLayout(**vars(layout_j))
+    curr = g.standard_normal((O, HW, C))
+    curr_pos = np.asarray(jsine(F, F, C)).reshape(HW, C)
+    spatial = g.standard_normal((3, O, HW, D))
+    sv = np.asarray([True, False, True])
+    mem_pos = np.asarray(jsine(F, F, D)).reshape(HW, D)
+    tpos = np.asarray([6, 0, 1], np.int32)
+    ptrs = g.standard_normal((4, O, C))
+    pv = np.asarray([True, True, True, False])
+    ptpos = np.asarray([3.0, 1.0, 2.0, 3.0], np.float32)
+    want = _jit(lambda p, *a: jsam2.fuse_memory(
+        p, jcfg, layout_j, *a, training=False, t_diff_max=3),
+        jp, *(jnp.asarray(a, jnp.float32) for a in (curr, curr_pos, spatial)),
+        jnp.asarray(sv), jnp.asarray(mem_pos, jnp.float32),
+        jnp.asarray(tpos), jnp.asarray(ptrs, jnp.float32), jnp.asarray(pv),
+        jnp.asarray(ptpos))
+    got = tsam2.fuse_memory(
+        tp, tcfg, layout_t, _t(curr), _t(curr_pos), _t(spatial),
+        torch.from_numpy(sv), _t(mem_pos), torch.from_numpy(tpos).long(),
+        _t(ptrs), torch.from_numpy(pv), _t(ptpos), t_diff_max=3)
+    _close(got, want, MOD_TOL)

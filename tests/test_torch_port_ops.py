@@ -326,7 +326,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, json, sam2_video_tpu_torch, "
             "sam2_video_tpu_torch.eval.predictor, "
             "sam2_video_tpu_torch.ops.hiera_block_kernel, "
-            "sam2_video_tpu_torch.ops.memory_encoder_kernel; "
+            "sam2_video_tpu_torch.ops.memory_encoder_kernel, "
+            "sam2_video_tpu_torch.ops.flash_attention, "
+            "sam2_video_tpu_torch.ops.memattn_layer_kernel, "
+            "sam2_video_tpu_torch.training.loop, "
+            "sam2_video_tpu_torch.profile_train; "
             "print(json.dumps(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'sam2_video_tpu'))))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
