@@ -3,7 +3,7 @@
 NVIDIA GPU. Run from the repository root:
 
     python3 chip_smoke.py [--seed 0]
-        [--phases build,kernels,train,train_cpu,serve,cpu]
+        [--phases build,kernels,train,train_all,train_cpu,serve,cpu]
 
 Phases (all by default):
   build      compile every CUDA kernel from csrc/ (one nvcc per source, all
@@ -17,16 +17,26 @@ Phases (all by default):
              #5 fused_tail_block (8 objects, 576 tokens) and #3
              flash_attention_kproj (Lk 580 and 4068 in training, 4096 with
              two invalid slots in serving; its limit is 2e-2 of max|plain|
-             of each tensor, the others' of max(1, max|plain|))
+             of each tensor, the others' of max(1, max|plain|)); #6, the
+             trunk's backward (B1 + B2 of fused_block_trainable), for each
+             of the 12 blocks (every geometry class) at 10 frames of 384 px,
+             dx and every parameter gradient (on q-pool blocks, those a 2x2
+             max-pool routes by relative L2, POOL_REL_L2)
   train      the headline train step (SAM2-tiny 384 px, bf16, T=10, O=8,
              C=7, B=2, point prompts, trainable memory attention and memory
              encoder, AdamW lr 1e-4): 1 warm-up and 5 timed steps; finite
              losses, frozen leaves bit-for-bit unchanged, every memory
              attention leaf moved, every kernel (and the three backward
-             programs) launched
+             programs) launched but #6
+  train_all  the all-trainable step (the same shapes, every module but the
+             pointer projections trainable: the trunk runs #1 forward and
+             #6 backward): 1 warm-up and 5 timed steps; finite losses,
+             every image encoder leaf moved and every decoder and prompt
+             encoder leaf with a gradient, every kernel launched
   train_cpu  one step of a short clip (T=3, O=4, 384 px) on the card (bf16)
-             and on the CPU (float32, plain versions): loss and each
-             trainable top-level entry's gradient must agree
+             and on the CPU (float32, plain versions), memory-only and
+             all-trainable: loss and each trainable top-level entry's
+             gradient must agree
   serve      the streaming VideoPredictor in the usual configuration
              (use_flash_attention=True, 384 px, bf16, 8 objects, 7 memory
              slots): 2 synthetic 480x854 videos, point prompts on frame 0,
@@ -43,7 +53,8 @@ CXBlocks) and the object-score head's last bias at +10, so every object
 reads present and the card-vs-CPU check compares mask logits rather than a
 presence threshold. TF32 is off for both matmuls and cuDNN. The last lines
 are the card's name and power limit, a JSON line of per-kernel numbers
-(``launches`` from the train phase, else the serve phase, else null), and
+(``launches`` from the train phase, #6's from train_all, else the serve
+phase, else null), and
 {"ok": true, "device": ...}.
 The script needs the repository beside it and a CUDA device; without
 either it exits non-zero and prints no result.
@@ -71,7 +82,8 @@ KERNEL_TOL = 2e-2             # of max(1, |plain|): bf16 rounding points differ
 # O(1) values, well below 1: its limit is KERNEL_TOL of max|plain| itself
 KPROJ_FLOOR = 0.0
 CPU_REL_L2_TOL = 0.1          # card bf16 vs CPU float32, over 4 frames
-PHASES = ("build", "kernels", "train", "train_cpu", "serve", "cpu")
+PHASES = ("build", "kernels", "train", "train_all", "train_cpu", "serve",
+          "cpu")
 DEVICE = "cuda"
 FRAMES, OBJECTS, CHUNK = 16, 8, 8   # frames per video, objects, encode chunk
 TINY_GEOMETRY = {0: "window 8, no pad", 1: "q-pool, even window 8",
@@ -511,6 +523,301 @@ def phase_memattn_kernels(params, cfg, seed: int, objects: int):
     return rows
 
 
+def hiera_block_bwd_cost(spec, B: int, H: int, W: int, mlp_ratio: float,
+                         n_params: int, tensors):
+    """(flops, bytes) of kernel #6 for one block, recompute included. B1,
+    over the Mo output tokens: the W1 product again, then dh, dW1, dW2 and
+    dy_ln (5 x 2 Mo C hid). B2: qkv (2 Mi Cin 3C) and, on dim-change
+    blocks, the shortcut (2 Mi Cin C) again; dO = dx1 Wproj and dWproj
+    (2 Mo C C each); the attention's output again (S = QK^T, PV) and its
+    backward (dP, dv, dq, dk): 6 products of 2 keys C per kept query,
+    against every key of its window, pad keys included (the kernel's
+    second pass computes S and dP again, a cost of its design, not of the
+    function); dWqkv and dxn (2 Mi 3C Cin each); dWsc and its share of dxn
+    (2 Mi C Cin each). Bytes: x, x1, dy and dx once, the bf16 weights read
+    and their float32 gradients written once."""
+    ci, co = spec["dim"], spec["dim_out"]
+    hid = int(co * mlp_ratio)
+    ws = spec["window_size"]
+    keys = H * W if ws == 0 else ws * ws
+    Ho, Wo = (H // 2, W // 2) if spec["q_pool"] else (H, W)
+    Mi, Mo = B * H * W, B * Ho * Wo
+    flops = (5 * 2 * Mo * co * hid + 2 * Mi * ci * 3 * co
+             + 2 * 2 * Mo * co * co + 6 * 2 * Mo * keys * co
+             + 2 * 2 * Mi * 3 * co * ci)
+    if ci != co:
+        flops += 3 * 2 * Mi * ci * co
+    return flops, _nbytes(*tensors) + 6 * n_params
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def _pool_rule_flips(v) -> int:
+    """2x2 cells of v [B, H, W, C] (the plain version's pre-pool values)
+    where torch's max_pool2d backward (first maximum in row-major order)
+    and the JAX rule the kernel follows (column pair first, then the row;
+    the first on a tie) route the gradient to different elements: cells
+    that hold a tie."""
+    B, H, W, C = v.shape
+    c = v[:, :H // 2 * 2, :W // 2 * 2].float().reshape(
+        B, H // 2, 2, W // 2, 2, C).permute(0, 1, 3, 5, 2, 4).reshape(-1, 4)
+    torch_pick = c.argmax(-1)
+    col = (torch.maximum(c[:, 0], c[:, 2]) < torch.maximum(c[:, 1], c[:, 3]))
+    top = torch.where(col, c[:, 1], c[:, 0])
+    bot = torch.where(col, c[:, 3], c[:, 2])
+    jax_pick = 2 * (top < bot).long() + col.long()
+    return int((torch_pick != jax_pick).sum())
+
+
+# kernel #6 on q-pool blocks: the gradients that a 2x2 max-pool routes (dx,
+# the LN1 weight's, dWqkv's q rows, dWsc) are held to the plain version by
+# relative L2. Where a 2x2 cell of the pre-pool values (the shortcut's s,
+# attention's q) holds a tie, torch's max_pool2d autograd and the kernel's
+# JAX rule route its gradient to different elements, and near-ties flip
+# where the kernel and the plain version round their pre-pool values
+# differently; each flip moves one whole contribution between two tokens,
+# which a max-abs check reads as an error of the contribution's size. The
+# routing sums (dbsc, dbqkv, the LN1 bias's) keep the max-abs check.
+POOL_REL_L2 = 5e-2
+POOL_ROUTED = ("dx", "dnorm1.weight", "dattn.qkv.weight", "dproj.weight")
+# The same tensors against the plain version with the kernel's walk (the
+# JAX pool rule, one rounding per product, so the pre-pool values agree up
+# to float32 summation order, and so do the tie cells): 0.005-0.007 on the
+# H100, every other tensor's level; the plain version's two roundings
+# (product, then bias) tie other cells, hence its 0.04. A kernel that
+# routes a tie to the last maximum instead read 0.026-0.061 there.
+POOL_WALK_REL_L2 = 1e-2
+
+
+class _MaxPoolJaxRule(torch.autograd.Function):
+    """2x2 max-pool of [N, H, W, C] whose backward routes as JAX's
+    _unpool2x2_rows_cols (and kernel #6): to the column whose row-pair max
+    is larger, then to the larger row, the first on a tie. A yardstick for
+    the q-pool blocks only (``_plain_kernel_walk``): the plain version
+    keeps torch's rule."""
+
+    @staticmethod
+    def forward(ctx, x, window, stride):
+        ctx.save_for_backward(x)
+        return torch.nn.functional.max_pool2d(
+            x.permute(0, 3, 1, 2), window, stride).permute(0, 2, 3, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        N, H, W, C = x.shape
+        Ho, Wo = H // 2, W // 2
+        c = x[:, :2 * Ho, :2 * Wo].float().reshape(N, Ho, 2, Wo, 2, C)
+        v00, v01 = c[:, :, 0, :, 0], c[:, :, 0, :, 1]
+        v10, v11 = c[:, :, 1, :, 0], c[:, :, 1, :, 1]
+        col = torch.maximum(v00, v10) < torch.maximum(v01, v11)
+        row = torch.where(col, v01 < v11, v00 < v10)
+        dx = torch.zeros((N, Ho, 2, Wo, 2, C), dtype=g.dtype,
+                         device=g.device)
+        for r in (0, 1):
+            for cc in (0, 1):
+                hit = (row == bool(r)) & (col == bool(cc))
+                dx[:, :, r, :, cc] = torch.where(hit, g, torch.zeros_like(g))
+        out = torch.zeros_like(x)
+        out[:, :2 * Ho, :2 * Wo] = dx.reshape(N, 2 * Ho, 2 * Wo, C)
+        return out, None, None
+
+
+def _plain_kernel_walk(p, x, spec, q_stride, mlp_ratio):
+    """The plain block with the kernel's walk: JAX's max-pool backward rule
+    and the kernel's rounding points in its products (bf16 weights,
+    acc + float32 bias, one bf16 rounding), so that its pre-pool values
+    are the kernel's up to float32 summation order."""
+    import torch.nn.functional as F
+
+    from sam2_video_tpu_torch.ops import common as nn
+    from sam2_video_tpu_torch.ops import hiera_block_bwd as hbb
+
+    def linear(pp, v):
+        b = pp.get("bias")
+        return F.linear(v.float(), pp["weight"].to(v.dtype).float(),
+                        None if b is None else b.float()).to(v.dtype)
+
+    saved = nn.max_pool2d, nn.linear
+    nn.max_pool2d, nn.linear = _MaxPoolJaxRule.apply, linear
+    try:
+        return hbb.fused_block_trainable_plain(p, x, spec, q_stride,
+                                               mlp_ratio)
+    finally:
+        nn.max_pool2d, nn.linear = saved
+
+
+# kernel #6, blocks without a dim change: dx = dy + the two branches'
+# LayerNorm backwards, and the identity part, the random cotangent, is
+# several times larger than the branches, so the max-abs check of dx reads
+# their error against the cotangent's size. The branches' part, dx - dy,
+# is held to the plain version's by relative L2 too (0.006-0.011 on the
+# H100). A LayerNorm's input gradient sums to zero over the channels, so
+# the row means of dx - dy are rounding noise; theirs (RMS over the rows)
+# may be at most ROW_MEAN_RATIO times the plain version's. An LN1
+# backward without its mean term read 0.016-0.037 by relative L2 and
+# passed at the global blocks.
+BRANCH_REL_L2 = 2e-2
+ROW_MEAN_RATIO = 2.0
+
+
+def _trunk_blocks(cfg):
+    """(block index, spec, input grid side, geometry class) of every block
+    of the trunk at cfg.image_size."""
+    from sam2_video_tpu_torch.ops import hiera_block_bwd as hbb
+
+    H, out = cfg.image_size // 4, []
+    for i, spec in enumerate(cfg.trunk_config.block_specs()):
+        out.append((i, spec, H, hbb.geometry(spec, H, H)))
+        if spec["q_pool"]:
+            H //= 2
+    return out
+
+
+def _trunk_classes(cfg) -> list:
+    return list(dict.fromkeys(g for *_, g in _trunk_blocks(cfg)))
+
+
+def phase_hiera_bwd_kernels(params, cfg, seed: int, frames: int):
+    """Kernel #6 (B1 + B2, through ``fused_block_trainable``'s autograd
+    Function) against autograd through the plain bf16 block, for each of
+    the 12 blocks of the tiny trunk (every geometry class) at the training
+    shape: ``frames`` frames of 384 px per call, ``synthetic_params``
+    weights, one random cotangent. Returns one JSON row per geometry
+    class: ms, plain ms and bound of one call, averaged over the class's
+    blocks, and its worst error."""
+    from sam2_video_tpu_torch.ops import common as nn
+    from sam2_video_tpu_torch.ops import hiera_block_bwd as hbb
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(seed + 11)
+    tcfg = cfg.trunk_config
+    trunk = params["image_encoder"]["trunk"]
+    failures = []
+    k_ms = p_ms = b_ms = 0.0
+    classes: dict = {}
+    for i, spec, H, geom in _trunk_blocks(cfg):
+        bp = trunk["blocks"][str(i)]
+        names = [".".join(pt) for pt in hbb.paths(spec)]
+        w0 = hbb.leaves(bp, spec)
+        x = torch.randn((frames, H, H, spec["dim"]), generator=gen).to(
+            dev, torch.bfloat16)
+        res = {}
+        runs = [("kernel", hbb.fused_block_trainable),
+                ("plain", hbb.fused_block_trainable_plain)]
+        if spec["q_pool"]:
+            runs.append(("kernel_walk", _plain_kernel_walk))
+        for kind, fn in runs:
+            w = _leaves(w0)
+            xl = x.detach().clone().requires_grad_(True)
+            out = fn(hbb.block_params(w, spec), xl, spec, tcfg.q_stride,
+                     tcfg.mlp_ratio)
+            if kind == "kernel":
+                cot = torch.randn(out.shape, generator=gen).to(
+                    dev, torch.bfloat16)
+            grads = torch.autograd.grad(out, [xl] + w, cot, retain_graph=True)
+            t_b = (_time_backward(out, [xl] + w, cot)
+                   if kind != "kernel_walk" else 0.0)
+            res[kind] = (out, grads, t_b)
+            del out
+        torch.cuda.synchronize()
+        (ko, kg, kb), (po, pg, pb) = res["kernel"], res["plain"]
+        labels = ["dx"] + ["d" + n for n in names]
+        rel_checked = set(POOL_ROUTED) if spec["q_pool"] else set()
+        each, errs = [], []
+        for name, a, b in zip(labels, kg, pg, strict=True):
+            a32, b32 = a.float(), b.float()
+            err = (a32 - b32).abs().max().item()
+            scale = max(1.0, b32.abs().max().item())
+            rel = _rel_l2(a32, b32)
+            finite = bool(torch.isfinite(a32).all())
+            if name in rel_checked:
+                ok = finite and rel <= POOL_REL_L2
+                kw = res["kernel_walk"][1][labels.index(name)].float()
+                rel_kw = _rel_l2(a32, kw)
+                ok = ok and rel_kw <= POOL_WALK_REL_L2
+                each.append(f"{name}: rel_l2 {rel:.3g} (err/scale "
+                            f"{err / scale:.3g}; to the kernel walk: rel_l2 "
+                            f"{rel_kw:.3g}, err/scale "
+                            f"{(a32 - kw).abs().max().item() / scale:.3g})")
+            else:
+                ok = finite and err <= KERNEL_TOL * scale
+                errs.append(err)
+                each.append(f"{name}: {err / scale:.3g} (rel_l2 {rel:.3g})")
+            if name == "dx" and a.shape == cot.shape:
+                ka, pa = a32 - cot.float(), b32 - cot.float()
+                rel_br = _rel_l2(ka, pa)
+                top = max(pa.abs().max().item(), 1e-30)
+                k_mean = float(ka.mean(-1).square().mean().sqrt())
+                p_mean = float(pa.mean(-1).square().mean().sqrt())
+                ok = (ok and rel_br <= BRANCH_REL_L2
+                      and k_mean <= ROW_MEAN_RATIO * p_mean)
+                each[-1] += (f" [branches dx - dy: rel_l2 {rel_br:.3g} <= "
+                             f"{BRANCH_REL_L2}, err/max "
+                             f"{(ka - pa).abs().max().item() / top:.3g}; "
+                             f"row means rms {k_mean:.3g} <= "
+                             f"{ROW_MEAN_RATIO} x plain {p_mean:.3g}]")
+            if not ok:
+                failures.append(f"block {i} {name}: max_abs_err {err:.4g} "
+                                f"(limit {KERNEL_TOL * scale:.4g}), rel_l2 "
+                                f"{rel:.4g} (see {each[-1]})")
+                print("FAIL " + failures[-1], flush=True)
+        flips = ""
+        if spec["q_pool"]:
+            with torch.no_grad():
+                xn = nn.layer_norm(bp["norm1"], x, eps=1e-6)
+                s_pre = nn.linear(bp["proj"], xn)
+                co = spec["dim_out"]
+                q_pre = nn.linear({"weight": bp["attn"]["qkv"]["weight"][:co],
+                                   "bias": bp["attn"]["qkv"]["bias"][:co]},
+                                  xn)
+            flips = (f" tie cells routed apart: shortcut "
+                     f"{_pool_rule_flips(s_pre)}, q {_pool_rule_flips(q_pre)}"
+                     f" of {s_pre.numel() // 4}; "
+                     f"{', '.join(POOL_ROUTED)} by rel_l2 <= {POOL_REL_L2}, "
+                     f"to the kernel walk <= {POOL_WALK_REL_L2}")
+        fl, nb = hiera_block_bwd_cost(spec, frames, H, H, tcfg.mlp_ratio,
+                                      sum(t.numel() for t in w0),
+                                      [x, ko, cot, kg[0]])
+        b, by = bound_ms(fl, nb)
+        k_ms, p_ms, b_ms = k_ms + kb, p_ms + pb, b_ms + b
+        c = classes.setdefault(geom, dict(ms=[], plain=[], bound=[], err=0.0,
+                                          by=by, blocks=[]))
+        c["ms"].append(kb)
+        c["plain"].append(pb)
+        c["bound"].append(b)
+        c["err"] = max([c["err"]] + errs)
+        c["blocks"].append(i)
+        print(f"fused_block_trainable_bwd[{i:2d}] {geom:32s} "
+              f"x{tuple(x.shape)} kernel_ms={kb:.4f} plain_ms={pb:.4f} "
+              f"bound_ms={b:.4f}({by}){flips}", flush=True)
+        print("  err/scale " + ", ".join(each), flush=True)
+        del res, ko, kg, po, pg
+    print(f"fused_block_trainable_bwd trunk total (12 blocks, {frames} "
+          f"frames): kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+          f"bound_ms={b_ms:.4f}", flush=True)
+    if failures:
+        raise SystemExit(f"{len(failures)} kernel #6 gradients disagree "
+                         "with the plain version:\n" + "\n".join(failures))
+    rows = []
+    for geom, c in classes.items():
+        rows.append(dict(
+            name=f"fused_block_trainable_bwd[{geom}]", route="cuda",
+            source="sam2_video_tpu_torch/csrc/hiera_block_bwd.cu",
+            replaces="sam2_video_tpu/ops/hiera_block_bwd.py:353",
+            max_abs_err=c["err"], ms=float(np.mean(c["ms"])),
+            plain_ms=float(np.mean(c["plain"])),
+            bound_ms=float(np.mean(c["bound"])), bound_by=c["by"],
+            library_ms=None))
+        print(f"{rows[-1]['name']} blocks {c['blocks']}: kernel_ms "
+              f"{rows[-1]['ms']:.4f} plain_ms {rows[-1]['plain_ms']:.4f} "
+              f"bound_ms {rows[-1]['bound_ms']:.4f}", flush=True)
+    return rows
+
+
 def _sdpa_ms(q3, kin, v, kw, kbias, bias, nsp, F_, mcfg, fa):
     """ms of F.scaled_dot_product_attention (bf16) over the keys the kernel
     projects, materialised beforehand: context for the JSON line only."""
@@ -556,13 +863,19 @@ def run_video(pred, video, centres):
 
 def _counters():
     """Every kernel wrapper's launch counter: name -> (wrapper, attribute);
-    the backward programs of kernels #3-#5 count on their own."""
+    the backward programs of kernels #3-#5 count on their own, kernel #6
+    (the trunk's backward, B1 and B2 per block) on the trainable block's
+    wrapper."""
     from sam2_video_tpu_torch.ops import flash_attention as fa
     from sam2_video_tpu_torch.ops import hiera_block_kernel as hbk
     from sam2_video_tpu_torch.ops import memattn_layer_kernel as mlk
     from sam2_video_tpu_torch.ops import memory_encoder_kernel as mek
 
+    from sam2_video_tpu_torch.ops import hiera_block_bwd as hbb
+
     out = {"fused_block": (hbk.fused_block, "launches"),
+           "fused_block_trainable_bwd": (hbb.fused_block_trainable,
+                                         "launches"),
            "fused_memory_encoder": (mek.fused_memory_encoder, "launches")}
     for name, fn in (("flash_attention_kproj", fa.flash_attention_kproj),
                      ("fused_self_block", mlk.fused_self_block),
@@ -573,20 +886,31 @@ def _counters():
 
 
 def reset_counts():
+    from sam2_video_tpu_torch.ops import hiera_block_bwd as hbb
+
     for fn, attr in _counters().values():
         setattr(fn, attr, 0)
+    hbb.fused_block_trainable.launches_by_geometry.clear()
 
 
 def read_counts() -> dict:
-    return {name: getattr(fn, attr) for name, (fn, attr)
-            in _counters().items()}
+    """Every counter of ``_counters``, then kernel #6's launches per
+    geometry class (``fused_block_trainable_bwd[<class>]``, the classes
+    launched)."""
+    from sam2_video_tpu_torch.ops import hiera_block_bwd as hbb
+
+    counts = {name: getattr(fn, attr) for name, (fn, attr)
+              in _counters().items()}
+    for key, n in hbb.fused_block_trainable.launches_by_geometry.items():
+        counts[f"fused_block_trainable_bwd[{key}]"] = n
+    return counts
 
 
 def _require(counts: dict, names, path: str):
     print(f"kernels launched on the {path} path " + json.dumps(counts),
           flush=True)
     for name in names:
-        if counts[name] <= 0:
+        if counts.get(name, 0) <= 0:
             raise SystemExit(f"kernel {name} never launched on the {path} "
                              "path")
 
@@ -615,8 +939,7 @@ def phase_serve(params, cfg, seed: int, frames: int, objects: int):
               f"{frames / prop_s:.2f} frames/s ({prop_s:.3f} s), "
               f"logits {logits.shape} finite", flush=True)
     counts = read_counts()
-    _require(counts, [n for n in counts if not n.endswith("_bwd")],
-             "serving")
+    _require(counts, [n for n in counts if "_bwd" not in n], "serving")
     plain_cfg = dataclasses.replace(cfg, use_flash_attention=False)
     pred = VideoPredictor(params, plain_cfg, max_objects=objects,
                           device=DEVICE)
@@ -674,9 +997,13 @@ TRAIN_CPU_GRAD_TOL = 0.1      # relative L2 of a trainable module's gradient
 # position of the grid (maskmem_tpos_enc, no_mem_embed): 0.103 and 0.111
 # in the first card run, so its limit is 0.2
 TRAIN_CPU_BARE_TOL = 0.2
+# the all-trainable combo (the reference's mem+md+pe+ie, bench.py's second
+# configuration): every module but the two pointer projections trains
+TRAINABLE_ALL = ["memory_attention", "memory_encoder", "mask_decoder",
+                 "prompt_encoder", "image_encoder"]
 
 
-def _train_setup(cfg, params, device, T, O, C, B):
+def _train_setup(cfg, params, device, T, O, C, B, trainable=TRAINABLE):
     from sam2_video_tpu_torch.data.synthetic import example_clip
     from sam2_video_tpu_torch.models.video_model import VideoModelConfig
     from sam2_video_tpu_torch.training.loop import (TrainState,
@@ -686,9 +1013,9 @@ def _train_setup(cfg, params, device, T, O, C, B):
 
     tx = make_optimizer(params, {"lr": 1e-4, "type": "AdamW"},
                         {"enabled": False}, total_steps=1000,
-                        trainable_modules=TRAINABLE)
+                        trainable_modules=trainable)
     step = make_train_step(VideoModelConfig(sam2=cfg, prompt_type="point"),
-                           LossConfig(), tx, trainable_modules=TRAINABLE,
+                           LossConfig(), tx, trainable_modules=trainable,
                            device=device)
     batch = example_clip(cfg.image_size, T=T, O=O, C=C, B=B).to(device)
     return TrainState.create(params, tx), step, batch
@@ -745,29 +1072,123 @@ def phase_train(cfg, seed: int):
         raise SystemExit(f"train: {frozen_changed} frozen leaves changed")
     print(f"train: all {moved} memory_attention leaves moved, frozen "
           "leaves bit-for-bit unchanged", flush=True)
-    _require(counts, list(counts), "training")
+    _require(counts, [n for n in counts
+                      if not n.startswith("fused_block_trainable_bwd")],
+             "training")
+    if counts["fused_block_trainable_bwd"]:
+        raise SystemExit("train: the frozen trunk ran kernel #6")
+    return counts, ms
+
+
+def phase_train_all(cfg, seed: int):
+    """The all-trainable step (bench.py's second configuration, the
+    reference's mem+md+pe+ie): the headline shapes (SAM2-tiny 384 px, bf16,
+    T=10, O=8, C=7, B=2, point prompts, AdamW lr 1e-4) with every module
+    but the two pointer projections trainable, so every trunk block runs
+    kernel #1 forward and kernel #6 backward. One warm-up step, then
+    TRAIN_STEPS timed steps with every launch counter at 0 just before
+    them; finite losses, every image encoder leaf moved and every mask
+    decoder and prompt encoder leaf that got a gradient, the pointer
+    projections unchanged, every kernel launched. Returns the counts."""
+    params = synthetic_params(cfg, seed).to(DEVICE)
+    state, step, batch = _train_setup(cfg, params, DEVICE, TRAIN_T, TRAIN_O,
+                                      TRAIN_C, TRAIN_B, TRAINABLE_ALL)
+    before = {n: t.detach().clone() for n, t in params.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    used = set()        # leaves that got a nonzero gradient in some step
+
+    def run(state):
+        state, m, grads = step.with_grads(state, batch)
+        used.update(n for n, g in grads.items() if bool(g.any()))
+        return state, m
+
+    state, m = run(state)
+    torch.cuda.synchronize()
+    print(f"train_all warm-up step: loss {float(m['total_loss']):.6g}",
+          flush=True)
+    reset_counts()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = run(state)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["total_loss"]))
+    counts = read_counts()
+    ms = 1e3 * float(np.median(times))
+    print(f"train_all B={TRAIN_B} T={TRAIN_T} O={TRAIN_O} {cfg.image_size}px "
+          f"{cfg.compute_dtype}: step ms median {ms:.3f} (each: "
+          + ", ".join(f"{1e3 * t:.3f}" for t in times) + f"), clips/s "
+          f"{TRAIN_B / (ms / 1e3):.3f}; losses "
+          + ", ".join(f"{x:.6g}" for x in losses)
+          + f"; grad_norm {float(m['grad_norm']):.6g}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"train_all: non-finite loss {losses}")
+    # every leaf with a gradient moves (AdamW without weight decay leaves a
+    # leaf whose gradient is exactly zero where it is: the prompt encoder's
+    # mask and box embeddings, the unused multimask heads); every trunk
+    # and neck leaf must have one
+    moved, unused, still = {}, {}, []
+    for n, t in params.named_parameters():
+        top = n.split(".")[0]
+        same = torch.equal(t, before[n])
+        if top in ("obj_ptr_proj", "obj_ptr_tpos_proj"):
+            if not same:
+                raise SystemExit(f"train_all: frozen leaf {n} changed")
+        elif top in ("image_encoder", "sam_mask_decoder",
+                     "sam_prompt_encoder"):
+            moved[top] = moved.get(top, 0) + (not same)
+            if n not in used and top != "image_encoder":
+                unused[top] = unused.get(top, 0) + 1
+                if not same:
+                    raise SystemExit(f"train_all: {n} moved without a "
+                                     "gradient")
+            elif same:
+                still.append(n)
+    if still:
+        raise SystemExit(f"train_all: {len(still)} leaves did not move: "
+                         + ", ".join(still[:10]))
+    print("train_all: every leaf with a gradient moved (" + ", ".join(
+        f"{k} {v}" for k, v in sorted(moved.items())) + "; without one, "
+        "unchanged: " + ", ".join(f"{k} {v}" for k, v in sorted(
+            unused.items())) + "), pointer projections bit-for-bit "
+        "unchanged", flush=True)
+    _require(counts, list(counts) + [
+        f"fused_block_trainable_bwd[{g}]" for g in _trunk_classes(cfg)],
+        "all-trainable training")
     return counts, ms
 
 
 def phase_train_cpu(cfg, seed: int):
     """One step of a short clip (T=3, O=4, B=1, 384 px) on the card in bf16
     (kernels) and on the CPU in float32 (plain versions), from the same
-    weights and clip: the loss and each trainable top-level entry's
-    gradient must agree."""
+    weights and clip, for the memory-only and the all-trainable combos:
+    the loss and each trainable top-level entry's gradient must agree."""
+    for trainable in (TRAINABLE, TRAINABLE_ALL):
+        _train_cpu(cfg, seed, trainable)
+
+
+def _train_cpu(cfg, seed: int, trainable):
     import dataclasses
 
     out = {}
     for dev, c in ((DEVICE, cfg),
                    ("cpu", dataclasses.replace(cfg, compute_dtype="float32"))):
         params = synthetic_params(c, seed).to(dev)
-        state, step, batch = _train_setup(c, params, dev, 3, 4, 2, 1)
+        state, step, batch = _train_setup(c, params, dev, 3, 4, 2, 1,
+                                          trainable)
         _, m, grads = step.with_grads(state, batch)
         out[dev] = (float(m["total_loss"]),
                     {n: g.detach().float().cpu() for n, g in grads.items()})
+        del params, state, step, grads
     (lc, gc), (lp, gp) = out[DEVICE], out["cpu"]
     rel = abs(lc - lp) / max(abs(lp), 1e-12)
-    print(f"train card vs cpu: loss {lc:.6g} vs {lp:.6g} rel {rel:.4g} "
-          f"(tol {TRAIN_CPU_LOSS_TOL})", flush=True)
+    print(f"train card vs cpu, trainable {'+'.join(trainable)}: loss "
+          f"{lc:.6g} vs {lp:.6g} rel {rel:.4g} (tol {TRAIN_CPU_LOSS_TOL})",
+          flush=True)
     bad = [] if rel <= TRAIN_CPU_LOSS_TOL else [f"loss rel {rel}"]
     for top in sorted({n.split(".")[0] for n in gp}):
         names = [n for n in gp if n.split(".")[0] == top]
@@ -834,18 +1255,27 @@ def main() -> int:
             rows = phase_kernels(sam2_mod.prepare(params, cfg), cfg,
                                  args.seed, CHUNK, OBJECTS)
         rows += phase_memattn_kernels(params, cfg, args.seed, OBJECTS)
+        rows += phase_hiera_bwd_kernels(params, cfg, args.seed, TRAIN_T)
     launches = {}
     if "train" in phases:
         launches, _ = phase_train(cfg, args.seed)
+    if "train_all" in phases:
+        trained_all, _ = phase_train_all(cfg, args.seed)
+        launches = {**launches, **{
+            k: v for k, v in trained_all.items()
+            if k.startswith("fused_block_trainable_bwd")}}
     if "train_cpu" in phases:
         phase_train_cpu(cfg, args.seed)
     if "serve" in phases:
         served = phase_serve(params, cfg, args.seed, FRAMES, OBJECTS)
-        launches = launches or served
+        launches = {**served, **launches}
     if "cpu" in phases:
         phase_cpu(params, cfg, args.seed, OBJECTS)
 
-    for r in rows:      # the train path's counts (else serving's), or null
+    # each kernel's launches on its training path (#1-#5: the memory-only
+    # step, #6 per geometry class: the all-trainable step), else
+    # serving's, else null
+    for r in rows:
         r["launches"] = launches.get(r["name"])
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

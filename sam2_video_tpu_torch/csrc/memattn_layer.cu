@@ -43,195 +43,6 @@
 #include "common.cuh"
 
 // ---------------------------------------------------------------------------
-// Batched GEMM on mma.sync: for z in [0, Z):
-//   C[z](M x N) = epilogue(alpha * sum_k A[z](m, k) * B[z](n, k))
-// A(m, k) lies at a + z*sAz + m*lda + k (TA = false) or + k*lda + m (TA);
-// B(n, k) at b + z*sBz + n*ldb + k (TB = false) or + k*ldb + n (TB).
-// Needs M, N % 8 == 0, K % 32 == 0, lda, ldb % 8 == 0 (checked by the
-// wrappers).
-// ---------------------------------------------------------------------------
-
-// With a bias and a bf16 store the epilogue walks the compute dtype as the
-// JAX kernels do (ops/common.py linear): round(acc), + round(bias), round,
-// ReLU, + residual, round. The ReLU backward reads its mask from the
-// rounded pre-activation, so the walk must match the plain version's.
-struct BEpi {
-  float alpha;          // acc *= alpha
-  const float* bias;    // [N] or null, added after alpha
-  int relu;             // max(v, 0) after the bias
-  const bf16* mask;     // v = mask(m, n) > 0 ? v : 0, or null
-  const bf16* res;      // v += res(m, n), or null (last)
-  bf16* out;            // bf16 store, or null
-  float* out32;         // f32 store, or null
-  long sz;              // batch stride of mask / res / out / out32
-  int ld;               // row stride of mask / res / out / out32
-};
-
-static inline BEpi bepi(int ld, long sz = 0) {
-  BEpi e;
-  e.alpha = 1.f;
-  e.bias = nullptr;
-  e.relu = 0;
-  e.mask = nullptr;
-  e.res = nullptr;
-  e.out = nullptr;
-  e.out32 = nullptr;
-  e.sz = sz;
-  e.ld = ld;
-  return e;
-}
-
-// stage one 64 x 32 tile (rows r of the operand, k in [k0, k0 + 32)) as two
-// 16-byte chunks per thread; `trans` reads the operand stored k-major
-template <bool TRANS>
-struct TileLoad {
-  uint4 v[2];
-  __device__ __forceinline__ void load(const bf16* p, int ld, int r0, int R,
-                                       int k0, int tid) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * GEMM_THREADS;
-      if (!TRANS) {
-        const int r = c >> 2, kc = (c & 3) * 8;
-        v[i] = r0 + r < R ? *reinterpret_cast<const uint4*>(
-                                p + (size_t)(r0 + r) * ld + k0 + kc)
-                          : make_uint4(0, 0, 0, 0);
-      } else {
-        const int kr = c >> 3, rc = (c & 7) * 8;
-        v[i] = r0 + rc < R ? *reinterpret_cast<const uint4*>(
-                                 p + (size_t)(k0 + kr) * ld + r0 + rc)
-                           : make_uint4(0, 0, 0, 0);
-      }
-    }
-  }
-  __device__ __forceinline__ void store(bf16 (*s)[GEMM_LDS], int tid) const {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * GEMM_THREADS;
-      if (!TRANS) {
-        const int r = c >> 2, kc = (c & 3) * 8;
-        *reinterpret_cast<uint4*>(&s[r][kc]) = v[i];
-      } else {
-        const int kr = c >> 3, rc = (c & 7) * 8;
-        const bf16* e = reinterpret_cast<const bf16*>(&v[i]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[rc + j][kr] = e[j];
-      }
-    }
-  }
-};
-
-// round to bf16 and back
-__device__ __forceinline__ float rb(float v) { return to_f32(to_bf16(v)); }
-
-template <bool TA, bool TB>
-__global__ void __launch_bounds__(GEMM_THREADS)
-bgemm_kernel(const bf16* __restrict__ A, int lda, long sAz,
-             const bf16* __restrict__ B, int ldb, long sBz, int M, int N,
-             int K, BEpi ep) {
-  __shared__ __align__(16) bf16 As[2][GEMM_BM][GEMM_LDS];
-  __shared__ __align__(16) bf16 Bs[2][GEMM_BN][GEMM_LDS];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int m0 = blockIdx.y * GEMM_BM, n0 = blockIdx.x * GEMM_BN;
-  const int z = blockIdx.z;
-  const bf16* a = A + (size_t)z * sAz;
-  const bf16* b = B + (size_t)z * sBz;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  TileLoad<TA> la;
-  TileLoad<TB> lb;
-  const int KT = K / GEMM_BK;
-  la.load(a, lda, m0, M, 0, tid);
-  lb.load(b, ldb, n0, N, 0, tid);
-  la.store(As[0], tid);
-  lb.store(Bs[0], tid);
-  __syncthreads();
-  for (int kt = 0; kt < KT; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < KT) {
-      la.load(a, lda, m0, M, (kt + 1) * GEMM_BK, tid);
-      lb.load(b, ldb, n0, N, (kt + 1) * GEMM_BK, tid);
-    }
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      const int c = ks * 16 + 2 * t4;
-      uint32_t af[2][4], bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = wm * 32 + mi * 16 + g;
-        af[mi][0] = *reinterpret_cast<const uint32_t*>(&As[buf][r][c]);
-        af[mi][1] = *reinterpret_cast<const uint32_t*>(&As[buf][r + 8][c]);
-        af[mi][2] = *reinterpret_cast<const uint32_t*>(&As[buf][r][c + 8]);
-        af[mi][3] = *reinterpret_cast<const uint32_t*>(&As[buf][r + 8][c + 8]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = wn * 32 + ni * 8 + g;
-        bfr[ni][0] = *reinterpret_cast<const uint32_t*>(&Bs[buf][n][c]);
-        bfr[ni][1] = *reinterpret_cast<const uint32_t*>(&Bs[buf][n][c + 8]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_16816(acc[mi][ni], af[mi], bfr[ni]);
-    }
-    if (kt + 1 < KT) {
-      la.store(As[buf ^ 1], tid);
-      lb.store(Bs[buf ^ 1], tid);
-    }
-    __syncthreads();
-  }
-
-  const size_t zo = (size_t)z * ep.sz;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm * 32 + mi * 16 + g + half * 8;
-        const int col = n0 + wn * 32 + ni * 8 + 2 * t4;
-        if (row >= M || col >= N) continue;
-        const size_t o = zo + (size_t)row * ep.ld + col;
-        float v[2] = {acc[mi][ni][half * 2], acc[mi][ni][half * 2 + 1]};
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          v[j] *= ep.alpha;
-          if (ep.bias && ep.out)
-            v[j] = rb(rb(v[j]) + rb(ep.bias[col + j]));
-          else if (ep.bias)
-            v[j] += ep.bias[col + j];
-          if (ep.relu) v[j] = fmaxf(v[j], 0.f);
-          if (ep.mask && !(to_f32(ep.mask[o + j]) > 0.f)) v[j] = 0.f;
-          if (ep.res) v[j] += to_f32(ep.res[o + j]);
-        }
-        if (ep.out)
-          *reinterpret_cast<__nv_bfloat162*>(ep.out + o) =
-              __floats2bfloat162_rn(v[0], v[1]);
-        if (ep.out32)
-          *reinterpret_cast<float2*>(ep.out32 + o) = make_float2(v[0], v[1]);
-      }
-}
-
-template <bool TA, bool TB>
-static void bgemm(const bf16* A, int lda, long sAz, const bf16* B, int ldb,
-                  long sBz, int M, int N, int K, int Z, const BEpi& ep,
-                  cudaStream_t stream) {
-  dim3 grid((N + GEMM_BN - 1) / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM, Z);
-  bgemm_kernel<TA, TB><<<grid, GEMM_THREADS, 0, stream>>>(A, lda, sAz, B, ldb,
-                                                          sBz, M, N, K, ep);
-}
-
-// ---------------------------------------------------------------------------
 // Row kernels
 // ---------------------------------------------------------------------------
 
@@ -327,125 +138,6 @@ softmax_bwd_rows_kernel(const float* __restrict__ p, const float* __restrict__ d
   for (int i = threadIdx.x; i < n; i += ROW_THREADS)
     ds[row * n + i] = to_bf16(pr[i] * (dr[i] - t) * scale);
 }
-
-// LayerNorm backward over rows of C = 256 (a warp per row, 8 values per
-// lane): with xhat, rinv recomputed from x in f32 and dxh = dy * w,
-//   dx = rinv * (dxh - mean(dxh) - xhat * mean(dxh * xhat)) + g
-// stored as f32 (dx32) and/or bf16 (dxb); g is an f32 (g32) or bf16 (gb)
-// gradient added on top, or none. stats[row] = (mean, rinv) for the column
-// sums of the LayerNorm's weight gradient.
-constexpr int LNB_C = 256;
-
-__global__ void __launch_bounds__(128)
-ln_bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ dy, const float* g32,
-                   const bf16* gb, float* dx32, bf16* dxb, float2* stats,
-                   int rows, float eps) {
-  const size_t row = (size_t)blockIdx.x * 4 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= (size_t)rows) return;
-  constexpr int PER = LNB_C / 32;
-  float xv[PER], dv[PER];
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int c = lane + 32 * i;
-    xv[i] = to_f32(x[row * LNB_C + c]);
-    s += xv[i];
-  }
-  const float mu = warp_sum(s) / LNB_C;
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const float d = xv[i] - mu;
-    q += d * d;
-  }
-  const float rinv = rsqrtf(warp_sum(q) / LNB_C + eps);
-  float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int c = lane + 32 * i;
-    xv[i] = (xv[i] - mu) * rinv;                       // xhat
-    dv[i] = dy[row * LNB_C + c] * w[c];                // dxh
-    s1 += dv[i];
-    s2 += dv[i] * xv[i];
-  }
-  const float m1 = warp_sum(s1) / LNB_C, m2 = warp_sum(s2) / LNB_C;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int c = lane + 32 * i;
-    float o = rinv * (dv[i] - m1 - xv[i] * m2);
-    if (g32) o += g32[row * LNB_C + c];
-    if (gb) o += to_f32(gb[row * LNB_C + c]);
-    if (dx32) dx32[row * LNB_C + c] = o;
-    if (dxb) dxb[row * LNB_C + c] = to_bf16(o);
-  }
-  if (lane == 0) stats[row] = make_float2(mu, rinv);
-}
-
-// per-object column sums (f32 partials): for z in [0, Z), column c,
-//   part[z * pstride + c] = sum over the object's rows r of
-//       a(r, c) [* (x(r, c) - mean_r) * rinv_r when x is given]
-// a is f32 (a32) or bf16 (ab) with row stride lda; x has row stride C.
-__global__ void colsum_kernel(const float* a32, const bf16* ab, int lda,
-                              const bf16* x, const float2* stats, int rows,
-                              int C, float* part, long pstride) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int z = blockIdx.y;
-  if (c >= C) return;
-  float s = 0.f;
-  for (int i = 0; i < rows; ++i) {
-    const size_t r = (size_t)z * rows + i;
-    float v = a32 ? a32[r * lda + c] : to_f32(ab[r * lda + c]);
-    if (x) {
-      const float2 st = stats[r];
-      v *= (to_f32(x[r * C + c]) - st.x) * st.y;
-    }
-    s += v;
-  }
-  part[(size_t)z * pstride + c] = s;
-}
-
-static void colsum(const float* a32, const bf16* ab, int lda, const bf16* x,
-                   const float2* stats, int rows, int C, int Z, float* part,
-                   long pstride, cudaStream_t stream) {
-  dim3 grid((C + 127) / 128, Z);
-  colsum_kernel<<<grid, 128, 0, stream>>>(a32, ab, lda, x, stats, rows, C,
-                                          part, pstride);
-}
-
-// out[i] = sum over z = 0 .. Z-1, in that order, of part[z * n + i]
-__global__ void reduce_partials_kernel(const float* __restrict__ part, int Z,
-                                       long n, float* __restrict__ out) {
-  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n;
-       i += (long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < Z; ++z) s += part[(size_t)z * n + i];
-    out[i] = s;
-  }
-}
-
-static void reduce_partials(const float* part, int Z, long n, float* out,
-                            cudaStream_t stream) {
-  const long blocks = (n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096;
-  reduce_partials_kernel<<<(int)blocks, 256, 0, stream>>>(part, Z, n, out);
-}
-
-// ---------------------------------------------------------------------------
-// Workspace: one allocation from the caller, carved in a fixed order (the
-// size query runs the same carving on a null base).
-// ---------------------------------------------------------------------------
-
-struct Arena {
-  char* base;
-  size_t off;
-  template <class T>
-  T* take(size_t n) {
-    const size_t o = (off + 255) & ~(size_t)255;
-    off = o + n * sizeof(T);
-    return base ? reinterpret_cast<T*>(base + o) : nullptr;
-  }
-};
 
 constexpr int D_MODEL = 256;
 constexpr float LN_EPS = 1e-5f;
@@ -595,21 +287,20 @@ extern "C" int memattn_self_bwd(const void* x_, const void* const* w,
   BEpi e = bepi(D, SG_TOTAL);
   e.out32 = P + SG_WQC;            // dWqc[o][i] = sum_l dqc[l][o] y2[l][i]
   bgemm<true, true>(b.dqc, D, LD, b.y2, D, LD, D, D, L, N, e, st);
-  colsum(nullptr, b.dqc, D, nullptr, nullptr, L, D, N, P + SG_BQC, SG_TOTAL,
+  colsum(nullptr, b.dqc, D, nullptr, nullptr, L, NL, D, P + SG_BQC, SG_TOTAL,
          st);
   e = bepi(D);
   e.out32 = b.dy32;                // dy2 = dqc Wqc
   bgemm<false, true>(b.dqc, D, 0, W(S_WQC), D, 0, NL, D, D, 1, e, st);
-  ln_bwd_rows_kernel<<<(NL + 3) / 4, 128, 0, st>>>(
-      out, F(S_LN2W), b.dy32, nullptr, dout, b.dout32, b.doutc, b.st2, NL,
-      LN_EPS);
-  colsum(b.dy32, nullptr, D, out, b.st2, L, D, N, P + SG_LN2W, SG_TOTAL, st);
-  colsum(b.dy32, nullptr, D, nullptr, nullptr, L, D, N, P + SG_LN2B, SG_TOTAL,
-         st);
+  ln_bwd(out, F(S_LN2W), b.dy32, nullptr, dout, b.dout32, b.doutc, b.st2, NL,
+         D, LN_EPS, st);
+  colsum(b.dy32, nullptr, D, out, b.st2, L, NL, D, P + SG_LN2W, SG_TOTAL, st);
+  colsum(b.dy32, nullptr, D, nullptr, nullptr, L, NL, D, P + SG_LN2B,
+         SG_TOTAL, st);
 
   // ---- out-proj backward
-  colsum(b.dout32, nullptr, D, nullptr, nullptr, L, D, N, P + SG_BO, SG_TOTAL,
-         st);
+  colsum(b.dout32, nullptr, D, nullptr, nullptr, L, NL, D, P + SG_BO,
+         SG_TOTAL, st);
   e = bepi(D, SG_TOTAL);
   e.out32 = P + SG_WO;             // dWo = doutc^T o
   bgemm<true, true>(b.doutc, D, LD, b.o, D, LD, D, D, L, N, e, st);
@@ -640,20 +331,19 @@ extern "C" int memattn_self_bwd(const void* x_, const void* const* w,
   e = bepi(D, SG_TOTAL);
   e.out32 = P + SG_WQKV;           // dWqkv = dqkv^T xn
   bgemm<true, true>(b.dqkv, D3, LD3, b.xn, D, LD, D3, D, L, N, e, st);
-  colsum(nullptr, b.dqkv, D3, nullptr, nullptr, L, D3, N, P + SG_BQKV,
+  colsum(nullptr, b.dqkv, D3, nullptr, nullptr, L, NL, D3, P + SG_BQKV,
          SG_TOTAL, st);
   e = bepi(D);
   e.out32 = b.dxn32;               // dxn = dqkv Wqkv
   bgemm<false, true>(b.dqkv, D3, 0, W(S_WQKV), D, 0, NL, D, D3, 1, e, st);
-  ln_bwd_rows_kernel<<<(NL + 3) / 4, 128, 0, st>>>(
-      x, F(S_LN1W), b.dxn32, b.dout32, nullptr, nullptr,
-      static_cast<bf16*>(dx), b.st1, NL, LN_EPS);
-  colsum(b.dxn32, nullptr, D, x, b.st1, L, D, N, P + SG_LN1W, SG_TOTAL, st);
-  colsum(b.dxn32, nullptr, D, nullptr, nullptr, L, D, N, P + SG_LN1B,
+  ln_bwd(x, F(S_LN1W), b.dxn32, b.dout32, nullptr, nullptr,
+         static_cast<bf16*>(dx), b.st1, NL, D, LN_EPS, st);
+  colsum(b.dxn32, nullptr, D, x, b.st1, L, NL, D, P + SG_LN1W, SG_TOTAL, st);
+  colsum(b.dxn32, nullptr, D, nullptr, nullptr, L, NL, D, P + SG_LN1B,
          SG_TOTAL, st);
 
   // ---- the objects' partials, added in order
-  reduce_partials(P, N, SG_TOTAL, static_cast<float*>(grads), st);
+  reduce_cols(P, N, SG_TOTAL, static_cast<float*>(grads), st);
   return (int)cudaGetLastError();
 }
 
@@ -790,7 +480,7 @@ extern "C" int memattn_tail_bwd(const void* y_, const void* a_,
   e.out = b.dm1;
   e.out32 = b.dm1_32;
   bgemm<false, true>(g, D, 0, W(T_W2), HID, 0, NL, HID, D, 1, e, st);
-  colsum(b.dm1_32, nullptr, HID, nullptr, nullptr, L, HID, N, P + G.b1,
+  colsum(b.dm1_32, nullptr, HID, nullptr, nullptr, L, NL, HID, P + G.b1,
          G.total, st);
   e = bepi(D, G.total);
   e.out32 = P + G.w1;              // dW1 = dm1^T h
@@ -798,22 +488,21 @@ extern "C" int memattn_tail_bwd(const void* y_, const void* a_,
   e = bepi(HID, G.total);
   e.out32 = P + G.w2;              // dW2 = g^T r
   bgemm<true, true>(g, D, LD, b.r, HID, LH, D, HID, L, N, e, st);
-  colsum(nullptr, g, D, nullptr, nullptr, L, D, N, P + G.b2, G.total, st);
+  colsum(nullptr, g, D, nullptr, nullptr, L, NL, D, P + G.b2, G.total, st);
   e = bepi(D);
   e.out32 = b.dh32;                // dh = dm1 W1
   bgemm<false, true>(b.dm1, HID, 0, W(T_W1), D, 0, NL, D, HID, 1, e, st);
 
   // ---- LN3 backward + residual: dz = g + LN3'(dh)
-  ln_bwd_rows_kernel<<<(NL + 3) / 4, 128, 0, st>>>(
-      b.z, F(T_LN3W), b.dh32, nullptr, g, b.dz32, static_cast<bf16*>(dy),
-      b.st3, NL, LN_EPS);
-  colsum(b.dh32, nullptr, D, b.z, b.st3, L, D, N, P + G.ln3w, G.total, st);
-  colsum(b.dh32, nullptr, D, nullptr, nullptr, L, D, N, P + G.ln3b, G.total,
-         st);
+  ln_bwd(b.z, F(T_LN3W), b.dh32, nullptr, g, b.dz32, static_cast<bf16*>(dy),
+         b.st3, NL, D, LN_EPS, st);
+  colsum(b.dh32, nullptr, D, b.z, b.st3, L, NL, D, P + G.ln3w, G.total, st);
+  colsum(b.dh32, nullptr, D, nullptr, nullptr, L, NL, D, P + G.ln3b,
+         G.total, st);
   const bf16* dzc = static_cast<const bf16*>(dy);   // dy = bf16(dz)
 
   // ---- out-proj and v-proj backward
-  colsum(b.dz32, nullptr, D, nullptr, nullptr, L, D, N, P + G.bo, G.total,
+  colsum(b.dz32, nullptr, D, nullptr, nullptr, L, NL, D, P + G.bo, G.total,
          st);
   e = bepi(D, G.total);
   e.out32 = P + G.wo;              // dWo = dz^T t
@@ -821,7 +510,7 @@ extern "C" int memattn_tail_bwd(const void* y_, const void* a_,
   e = bepi(D);
   e.out = b.dt;                    // dt = dz Wo
   bgemm<false, true>(dzc, D, 0, W(T_WO), D, 0, NL, D, D, 1, e, st);
-  colsum(nullptr, b.dt, D, nullptr, nullptr, L, D, N, P + G.bv, G.total, st);
+  colsum(nullptr, b.dt, D, nullptr, nullptr, L, NL, D, P + G.bv, G.total, st);
   e = bepi(KV, G.total);
   e.out32 = P + G.wv;              // dWv = dt^T a
   bgemm<true, true>(b.dt, D, LD, a, KV, LK, D, KV, L, N, e, st);
@@ -829,6 +518,6 @@ extern "C" int memattn_tail_bwd(const void* y_, const void* a_,
   e.out = static_cast<bf16*>(da);  // da = dt Wv
   bgemm<false, true>(b.dt, D, 0, W(T_WV), KV, 0, NL, KV, D, 1, e, st);
 
-  reduce_partials(P, N, G.total, static_cast<float*>(grads), st);
+  reduce_cols(P, N, G.total, static_cast<float*>(grads), st);
   return (int)cudaGetLastError();
 }

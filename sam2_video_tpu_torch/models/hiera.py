@@ -2,8 +2,9 @@
 ``sam2_video_tpu/models/hiera.py``), NHWC activations.
 
 ``_block`` is the plain PyTorch block and the plain version of the
-hand-written block kernel (``ops/hiera_block_kernel.py``); ``apply`` sends
-every block through that kernel's wrapper.
+hand-written block kernels (``ops/hiera_block_kernel.py`` forward,
+``ops/hiera_block_bwd.py`` backward); ``apply`` sends every block through
+one of their wrappers.
 """
 
 from __future__ import annotations
@@ -209,19 +210,25 @@ def _get_pos_embed(p, hw):
     return bkg + win.repeat(1, h // win.shape[1], w // win.shape[2], 1)
 
 
-def apply(p, x: torch.Tensor, cfg: HieraConfig) -> list[torch.Tensor]:
+def apply(p, x: torch.Tensor, cfg: HieraConfig,
+          fused_vjp: bool = False) -> list[torch.Tensor]:
     """x [B, H, W, 3] -> per-stage NHWC features, high-res first (strides
-    4, 8, 16, 32). Every block runs through the block kernel's wrapper: the
-    kernel on a CUDA tensor, its plain version on a CPU tensor."""
-    from ..ops.hiera_block_kernel import fused_block
+    4, 8, 16, 32). Every block runs through a kernel's wrapper, which takes
+    the kernel on a CUDA tensor and its plain version on a CPU tensor: the
+    forward-only block kernel (``ops/hiera_block_kernel.py``), or, with
+    ``fused_vjp``, the trainable block whose backward is a kernel too
+    (``ops/hiera_block_bwd.py``; the JAX package's ``fused_vjp``)."""
+    if fused_vjp:
+        from ..ops.hiera_block_bwd import fused_block_trainable as block
+    else:
+        from ..ops.hiera_block_kernel import fused_block as block
 
     x = nn.conv2d(p["patch_embed"]["proj"], x, stride=4, padding=3)
     x = x + _get_pos_embed(p, x.shape[1:3]).to(x.dtype)
     outputs = []
     stage_ends = set(cfg.stage_ends)
     for i, spec in enumerate(cfg.block_specs()):
-        x = fused_block(p["blocks"][str(i)], x, spec, cfg.q_stride,
-                        cfg.mlp_ratio)
+        x = block(p["blocks"][str(i)], x, spec, cfg.q_stride, cfg.mlp_ratio)
         if i in stage_ends:
             outputs.append(x)
     return outputs

@@ -35,10 +35,13 @@ def init(gen: torch.Generator, cfg: ImageEncoderConfig):
     return {"trunk": hiera.init(gen, cfg.trunk), "neck": neck}
 
 
-def apply(p, x: torch.Tensor, cfg: ImageEncoderConfig):
+def apply(p, x: torch.Tensor, cfg: ImageEncoderConfig,
+          fused_vjp: bool = False):
     """x [B, H, W, 3] -> dict(backbone_fpn=[NHWC high-res first, post
-    scalp], vision_pos_enc=[[H, W, C] float32], vision_features)."""
-    xs = hiera.apply(p["trunk"], x, cfg.trunk)
+    scalp], vision_pos_enc=[[H, W, C] float32], vision_features).
+    ``fused_vjp`` routes the trunk's blocks through the trainable block
+    (``hiera.apply``)."""
+    xs = hiera.apply(p["trunk"], x, cfg.trunk, fused_vjp=fused_vjp)
     n = len(xs) - 1
     out = [None] * len(xs)
     pos = [None] * len(xs)

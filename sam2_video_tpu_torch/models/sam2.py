@@ -89,7 +89,6 @@ class SAM2Config:
     stacked_frame_grads: bool = False
     memory_bank_dtype: str = "float32"
     detach_memory_bank: bool = True
-    fused_backbone: bool = False
     fused_backbone_vjp: bool = False
 
     def dtype(self) -> torch.dtype:
@@ -212,16 +211,20 @@ def prepare(p: nn.ParamTree, cfg: SAM2Config) -> nn.ParamTree:
 
 def derive(tree: dict, cfg: SAM2Config, modules=None) -> dict:
     """Add the derived entries of the top-level ``modules`` (all when None)
-    to the nested dict ``tree`` in place: the kernels' packed operands,
-    made without gradient (the kernels are forward-only), and the
-    compute-dtype casts, made under autograd. The train step derives its
-    frozen modules once and its trainable ones in every step."""
+    to the nested dict ``tree`` in place: the forward-only kernels' packed
+    operands, made without gradient, and the compute-dtype casts, made
+    under autograd. The train step derives its frozen modules once and its
+    trainable ones in every step. With ``cfg.fused_backbone_vjp`` (a
+    trainable trunk) the trunk's blocks get no compute-dtype casts: their
+    trainable kernel takes the float32 leaves, whose gradients it returns,
+    and reads the packed operands, made here once per step, as data."""
     from ..ops import hiera_block_kernel as hbk
     from ..ops import memory_encoder_kernel as mek
 
     def want(top):
         return top in tree and (modules is None or top in modules)
 
+    trunk_vjp = cfg.fused_backbone_vjp and want("image_encoder")
     with torch.no_grad():
         if want("image_encoder"):
             blocks = tree["image_encoder"]["trunk"]["blocks"]
@@ -232,7 +235,13 @@ def derive(tree: dict, cfg: SAM2Config, modules=None) -> dict:
                 tree["memory_encoder"], cfg.memory_encoder_config)
     if cfg.dtype() != torch.float32:
         for top, sub in tree.items():
-            if want(top) and isinstance(sub, dict):
+            if not (want(top) and isinstance(sub, dict)):
+                continue
+            if top == "image_encoder" and trunk_vjp:
+                trunk = sub["trunk"]
+                nn.add_compute_casts(trunk["patch_embed"], cfg.dtype())
+                nn.add_compute_casts(sub["neck"], cfg.dtype())
+            else:
                 nn.add_compute_casts(sub, cfg.dtype())
     return tree
 
@@ -245,17 +254,19 @@ def derive(tree: dict, cfg: SAM2Config, modules=None) -> dict:
 def forward_image(p, cfg: SAM2Config, images: torch.Tensor):
     """images [B, H, W, 3], uint8 (normalised here) or float32 already
     ImageNet-normalised -> dict(backbone_fpn=[s0, s1, s16], vision_pos_enc),
-    with levels 0/1 projected by the decoder's conv_s0/conv_s1. The trunk's
-    blocks run through the block kernel's wrapper: forward-only on a CUDA
-    tensor, which is right for eval and for a frozen image encoder (the JAX
-    package's ``fused_backbone``); a trainable trunk on the card raises."""
+    with levels 0/1 projected by the decoder's conv_s0/conv_s1. The trunk
+    is routed by ``cfg.fused_backbone_vjp`` (the JAX package's routing):
+    set (a trainable image encoder), every block runs the trainable block,
+    kernel #1 forward and kernel #6 backward; unset (eval, a frozen image
+    encoder), the forward-only block kernel."""
     if images.dtype == torch.uint8:
         mean = torch.as_tensor(IMAGENET_MEAN, device=images.device)
         std = torch.as_tensor(IMAGENET_STD, device=images.device)
         images = (images.float() / 255.0 - mean) / std
     images = images.to(cfg.dtype())
     out = image_encoder_mod.apply(p["image_encoder"], images,
-                                  cfg.image_encoder_config)
+                                  cfg.image_encoder_config,
+                                  fused_vjp=cfg.fused_backbone_vjp)
     fpn = list(out["backbone_fpn"])
     if cfg.use_high_res_features_in_sam:
         fpn[0] = nn.conv2d(p["sam_mask_decoder"]["conv_s0"], fpn[0])

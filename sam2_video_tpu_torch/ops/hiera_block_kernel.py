@@ -25,8 +25,10 @@ Replaces the TPU kernel ``sam2_video_tpu/ops/hiera_block_kernel.py``
   bounds at 2e-2 of the output scale.
 
 ``fused_block`` takes the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor (or raises). ``fused_block.launches`` counts
-kernel launches.
+kernel for a CUDA tensor (or raises); ``fused_block(..., save_residual=
+True)`` also returns x1, the residual after attention, which the trainable
+block (``ops/hiera_block_bwd.py``) keeps for its backward. Both count
+their launches of the kernel in ``fused_block.launches``.
 """
 
 from __future__ import annotations
@@ -101,21 +103,35 @@ def _check(x, spec, q_stride, hidden: int):
     return B, H, W, Cin, Cout, heads, hd
 
 
-TRUNK_BACKWARD_NOT_PORTED = (
-    "a trainable image_encoder needs the Hiera block backward kernel "
-    "(fused_block_trainable), which is not ported to CUDA yet: see "
-    "ROADMAP.md, queue 2, item 6")
+FORWARD_ONLY = (
+    "a trainable trunk runs ops/hiera_block_bwd.py fused_block_trainable "
+    "(SAM2Config.fused_backbone_vjp), whose backward is kernel #6")
 
 
-def fused_block(p, x, spec, q_stride, mlp_ratio: float = 4.0):
+def fused_block(p, x, spec, q_stride, mlp_ratio: float = 4.0,
+                save_residual: bool = False):
     """One Hiera block, same contract as ``models/hiera.py`` ``_block``:
-    x [B, H, W, Cin] -> [B, H', W', Cout]. Forward only: on a CUDA tensor
-    it raises where autograd would need the block's backward."""
+    x [B, H, W, Cin] -> [B, H', W', Cout]; with ``save_residual`` it
+    returns ``(out, x1)``, x1 the residual after attention (the JAX
+    kernel's ``save_residual``). Forward only: on a CUDA tensor it raises
+    where autograd would need the block's backward."""
     if x.device.type == "cpu":
-        return fused_block_plain(p, x, spec, q_stride, mlp_ratio)
+        out = fused_block_plain(p, x, spec, q_stride, mlp_ratio)
+        return (out, None) if save_residual else out
     if not x.is_cuda:
         raise ValueError(f"fused_block: unsupported device {x.device}")
-    nn.forward_only("fused_block", TRUNK_BACKWARD_NOT_PORTED, p, x)
+    nn.forward_only("fused_block", FORWARD_ONLY, p, x)
+    ops = p.get("_ops")
+    if ops is None:
+        ops = pack(p, spec)
+    out, x1 = _launch(ops, x, spec, q_stride, mlp_ratio)
+    return (out, x1) if save_residual else out
+
+
+def _launch(ops, x, spec, q_stride, mlp_ratio: float = 4.0):
+    """Run kernel #1 on the packed operands ``ops`` (``pack``): the block's
+    output and x1, the residual after attention, which the kernel writes
+    into a buffer the caller owns."""
     hidden = int(spec["dim_out"] * mlp_ratio)
     B, H, W, Cin, Cout, heads, _ = _check(x, spec, q_stride, hidden)
     wsh, wsw = _window(spec, H, W)
@@ -123,9 +139,6 @@ def fused_block(p, x, spec, q_stride, mlp_ratio: float = 4.0):
     q_pool = bool(spec["q_pool"])
     Ho, Wo = (H // 2, W // 2) if q_pool else (H, W)
     M_in, M_out = B * H * W, B * Ho * Wo
-    ops = p.get("_ops")
-    if ops is None:
-        ops = pack(p, spec)
     dim_change = ops[12] is not None
 
     def scratch(rows, cols):
@@ -134,10 +147,11 @@ def fused_block(p, x, spec, q_stride, mlp_ratio: float = 4.0):
 
     out = torch.empty((B, Ho, Wo, Cout), dtype=torch.bfloat16,
                       device=x.device)
+    x1 = torch.empty_like(out)
     xn, qkv = scratch(M_in, Cin), scratch(M_in, 3 * Cout)
     sc_full = scratch(M_in, Cout) if dim_change else None
     sc = scratch(M_out, Cout) if dim_change and q_pool else None
-    attn, x1, y = (scratch(M_out, Cout) for _ in range(3))
+    attn, y = scratch(M_out, Cout), scratch(M_out, Cout)
     hid = scratch(M_out, hidden)
 
     def ptr(t):
@@ -152,7 +166,7 @@ def fused_block(p, x, spec, q_stride, mlp_ratio: float = 4.0):
             int(q_pool), stream)
     kernel_build.check_launch(status, "hiera_block_fwd")
     fused_block.launches += 1
-    return out
+    return out, x1
 
 
 fused_block.launches = 0

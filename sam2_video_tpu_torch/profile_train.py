@@ -1,19 +1,22 @@
 """Where the headline train step's device time goes, on one NVIDIA GPU.
 
-    python3 -m sam2_video_tpu_torch.profile_train
+    python3 -m sam2_video_tpu_torch.profile_train [--trainable mem|all]
 
 Builds the train step of ``bench.py``'s headline configuration in the port
-(SAM2-tiny 384 px, bf16, T=10, O=8, C=7, B=2, point prompts, trainable
-memory attention and memory encoder, AdamW lr 1e-4; ``synthetic_params``
-weights, the example clip), runs one warm-up step, then one step under
-``torch.profiler``. Prints the step's wall time, the summed device (kernel)
-time, the device busy share, the kernels that take the most device time
-and the host operations that take the most CPU time (``profile_serving``'s
-report).
+(SAM2-tiny 384 px, bf16, T=10, O=8, C=7, B=2, point prompts, AdamW lr
+1e-4; ``synthetic_params`` weights, the example clip) with trainable
+memory attention and memory encoder (``mem``, the default) or every
+module but the pointer projections (``all``: the reference's
+mem+md+pe+ie, whose trunk runs kernel #6 backward), runs one warm-up
+step, then one step under ``torch.profiler``. Prints the step's wall
+time, the summed device (kernel) time, the device busy share, the kernels
+that take the most device time and the host operations that take the most
+CPU time (``profile_serving``'s report).
 """
 
 from __future__ import annotations
 
+import argparse
 import time
 
 import torch
@@ -28,10 +31,15 @@ from .training.losses import LossConfig
 from .training.optimizer import make_optimizer
 
 T, O, C, B, SEED = 10, 8, 7, 2, 0
-TRAINABLE = ["memory_attention", "memory_encoder"]
+TRAINABLE = {"mem": ["memory_attention", "memory_encoder"],
+             "all": ["memory_attention", "memory_encoder", "mask_decoder",
+                     "prompt_encoder", "image_encoder"]}
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--trainable", choices=sorted(TRAINABLE), default="mem")
+    trainable = TRAINABLE[ap.parse_args().trainable]
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -43,9 +51,9 @@ def main() -> int:
     params = synthetic_params(cfg, SEED).to("cuda")
     tx = make_optimizer(params, {"lr": 1e-4, "type": "AdamW"},
                         {"enabled": False}, total_steps=1000,
-                        trainable_modules=TRAINABLE)
+                        trainable_modules=trainable)
     step = make_train_step(VideoModelConfig(sam2=cfg), LossConfig(), tx,
-                           trainable_modules=TRAINABLE, device="cuda")
+                           trainable_modules=trainable, device="cuda")
     state = TrainState.create(params, tx)
     batch = example_clip(cfg.image_size, T=T, O=O, C=C, B=B).to("cuda")
     state, _ = step(state, batch)                  # warm-up
@@ -56,7 +64,8 @@ def main() -> int:
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    report(prof, f"train step B={B} T={T} O={O}", wall, top=16)
+    report(prof, f"train step B={B} T={T} O={O} trainable "
+           f"{'+'.join(trainable)}", wall, top=16)
     print(f"loss {float(metrics['total_loss']):.6g}", flush=True)
     print(torch.cuda.get_device_name(0), flush=True)
     return 0

@@ -9,9 +9,8 @@ trainable partition only, and the optimizer update, in place.
 Freezing follows the JAX package's ``make_train_step``: only the leaves of
 the trainable top-level entries get ``requires_grad``, so autograd never
 builds the frozen modules' backward; a frozen image encoder runs the
-forward-only trunk kernel (``fused_backbone``). A trainable image encoder
-on the card needs the Hiera block backward kernel, which is not ported
-(ROADMAP.md, queue 2, item 6), and raises.
+forward-only trunk kernel, a trainable one (``fused_backbone_vjp``) the
+trainable block, kernel #1 forward and kernel #6 backward.
 
 Derived entries (``models/sam2.py`` ``derive``): the frozen modules' are
 made once, on the first step; the trainable modules' are made from the
@@ -34,7 +33,6 @@ from ..data.types import VideoClipBatch
 from ..models import sam2 as sam2_mod
 from ..models.video_model import VideoModelConfig, forward_train
 from ..ops import common as nn
-from ..ops.hiera_block_kernel import TRUNK_BACKWARD_NOT_PORTED
 from .losses import CORE_LOSS_KEY, LossConfig, compute_loss
 from .optimizer import apply_updates, top_level_label
 
@@ -78,11 +76,8 @@ def make_train_step(mcfg: VideoModelConfig, lcfg: LossConfig, tx,
     dev = torch.device(device)
     frozen_encoder = (trainable_modules is not None
                       and "image_encoder" not in trainable_modules)
-    if frozen_encoder:
-        mcfg = dataclasses.replace(mcfg, sam2=dataclasses.replace(
-            mcfg.sam2, fused_backbone=True))
-    elif dev.type == "cuda":
-        raise NotImplementedError(TRUNK_BACKWARD_NOT_PORTED)
+    mcfg = dataclasses.replace(mcfg, sam2=dataclasses.replace(
+        mcfg.sam2, fused_backbone_vjp=not frozen_encoder))
     cfg = mcfg.sam2
     modules = () if trainable_modules is None else tuple(trainable_modules)
     loss_fn = batched_loss_fn(mcfg, lcfg, training=True)

@@ -291,3 +291,99 @@ def test_fused_memory_attention_refuses_a_ragged_grid_on_the_card(card):
     with pytest.raises(NotImplementedError, match="queue 2, item 9"):
         ma.apply(params["memory_attention"], mcfg, curr, mem, None, mem,
                  feat_hw=(6, 6), num_spatial_k=36)
+
+
+# kernel #6 on q-pool blocks: the gradients a 2x2 max-pool routes (dx, the
+# LN1 weight's, the qkv weight's, the shortcut weight's) by relative L2 (a
+# tie in a 2x2 cell routes to another element under torch's max_pool2d
+# autograd than under the kernel's JAX rule; each such cell moves one whole
+# contribution between two tokens)
+POOL_REL_L2 = 5e-2
+POOL_ROUTED = ("x", "norm1.weight", "attn.qkv.weight", "proj.weight")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("image_size", [384, 512])
+def test_trainable_block_backward_matches_plain(card, image_size):
+    """Kernel #6 (B1 + B2 through ``fused_block_trainable``) against
+    autograd through the plain bf16 block, every block of the tiny trunk
+    (every geometry class: windows with and without pad, q-pool with even
+    and odd pooled windows, global 24x24 and 32x32, stage 4), two frames:
+    dx and every parameter gradient within TOL of max(1, max|plain|), those
+    a 2x2 max-pool routes on q-pool blocks within POOL_REL_L2. Two
+    backward runs give the same bits (no atomics)."""
+    from sam2_video_tpu_torch.ops import hiera_block_bwd as hbb
+
+    cfg, params = card
+    tcfg = cfg.trunk_config
+    trunk = params["image_encoder"]["trunk"]
+    gen = torch.Generator().manual_seed(image_size + 6)
+    H = image_size // 4
+    launches = hbb.fused_block_trainable.launches
+    for i, spec in enumerate(tcfg.block_specs()):
+        bp = trunk["blocks"][str(i)]
+        x = torch.randn((2, H, H, spec["dim"]), generator=gen).to(
+            "cuda", torch.bfloat16)
+
+        def block(fn):
+            def run(x, *w):
+                return fn(hbb.block_params(w, spec), x, spec, tcfg.q_stride,
+                          tcfg.mlp_ratio)
+            return run
+
+        inputs = [x] + hbb.leaves(bp, spec)
+        with torch.no_grad():
+            shape = block(hbb.fused_block_trainable_plain)(*inputs).shape
+        cot = torch.randn(shape, generator=gen).to("cuda", torch.bfloat16)
+        outs, grads = _vjp(block(hbb.fused_block_trainable), inputs, [cot])
+        _, again = _vjp(block(hbb.fused_block_trainable), inputs, [cot])
+        p_outs, p_grads = _vjp(block(hbb.fused_block_trainable_plain),
+                               inputs, [cot])
+        _assert_close(outs[0], p_outs[0])
+        names = ["x"] + [".".join(pt) for pt in hbb.paths(spec)]
+        for name, got, same, want in zip(names, grads, again, p_grads,
+                                         strict=True):
+            assert torch.equal(got, same), (i, name)
+            if spec["q_pool"] and name in POOL_ROUTED:
+                assert torch.isfinite(got).all()
+                assert _rel_l2(got, want) <= POOL_REL_L2, (i, name)
+            else:
+                _assert_close(got, want)
+        if spec["q_pool"]:
+            H //= 2
+    assert hbb.fused_block_trainable.launches == launches + 2 * 2 * 12
+
+
+@pytest.mark.cuda
+def test_all_trainable_step_runs_on_the_card(card):
+    """make_train_step with every module trainable on CUDA tensors (it
+    raised before kernel #6): the trunk's backward runs the kernel (B1 and
+    B2 once per block and clip), the loss is finite and every trunk leaf
+    moves."""
+    from sam2_video_tpu_torch.data.synthetic import example_clip
+    from sam2_video_tpu_torch.models.video_model import VideoModelConfig
+    from sam2_video_tpu_torch.ops import hiera_block_bwd as hbb
+    from sam2_video_tpu_torch.training import loop
+    from sam2_video_tpu_torch.training.losses import LossConfig
+    from sam2_video_tpu_torch.training.optimizer import make_optimizer
+
+    cfg = dataclasses.replace(card[0], image_size=128,
+                              use_flash_attention=True,
+                              use_activation_checkpoint=False)
+    params = synthetic_params(cfg, seed=1).to("cuda")
+    trainable = ["memory_attention", "memory_encoder", "mask_decoder",
+                 "prompt_encoder", "image_encoder"]
+    tx = make_optimizer(params, {"lr": 1e-4, "type": "AdamW"},
+                        {"enabled": False}, total_steps=10,
+                        trainable_modules=trainable)
+    step = loop.make_train_step(VideoModelConfig(sam2=cfg), LossConfig(), tx,
+                                trainable_modules=trainable)
+    before = {n: t.clone() for n, t in params.named_parameters()
+              if n.startswith("image_encoder.trunk.")}
+    launches = hbb.fused_block_trainable.launches
+    _, metrics = step(loop.TrainState.create(params, tx),
+                      example_clip(128, T=2, O=2, C=2, B=2))
+    assert torch.isfinite(metrics["total_loss"])
+    assert hbb.fused_block_trainable.launches == launches + 2 * 12 * 2
+    for n, t in before.items():
+        assert not torch.equal(dict(params.named_parameters())[n], t), n
