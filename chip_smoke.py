@@ -21,18 +21,29 @@ Phases (all by default):
              trunk's backward (B1 + B2 of fused_block_trainable), for each
              of the 12 blocks (every geometry class) at 10 frames of 384 px,
              dx and every parameter gradient (on q-pool blocks, those a 2x2
-             max-pool routes by relative L2, POOL_REL_L2)
+             max-pool routes by relative L2, POOL_REL_L2); #8
+             fused_twoway_block, forward and backward, the decoder's first
+             and second block at 8 objects x 8 tokens x 576 keys and 3 x 9
+             x 784 (448 px), every output and gradient (the three key-bias
+             gradients, zero in exact arithmetic, against float32:
+             TWOWAY_ZERO_GRADS), and its device operations per call
+             against the plain block's
   train      the headline train step (SAM2-tiny 384 px, bf16, T=10, O=8,
              C=7, B=2, point prompts, trainable memory attention and memory
              encoder, AdamW lr 1e-4): 1 warm-up and 5 timed steps; finite
              losses, frozen leaves bit-for-bit unchanged, every memory
              attention leaf moved, every kernel (and the three backward
-             programs) launched but #6
+             programs) launched but #6 and #8
   train_all  the all-trainable step (the same shapes, every module but the
              pointer projections trainable: the trunk runs #1 forward and
              #6 backward): 1 warm-up and 5 timed steps; finite losses,
              every image encoder leaf moved and every decoder and prompt
-             encoder leaf with a gradient, every kernel launched
+             encoder leaf with a gradient, every kernel launched but #8;
+             then the same step with fused_twoway=True against it unfused
+             on the card (loss, each top-level gradient; #8 forward and
+             backward launched), 3 timed steps of each in turns, and the
+             memory-only step fused (#8's backward for the input
+             gradients)
   train_cpu  one step of a short clip (T=3, O=4, 384 px) on the card (bf16)
              and on the CPU (float32, plain versions), memory-only and
              all-trainable: loss and each trainable top-level entry's
@@ -41,8 +52,12 @@ Phases (all by default):
              (use_flash_attention=True, 384 px, bf16, 8 objects, 7 memory
              slots): 2 synthetic 480x854 videos, point prompts on frame 0,
              propagate; encode and propagate frames/s; every forward kernel
-             must have launched; then 4 frames with
-             use_flash_attention=False (plain memory attention)
+             but #8 must have launched; then 4 frames with
+             use_flash_attention=False (plain memory attention); then one
+             8-frame video with fused_twoway=True (#8 forward in the
+             conditioning and every tracked step) beside it unfused:
+             logits within relative L2 0.1, propagate frames/s and device
+             operations per tracked frame of each
   cpu        the first 4 frames of one video on the card and on the CPU in
              float32 (plain versions); low-res logits must agree
 
@@ -53,8 +68,8 @@ CXBlocks) and the object-score head's last bias at +10, so every object
 reads present and the card-vs-CPU check compares mask logits rather than a
 presence threshold. TF32 is off for both matmuls and cuDNN. The last lines
 are the card's name and power limit, a JSON line of per-kernel numbers
-(``launches`` from the train phase, #6's from train_all, else the serve
-phase, else null), and
+(``launches`` from the train phase, #6's from train_all, #8's from the
+fused all-trainable steps, else the serve phase, else null), and
 {"ok": true, "device": ...}.
 The script needs the repository beside it and a CUDA device; without
 either it exits non-zero and prints no result.
@@ -841,6 +856,185 @@ def _sdpa_ms(q3, kin, v, kw, kbias, bias, nsp, F_, mcfg, fa):
             q3, k, vv, attn_mask=mask))
 
 
+def twoway_cost(O, N, HW, backward: bool, tensors, n_weights: int):
+    """(flops, bytes) of one fused_twoway_block call (C 256, self internal
+    256, cross internal 128, MLP 2048). Forward products per object: self
+    q, k, v and out-proj (2 N C 1024), t2i q and out-proj and i2t k and v
+    (4 x 2 N C 128), the MLP (2 x 2 N C 2048), t2i k and v and i2t q and
+    out-proj over the image rows (4 x 2 HW C 128); attention S and PV over
+    all heads (2 x 2 Lq Lk internal: N x N x 256, N x HW x 128 twice).
+    Backward, from the kept activations: two products per projection
+    (input and weight gradient); per attention dP, dV, dQ, dK and S again,
+    which the backward's row pass recomputes (5 x 2 Lq Lk internal). Bytes:
+    the inputs (and cotangents) read once, the outputs (and gradients, the
+    weights' in f32) written once, the bf16 weights read once."""
+    C = 256
+    proj = (2 * N * C * 1024 + 4 * 2 * N * C * 128 + 2 * 2 * N * C * 2048
+            + 4 * 2 * HW * C * 128)
+    att = 2 * N * N * 256 + 2 * 2 * N * HW * 128
+    flops = proj + 2 * att if not backward else 2 * proj + 5 * att
+    wbytes = 2 * n_weights + (4 * n_weights if backward else 0)
+    return O * flops, _nbytes(*tensors) + wbytes
+
+
+def _device_launches(fn) -> tuple[int, int]:
+    """(device operations, kernel launch calls) of one call of ``fn``,
+    from torch.profiler: the device-side events (kernels, copies, sets)
+    and the host's cudaLaunchKernel calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    dev = sum(e.count for e in avgs
+              if e.device_type == torch.autograd.DeviceType.CUDA)
+    host = sum(e.count for e in avgs if e.key.startswith(
+        ("cudaLaunchKernel", "cuLaunchKernel")))
+    return dev, host
+
+
+TWOWAY_SHAPES = ((8, 8, 576), (3, 9, 784))   # (O, N, HW): 384 px, 448 px
+TWOWAY = ("fused_twoway_block", "fused_twoway_block_bwd")
+# Kernel #8: each attention's key-bias gradient is zero in exact
+# arithmetic (adding q . bk to every logit of a query leaves its softmax
+# as it is), so both bf16 versions return rounding noise: the kernel sums
+# its bf16 dK rows, as the TPU kernel does (dbk += sum(dkh)), and the plain
+# version sums its own bf16 dK rows. On the H100 the two sat 0.04-0.22
+# apart against a 2e-2 limit, noise against noise. These three are held to
+# the float32 plain block on the same values instead: the kernel's L2
+# distance from it at most ZERO_GRAD_RATIO times the plain bf16 version's
+# (the kernel rounds ds before the sum too: 1.22-1.61x on the H100).
+TWOWAY_ZERO_GRADS = ("self_attn.k_proj.bias",
+                     "cross_attn_token_to_image.k_proj.bias",
+                     "cross_attn_image_to_token.k_proj.bias")
+ZERO_GRAD_RATIO = 3.0
+
+
+def phase_twoway_kernels(params, cfg, seed: int):
+    """Kernel #8 forward and backward against the plain bf16 block
+    (backward: autograd through the plain forward with the same random
+    cotangent), the decoder's first block (first=True) and second, at the
+    slice's shape (8 objects, 8 tokens, 576 image keys) and a ragged one
+    (3 objects, 9 tokens, 784 keys: 448 px): both outputs and the
+    gradients of queries, keys, qpe, kpe and every weight within
+    KERNEL_TOL of max(1, max|plain|), the key-bias gradients against
+    float32 (TWOWAY_ZERO_GRADS). Each side runs as the main path runs
+    it: the kernel with its packed operands, the plain block with bf16
+    weight copies. Device launches of one call, kernel against plain.
+    Returns the JSON rows (the slice's shape, second block; the worst error
+    of all four cases)."""
+    from sam2_video_tpu_torch.ops import common as nn
+    from sam2_video_tpu_torch.ops import twoway_kernel as twk
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(seed + 13)
+    layers = params["sam_mask_decoder"]["transformer"]["layers"]
+    src = "sam2_video_tpu_torch/csrc/twoway_block.cu"
+    rep = "sam2_video_tpu/ops/twoway_kernel.py"
+    names = [".".join(p) for p in twk.LEAVES] + ["queries", "keys", "qpe",
+                                                  "kpe"]
+    failures, rows = [], {}
+    worst = {"fwd": 0.0, "bwd": 0.0}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+
+    def tree(kind, w):
+        t = twk.block_params(w)
+        if kind == "kernel":
+            with torch.no_grad():
+                t["_ops"] = twk.pack(t)
+        else:
+            nn.add_compute_casts(t, torch.bfloat16)
+        return t
+
+    for O, N, HW in TWOWAY_SHAPES:
+        for first in (True, False):
+            w0 = twk.leaves(layers["0" if first else "1"])
+            x = [rnd(O, N, 256), rnd(O, HW, 256), rnd(O, N, 256),
+                 rnd(HW, 256)]
+            cots = [rnd(O, N, 256), rnd(O, HW, 256)]
+            res = {}
+            for kind, fn in (("kernel", twk.fused_twoway_block),
+                             ("plain", twk.twoway_block_plain)):
+                w, xl = _leaves(w0), _leaves(x)
+                t = tree(kind, w)
+                run = lambda: fn(t, *xl, first)  # noqa: E731
+                outs = run()
+                grads = torch.autograd.grad(outs, w + xl, cots,
+                                            retain_graph=True)
+                t_f = cuda_ms(run)
+                t_b = _time_backward(outs, w + xl, cots)
+                with torch.no_grad():
+                    l_f = _device_launches(run)
+                l_b = _device_launches(lambda: torch.autograd.grad(
+                    outs, w + xl, cots, retain_graph=True))
+                res[kind] = (outs, grads, t_f, t_b, l_f, l_b)
+            w, xl = _leaves(w0), _leaves([t.float() for t in x])
+            f32 = torch.autograd.grad(
+                twk.twoway_block_plain(twk.block_params(w), *xl, first),
+                w + xl, [c.float() for c in cots])
+            torch.cuda.synchronize()
+            (ko, kg, kf, kb, klf, klb) = res["kernel"]
+            (po, pg, pf, pb, plf, plb) = res["plain"]
+            label = f"O={O} N={N} HW={HW} first={first}"
+            err_f, rel_f = _check_grads(["twoway queries'", "twoway keys'"],
+                                        ko, po, failures)
+            zero = [names.index(n) for n in TWOWAY_ZERO_GRADS]
+            rest = [i for i in range(len(names)) if i not in zero]
+            err_b, rel_b = _check_grads(
+                [f"twoway d{names[i]}" for i in rest], [kg[i] for i in rest],
+                [pg[i] for i in rest], failures)
+            each = []
+            for i in zero:
+                d_k = float((kg[i].float() - f32[i]).norm())
+                d_p = float((pg[i].float() - f32[i]).norm())
+                each.append(f"{names[i]}: kernel {d_k:.4g}, plain {d_p:.4g}"
+                            f" (|float32| {float(f32[i].norm()):.3g})")
+                if not d_k <= ZERO_GRAD_RATIO * d_p:
+                    failures.append(f"twoway d{names[i]}: L2 distance from "
+                                    f"float32 {d_k:.4g} > {ZERO_GRAD_RATIO}"
+                                    f" x the plain bf16 version's {d_p:.4g}")
+                    print("FAIL " + failures[-1], flush=True)
+            print("  zero-valued key-bias gradients, L2 distance from the "
+                  "float32 plain block: " + "; ".join(each), flush=True)
+            print("  relative L2 from the float32 plain block, kernel / "
+                  "plain bf16: " + ", ".join(
+                      f"{names[i]} {_rel_l2(kg[i], f32[i]):.3g} / "
+                      f"{_rel_l2(pg[i], f32[i]):.3g}" for i in rest),
+                  flush=True)
+            worst["fwd"] = max(worst["fwd"], err_f)
+            worst["bwd"] = max(worst["bwd"], err_b)
+            nw = sum(t.numel() for t in w0)
+            r_f = _kernel_row("fused_twoway_block", src, f"{rep}:576", err_f,
+                              kf, pf, twoway_cost(O, N, HW, False,
+                                                  [*x, *ko], nw))
+            r_b = _kernel_row("fused_twoway_block_bwd", src, f"{rep}:601",
+                              err_b, kb, pb,
+                              twoway_cost(O, N, HW, True,
+                                          [*x, *cots, *kg[-4:]], nw))
+            _print_row(f"fused_twoway_block {label}", err_f, rel_f, r_f)
+            _print_row(f"fused_twoway_block backward {label}", err_b, rel_b,
+                       r_b)
+            print(f"  device operations per call (kernels, copies, sets) / "
+                  f"cudaLaunchKernel calls: forward kernel {klf[0]} / "
+                  f"{klf[1]}, plain {plf[0]} / {plf[1]}; backward kernel "
+                  f"{klb[0]} / {klb[1]}, plain {plb[0]} / {plb[1]}",
+                  flush=True)
+            if (O, N, HW) == TWOWAY_SHAPES[0] and not first:
+                rows = {"fwd": r_f, "bwd": r_b}
+            del res, ko, kg, po, pg
+    if failures:
+        raise SystemExit(f"{len(failures)} kernel #8 tensors disagree with "
+                         "the plain version:\n" + "\n".join(failures))
+    for k in ("fwd", "bwd"):
+        rows[k]["max_abs_err"] = worst[k]
+    return [rows["fwd"], rows["bwd"]]
+
+
 # ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
@@ -863,13 +1057,14 @@ def run_video(pred, video, centres):
 
 def _counters():
     """Every kernel wrapper's launch counter: name -> (wrapper, attribute);
-    the backward programs of kernels #3-#5 count on their own, kernel #6
+    the backward programs of kernels #3-#5 and #8 count on their own, kernel #6
     (the trunk's backward, B1 and B2 per block) on the trainable block's
     wrapper."""
     from sam2_video_tpu_torch.ops import flash_attention as fa
     from sam2_video_tpu_torch.ops import hiera_block_kernel as hbk
     from sam2_video_tpu_torch.ops import memattn_layer_kernel as mlk
     from sam2_video_tpu_torch.ops import memory_encoder_kernel as mek
+    from sam2_video_tpu_torch.ops import twoway_kernel as twk
 
     from sam2_video_tpu_torch.ops import hiera_block_bwd as hbb
 
@@ -879,7 +1074,8 @@ def _counters():
            "fused_memory_encoder": (mek.fused_memory_encoder, "launches")}
     for name, fn in (("flash_attention_kproj", fa.flash_attention_kproj),
                      ("fused_self_block", mlk.fused_self_block),
-                     ("fused_tail_block", mlk.fused_tail_block)):
+                     ("fused_tail_block", mlk.fused_tail_block),
+                     ("fused_twoway_block", twk.fused_twoway_block)):
         out[name] = (fn, "launches")
         out[name + "_bwd"] = (fn, "backward_launches")
     return out
@@ -939,7 +1135,10 @@ def phase_serve(params, cfg, seed: int, frames: int, objects: int):
               f"{frames / prop_s:.2f} frames/s ({prop_s:.3f} s), "
               f"logits {logits.shape} finite", flush=True)
     counts = read_counts()
-    _require(counts, [n for n in counts if "_bwd" not in n], "serving")
+    _require(counts, [n for n in counts if "_bwd" not in n
+                      and n not in TWOWAY], "serving")
+    if counts["fused_twoway_block"]:
+        raise SystemExit("serving with fused_twoway=False ran kernel #8")
     plain_cfg = dataclasses.replace(cfg, use_flash_attention=False)
     pred = VideoPredictor(params, plain_cfg, max_objects=objects,
                           device=DEVICE)
@@ -958,6 +1157,65 @@ def phase_serve(params, cfg, seed: int, frames: int, objects: int):
         raise SystemExit("use_flash_attention=False ran a memory-attention "
                          "kernel")
     return counts
+
+
+def phase_serve_fused(params, cfg, seed: int, frames: int, objects: int):
+    """The predictor with fused_twoway=True (kernel #8 forward in the
+    conditioning step and in every tracked step) beside the same predictor
+    unfused, on one synthetic video of ``frames`` frames and ``objects``
+    objects: kernel #8 launched on the fused pass and on no other, low-res
+    logits within relative L2 CPU_REL_L2_TOL of the unfused pass. Each
+    predictor runs one warm-up pass, then two timed passes in turns
+    (unfused, fused, fused, unfused); then device operations and kernel
+    launch calls per tracked frame (torch.profiler over the tracked
+    frames). Returns the fused pass's counts."""
+    import dataclasses
+
+    from sam2_video_tpu_torch import VideoPredictor
+
+    video, centres = synthetic_video(seed + 200, frames, objects=objects)
+    preds = {"unfused": cfg,
+             "fused": dataclasses.replace(cfg, fused_twoway=True)}
+    preds = {k: VideoPredictor(params, c, max_objects=objects, device=DEVICE)
+             for k, c in preds.items()}
+    logits, fps, counts = {}, {"unfused": [], "fused": []}, {}
+    for label, pred in preds.items():
+        reset_counts()
+        _, _, logits[label] = run_video(pred, video, centres)
+        counts[label] = read_counts()
+    for label in ("unfused", "fused", "fused", "unfused"):
+        _, prop_s, _ = run_video(preds[label], video, centres)
+        fps[label].append(frames / prop_s)
+    per_frame = {}
+    for label, pred in preds.items():
+        state = pred.init_state(video)
+        prompt_all(pred, state, centres)
+        pred._ensure_cond_outputs(state)
+        d, h = _device_launches(lambda: list(pred.propagate_in_video(state)))
+        per_frame[label] = (d / (frames - 1), h / (frames - 1))
+    rel = _rel_l2(*(torch.from_numpy(logits[k].astype(np.float32))
+                    for k in ("fused", "unfused")))
+    for label in preds:
+        print(f"serve fused_twoway={label == 'fused'}: {frames} frames, "
+              f"{objects} objects: propagate frames/s "
+              + ", ".join(f"{f:.2f}" for f in fps[label])
+              + f"; per tracked frame {per_frame[label][0]:.1f} device "
+              f"operations, {per_frame[label][1]:.1f} cudaLaunchKernel "
+              f"calls; kernel #8 launches {counts[label][TWOWAY[0]]}",
+              flush=True)
+    print(f"serve fused vs unfused low-res logits: rel_l2 {rel:.4g} (tol "
+          f"{CPU_REL_L2_TOL}) {'OK' if rel <= CPU_REL_L2_TOL else 'FAIL'}",
+          flush=True)
+    if not np.isfinite(logits["fused"].astype(np.float32)).all():
+        raise SystemExit("serving with fused_twoway=True: non-finite logits")
+    _require(counts["fused"], [TWOWAY[0], "fused_block",
+                               "fused_memory_encoder"],
+             "fused-two-way serving")
+    if counts["unfused"][TWOWAY[0]]:
+        raise SystemExit("serving with fused_twoway=False ran kernel #8")
+    if not rel <= CPU_REL_L2_TOL:
+        raise SystemExit(f"fused and unfused serving disagree: rel_l2 {rel}")
+    return counts["fused"]
 
 
 def phase_cpu(params, cfg, seed: int, objects: int):
@@ -1073,8 +1331,8 @@ def phase_train(cfg, seed: int):
     print(f"train: all {moved} memory_attention leaves moved, frozen "
           "leaves bit-for-bit unchanged", flush=True)
     _require(counts, [n for n in counts
-                      if not n.startswith("fused_block_trainable_bwd")],
-             "training")
+                      if not n.startswith("fused_block_trainable_bwd")
+                      and n not in TWOWAY], "training")
     if counts["fused_block_trainable_bwd"]:
         raise SystemExit("train: the frozen trunk ran kernel #6")
     return counts, ms
@@ -1156,7 +1414,7 @@ def phase_train_all(cfg, seed: int):
         "unchanged: " + ", ".join(f"{k} {v}" for k, v in sorted(
             unused.items())) + "), pointer projections bit-for-bit "
         "unchanged", flush=True)
-    _require(counts, list(counts) + [
+    _require(counts, [n for n in counts if n not in TWOWAY] + [
         f"fused_block_trainable_bwd[{g}]" for g in _trunk_classes(cfg)],
         "all-trainable training")
     return counts, ms
@@ -1184,11 +1442,19 @@ def _train_cpu(cfg, seed: int, trainable):
         out[dev] = (float(m["total_loss"]),
                     {n: g.detach().float().cpu() for n, g in grads.items()})
         del params, state, step, grads
-    (lc, gc), (lp, gp) = out[DEVICE], out["cpu"]
+    _compare_steps(f"train card vs cpu, trainable {'+'.join(trainable)}",
+                   out[DEVICE], out["cpu"])
+
+
+def _compare_steps(title: str, got, want):
+    """Loss within relative TRAIN_CPU_LOSS_TOL and each trainable top-level
+    entry's gradient within relative L2 TRAIN_CPU_GRAD_TOL
+    (TRAIN_CPU_BARE_TOL for a bare embedding) of ``want``; each a (loss,
+    {name: gradient on the CPU}) pair, ``want`` the reference."""
+    (lc, gc), (lp, gp) = got, want
     rel = abs(lc - lp) / max(abs(lp), 1e-12)
-    print(f"train card vs cpu, trainable {'+'.join(trainable)}: loss "
-          f"{lc:.6g} vs {lp:.6g} rel {rel:.4g} (tol {TRAIN_CPU_LOSS_TOL})",
-          flush=True)
+    print(f"{title}: loss {lc:.6g} vs {lp:.6g} rel {rel:.4g} (tol "
+          f"{TRAIN_CPU_LOSS_TOL})", flush=True)
     bad = [] if rel <= TRAIN_CPU_LOSS_TOL else [f"loss rel {rel}"]
     for top in sorted({n.split(".")[0] for n in gp}):
         names = [n for n in gp if n.split(".")[0] == top]
@@ -1197,20 +1463,98 @@ def _train_cpu(cfg, seed: int, trainable):
         nb = float(b.norm())
         if nb == 0.0:
             ok = float(a.norm()) == 0.0
-            print(f"  grad {top}: zero on the cpu, card norm "
+            print(f"  grad {top}: zero in the reference, here norm "
                   f"{float(a.norm()):.4g} {'OK' if ok else 'FAIL'}",
                   flush=True)
             if not ok:
-                bad.append(f"{top}: nonzero card gradient")
+                bad.append(f"{top}: nonzero gradient")
             continue
         r = float((a - b).norm()) / nb
         tol = TRAIN_CPU_GRAD_TOL if len(names) > 1 else TRAIN_CPU_BARE_TOL
-        print(f"  grad {top}: rel_l2 {r:.4g} (|cpu| {nb:.4g}, tol {tol})",
+        print(f"  grad {top}: rel_l2 {r:.4g} (|reference| {nb:.4g}, tol "
+              f"{tol})",
               flush=True)
         if not r <= tol:
             bad.append(f"{top}: rel_l2 {r}")
     if bad:
-        raise SystemExit("train card vs cpu: " + "; ".join(bad))
+        raise SystemExit(f"{title}: " + "; ".join(bad))
+
+
+FUSED_STEPS = 3
+
+
+def phase_train_fused(cfg, seed: int):
+    """The all-trainable step with fused_twoway=True (kernel #8 forward and
+    backward in both blocks of every decoder call: 2 clips x 10 frames x 2
+    blocks) against the same step unfused on the card, from the same
+    weights and batch: loss and each trainable top-level gradient as in the
+    card-vs-CPU check; both kernel #8 counters launched in the fused step
+    and not in the unfused one. Then FUSED_STEPS timed steps of each in
+    turns, kernel #8's counters at 0 just before them; then the memory-only
+    step fused, whose frozen decoder still runs #8's backward for the input
+    gradients. Returns (the timed steps' counts, fused step ms)."""
+    import dataclasses
+
+    runs = {}
+    for label, c in (("unfused", cfg),
+                     ("fused", dataclasses.replace(cfg, fused_twoway=True))):
+        params = synthetic_params(c, seed).to(DEVICE)
+        state, step, batch = _train_setup(c, params, DEVICE, TRAIN_T,
+                                          TRAIN_O, TRAIN_C, TRAIN_B,
+                                          TRAINABLE_ALL)
+        reset_counts()
+        state, m, grads = step.with_grads(state, batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        runs[label] = [state, step, batch, (
+            float(m["total_loss"]),
+            {n: g.detach().float().cpu() for n, g in grads.items()})]
+        print(f"train_all fused_twoway={label == 'fused'}: kernel #8 "
+              f"launches {counts[TWOWAY[0]]} forward, {counts[TWOWAY[1]]} "
+              "backward in one step", flush=True)
+        if label == "fused":
+            _require(counts, TWOWAY, "fused-two-way all-trainable training")
+        elif counts[TWOWAY[0]] or counts[TWOWAY[1]]:
+            raise SystemExit("train_all with fused_twoway=False ran #8")
+        del grads
+    _compare_steps("train_all fused vs unfused on the card",
+                   runs["fused"][3], runs["unfused"][3])
+    times = {"unfused": [], "fused": []}
+    reset_counts()
+    for i in range(FUSED_STEPS):
+        for label in (("unfused", "fused") if i % 2 == 0
+                      else ("fused", "unfused")):
+            state, step, batch, _ = runs[label]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[label][0], _ = step(state, batch)
+            torch.cuda.synchronize()
+            times[label].append(time.perf_counter() - t0)
+    counts = read_counts()
+    ms = {k: 1e3 * float(np.median(v)) for k, v in times.items()}
+    for label in ("unfused", "fused"):
+        print(f"train_all fused_twoway={label == 'fused'} B={TRAIN_B} "
+              f"T={TRAIN_T} O={TRAIN_O}: step ms median {ms[label]:.3f} "
+              "(each: " + ", ".join(f"{1e3 * t:.3f}" for t in times[label])
+              + f"), clips/s {TRAIN_B / (ms[label] / 1e3):.3f}", flush=True)
+    print(f"train_all fused: kernel #8 launches over {FUSED_STEPS} steps: "
+          f"{counts[TWOWAY[0]]} forward, {counts[TWOWAY[1]]} backward",
+          flush=True)
+    del runs
+    c = dataclasses.replace(cfg, fused_twoway=True)
+    params = synthetic_params(c, seed).to(DEVICE)
+    state, step, batch = _train_setup(c, params, DEVICE, TRAIN_T, TRAIN_O,
+                                      TRAIN_C, TRAIN_B)
+    reset_counts()
+    _, m = step(state, batch)
+    mem = read_counts()
+    print(f"train (memory-only) fused_twoway=True: loss "
+          f"{float(m['total_loss']):.6g}; kernel #8 launches "
+          f"{mem[TWOWAY[0]]} forward, {mem[TWOWAY[1]]} backward", flush=True)
+    if not np.isfinite(float(m["total_loss"])):
+        raise SystemExit("memory-only fused step: non-finite loss")
+    _require(mem, TWOWAY, "fused-two-way memory-only training")
+    return counts, ms["fused"]
 
 
 def main() -> int:
@@ -1256,25 +1600,31 @@ def main() -> int:
                                  args.seed, CHUNK, OBJECTS)
         rows += phase_memattn_kernels(params, cfg, args.seed, OBJECTS)
         rows += phase_hiera_bwd_kernels(params, cfg, args.seed, TRAIN_T)
+        rows += phase_twoway_kernels(params, cfg, args.seed)
     launches = {}
     if "train" in phases:
         launches, _ = phase_train(cfg, args.seed)
     if "train_all" in phases:
         trained_all, _ = phase_train_all(cfg, args.seed)
+        fused, _ = phase_train_fused(cfg, args.seed)
         launches = {**launches, **{
             k: v for k, v in trained_all.items()
-            if k.startswith("fused_block_trainable_bwd")}}
+            if k.startswith("fused_block_trainable_bwd")},
+            **{k: fused[k] for k in TWOWAY}}
     if "train_cpu" in phases:
         phase_train_cpu(cfg, args.seed)
     if "serve" in phases:
         served = phase_serve(params, cfg, args.seed, FRAMES, OBJECTS)
-        launches = {**served, **launches}
+        served_fused = phase_serve_fused(params, cfg, args.seed, CHUNK,
+                                         OBJECTS)
+        launches = {**served, **{k: served_fused[k] for k in TWOWAY},
+                    **launches}
     if "cpu" in phases:
         phase_cpu(params, cfg, args.seed, OBJECTS)
 
     # each kernel's launches on its training path (#1-#5: the memory-only
-    # step, #6 per geometry class: the all-trainable step), else
-    # serving's, else null
+    # step, #6 per geometry class: the all-trainable step, #8 the fused
+    # all-trainable steps), else serving's (#8: the fused pass), else null
     for r in rows:
         r["launches"] = launches.get(r["name"])
     print(card, flush=True)

@@ -1,7 +1,8 @@
 """Two-way-transformer mask decoder, the SAM head (counterpart of
 ``sam2_video_tpu/models/mask_decoder.py``). Output-token order is
-[obj_score | iou | 4 mask tokens]. The fused two-way kernel is off by
-default in the JAX package and is not ported here."""
+[obj_score | iou | 4 mask tokens]. With ``fused_twoway`` (off by default,
+as in the JAX package) the two-way blocks run kernel #8,
+``ops/twoway_kernel.py`` ``fused_twoway_block``."""
 
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ class MaskDecoderConfig:
     transformer_mlp_dim: int = 2048
     transformer_num_heads: int = 8
     attention_downsample_rate: int = 2
+    # route the two-way blocks through kernel #8 (the JAX switch)
     fused_twoway: bool = False
     num_multimask_outputs: int = 3
     iou_head_depth: int = 3
@@ -113,15 +115,36 @@ def _transformer(p, cfg, image_embedding, image_pe_2d, point_embedding):
     object batch; point_embedding [B, N, C]."""
     queries, keys = point_embedding, image_embedding
     image_pe = image_pe_2d[None]
-    for i in range(cfg.transformer_depth):
-        queries, keys = _twoway_block(
-            p["layers"][str(i)], queries, keys, point_embedding, image_pe,
-            cfg.transformer_num_heads, skip_first_pe=(i == 0))
+    if cfg.fused_twoway:
+        queries, keys = _transformer_blocks_fused(p, cfg, queries, keys,
+                                                  image_pe_2d)
+    else:
+        for i in range(cfg.transformer_depth):
+            queries, keys = _twoway_block(
+                p["layers"][str(i)], queries, keys, point_embedding,
+                image_pe, cfg.transformer_num_heads, skip_first_pe=(i == 0))
     q = queries + point_embedding
     k = keys + image_pe
     queries = queries + _attn(p["final_attn_token_to_image"], q, k, keys,
                               cfg.transformer_num_heads)
     queries = nn.layer_norm(p["norm_final_attn"], queries)
+    return queries, keys
+
+
+def _transformer_blocks_fused(p, cfg, queries, keys, image_pe_2d):
+    """The two-way blocks through kernel #8 (the JAX package's
+    ``_transformer_blocks_fused``): the pe of the queries in both blocks
+    is the original token embedding, the image pe is cast to the keys'
+    dtype. On a CUDA tensor the kernel runs or raises; there is no
+    fallback to the plain blocks."""
+    from ..ops import twoway_kernel as twk
+
+    qpe = queries
+    kpe = image_pe_2d.to(keys.dtype)
+    for i in range(cfg.transformer_depth):
+        queries, keys = twk.fused_twoway_block(
+            p["layers"][str(i)], queries, keys, qpe, kpe, first=(i == 0),
+            heads=cfg.transformer_num_heads)
     return queries, keys
 
 

@@ -90,6 +90,11 @@ class SAM2Config:
     memory_bank_dtype: str = "float32"
     detach_memory_bank: bool = True
     fused_backbone_vjp: bool = False
+    # The two-way decoder blocks through kernel #8: the JAX package's
+    # MaskDecoderConfig.fused_twoway, which its SAM2Config does not forward
+    # (its decoder reaches the kernel only when called with its own
+    # config). Off by default as there, so every path computes what it did.
+    fused_twoway: bool = False
 
     def dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.compute_dtype == "bfloat16"
@@ -140,7 +145,8 @@ class SAM2Config:
             pred_obj_scores=c.pred_obj_scores,
             pred_obj_scores_mlp=c.pred_obj_scores_mlp,
             use_multimask_token_for_obj_ptr=c.use_multimask_token_for_obj_ptr,
-            dynamic_multimask_via_stability=c.dynamic_multimask_via_stability)
+            dynamic_multimask_via_stability=c.dynamic_multimask_via_stability,
+            fused_twoway=c.fused_twoway)
 
     @property
     def memory_attention_config(
@@ -197,7 +203,7 @@ def init(cfg: SAM2Config, seed: int = 0) -> nn.ParamTree:
 def prepare(p: nn.ParamTree, cfg: SAM2Config) -> nn.ParamTree:
     """A tree over the same parameter tensors plus the entries derived from
     them once, where the predictor is built (the JAX package's ``prepare``):
-    memory attention's permuted q/k projections, the two kernels' packed
+    memory attention's permuted q/k projections, the kernels' packed
     operands (``_ops``) and, for a compute dtype other than float32, every
     product's weight and bias in that dtype (``ops/common.py``
     ``add_compute_casts``). ``p`` itself is left as it was. Derived
@@ -211,15 +217,19 @@ def prepare(p: nn.ParamTree, cfg: SAM2Config) -> nn.ParamTree:
 
 def derive(tree: dict, cfg: SAM2Config, modules=None) -> dict:
     """Add the derived entries of the top-level ``modules`` (all when None)
-    to the nested dict ``tree`` in place: the forward-only kernels' packed
-    operands, made without gradient, and the compute-dtype casts, made
-    under autograd. The train step derives its frozen modules once and its
-    trainable ones in every step. With ``cfg.fused_backbone_vjp`` (a
-    trainable trunk) the trunk's blocks get no compute-dtype casts: their
-    trainable kernel takes the float32 leaves, whose gradients it returns,
-    and reads the packed operands, made here once per step, as data."""
+    to the nested dict ``tree`` in place: the kernels' packed operands
+    (the trunk's and memory encoder's, and the decoder blocks' with
+    ``cfg.fused_twoway``), made without gradient, and the compute-dtype
+    casts, made under autograd. The train step derives its frozen modules
+    once and its trainable ones in every step. With
+    ``cfg.fused_backbone_vjp`` (a trainable trunk) the trunk's blocks get
+    no compute-dtype casts: their trainable kernel takes the float32
+    leaves, whose gradients it returns, and reads the packed operands, made
+    here once per step, as data; #8 reads its pack beside a trainable
+    decoder's float32 leaves the same way."""
     from ..ops import hiera_block_kernel as hbk
     from ..ops import memory_encoder_kernel as mek
+    from ..ops import twoway_kernel as twk
 
     def want(top):
         return top in tree and (modules is None or top in modules)
@@ -233,6 +243,10 @@ def derive(tree: dict, cfg: SAM2Config, modules=None) -> dict:
         if want("memory_encoder") and mek.eligible(cfg.memory_encoder_config):
             tree["memory_encoder"]["_ops"] = mek.pack(
                 tree["memory_encoder"], cfg.memory_encoder_config)
+        if want("sam_mask_decoder") and cfg.fused_twoway:
+            for layer in tree["sam_mask_decoder"]["transformer"][
+                    "layers"].values():
+                layer["_ops"] = twk.pack(layer)
     if cfg.dtype() != torch.float32:
         for top, sub in tree.items():
             if not (want(top) and isinstance(sub, dict)):

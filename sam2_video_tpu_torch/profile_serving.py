@@ -1,10 +1,11 @@
 """Where the serving path's device time goes, on one NVIDIA GPU.
 
-    python3 -m sam2_video_tpu_torch.profile_serving
+    python3 -m sam2_video_tpu_torch.profile_serving [--fused-twoway]
 
 Builds the SAM2-tiny 384-px bf16 predictor (``synthetic_params`` weights,
-the usual use_flash_attention=True), warms it up on a video of the same length, then
-runs under
+the usual use_flash_attention=True; with ``--fused-twoway`` the decoder's
+two-way blocks run kernel #8), warms it up on a video of the same length,
+then runs under
 ``torch.profiler`` three windows of one synthetic 480x854 video:
 ``encode`` (init_state: resize + trunk + neck), ``prompt`` (8 point
 prompts on frame 0 + the conditioning step) and ``propagate`` (the tracked
@@ -16,6 +17,7 @@ CPU time.
 
 from __future__ import annotations
 
+import argparse
 import time
 
 import torch
@@ -59,12 +61,16 @@ def report(prof, label: str, wall_s: float, top: int = TOP):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--fused-twoway", action="store_true")
+    fused = ap.parse_args().fused_twoway
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    cfg = sam2_mod.SAM2Config(image_size=384, compute_dtype="bfloat16")
+    cfg = sam2_mod.SAM2Config(image_size=384, compute_dtype="bfloat16",
+                              fused_twoway=fused)
     pred = VideoPredictor(synthetic_params(cfg, SEED), cfg,
                           max_objects=OBJECTS, device="cuda")
     # warm up at the profiled length: new batch shapes pay one-time costs
@@ -89,7 +95,7 @@ def main() -> int:
         list(pred.propagate_in_video(state))
 
     for label, fn in (("encode", encode), ("prompt", prompt),
-                      ("propagate", propagate)):
+                      (f"propagate fused_twoway={fused}", propagate)):
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()

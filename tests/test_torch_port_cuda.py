@@ -387,3 +387,89 @@ def test_all_trainable_step_runs_on_the_card(card):
     assert hbb.fused_block_trainable.launches == launches + 2 * 12 * 2
     for n, t in before.items():
         assert not torch.equal(dict(params.named_parameters())[n], t), n
+
+
+# kernel #8: each attention's key-bias gradient is zero in exact arithmetic
+# (softmax ignores q . bk, the same for every key of a query), so the kernel
+# and the plain bf16 block both return rounding noise there; those three
+# are held to the float32 plain block: the kernel's L2 distance from it at
+# most ZERO_GRAD_RATIO times the plain bf16 version's (chip_smoke.py).
+TWOWAY_ZERO_GRADS = ("self_attn.k_proj.bias",
+                     "cross_attn_token_to_image.k_proj.bias",
+                     "cross_attn_image_to_token.k_proj.bias")
+ZERO_GRAD_RATIO = 3.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first", [True, False])
+@pytest.mark.parametrize("O, N, HW", [(8, 8, 576), (3, 9, 784)])
+def test_twoway_block_matches_plain(card, first, O, N, HW):
+    """Kernel #8 forward and backward against the plain bf16 block (the
+    decoder's first or second block, synthetic weights) at the 384 px slice
+    shape and a ragged 448 px one: both outputs and the gradients of every
+    weight, queries, keys, qpe and kpe within TOL of max(1, max|plain|),
+    the three key-bias gradients against float32; two backward runs give
+    the same bits (no atomics)."""
+    from sam2_video_tpu_torch.ops import twoway_kernel as twk
+
+    cfg, params = card
+    layer = params["sam_mask_decoder"]["transformer"]["layers"][
+        "0" if first else "1"]
+    gen = torch.Generator().manual_seed(O * 1000 + HW + first)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to("cuda", torch.bfloat16)
+
+    inputs = [rnd(O, N, 256), rnd(O, HW, 256), rnd(O, N, 256),
+              rnd(HW, 256)] + twk.leaves(layer)
+    cots = [rnd(O, N, 256), rnd(O, HW, 256)]
+
+    def block(fn):
+        def run(q, k, qpe, kpe, *w):
+            return fn(twk.block_params(w), q, k, qpe, kpe, first)
+        return run
+
+    launches = (twk.fused_twoway_block.launches,
+                twk.fused_twoway_block.backward_launches)
+    outs, grads = _vjp(block(twk.fused_twoway_block), inputs, cots)
+    _, again = _vjp(block(twk.fused_twoway_block), inputs, cots)
+    p_outs, p_grads = _vjp(block(twk.twoway_block_plain), inputs, cots)
+    _, f_grads = _vjp(block(twk.twoway_block_plain),
+                      [t.float() for t in inputs], [c.float() for c in cots])
+    assert (twk.fused_twoway_block.launches,
+            twk.fused_twoway_block.backward_launches) == (
+        launches[0] + 2, launches[1] + 2)
+    for got, want in zip(outs, p_outs, strict=True):
+        _assert_close(got, want)
+    names = ["queries", "keys", "qpe", "kpe"] + [".".join(p)
+                                                 for p in twk.LEAVES]
+    for name, got, same, want, f32 in zip(names, grads, again, p_grads,
+                                          f_grads, strict=True):
+        assert torch.equal(got, same), name
+        if name in TWOWAY_ZERO_GRADS:
+            assert torch.isfinite(got).all()
+            d_k = (got.float() - f32).norm().item()
+            d_p = (want.float() - f32).norm().item()
+            assert d_k <= ZERO_GRAD_RATIO * d_p, (name, d_k, d_p)
+        else:
+            _assert_close(got, want)
+
+
+@pytest.mark.cuda
+def test_twoway_kernel_refuses_other_geometries_on_the_card(card):
+    """A CUDA tensor of a geometry the kernel does not take raises (the
+    JAX package would take its XLA block; the port does not fall back)."""
+    from sam2_video_tpu_torch.ops import twoway_kernel as twk
+
+    _, params = card
+    layer = params["sam_mask_decoder"]["transformer"]["layers"]["1"]
+    x = [torch.zeros(s, device="cuda", dtype=torch.bfloat16)
+         for s in ((2, 8, 256), (2, 64, 256), (2, 8, 256), (64, 256))]
+    launches = twk.fused_twoway_block.launches
+    with pytest.raises(NotImplementedError, match="8 heads"):
+        twk.fused_twoway_block(layer, *x, False, heads=4)
+    with pytest.raises(NotImplementedError, match="kpe"):
+        twk.fused_twoway_block(layer, *x[:3], x[3][:32], False)
+    with pytest.raises(TypeError, match="bfloat16"):
+        twk.fused_twoway_block(layer, *(t.float() for t in x), False)
+    assert twk.fused_twoway_block.launches == launches
