@@ -27,13 +27,22 @@ Phases (all by default):
              x 784 (448 px), every output and gradient (the three key-bias
              gradients, zero in exact arithmetic, against float32:
              TWOWAY_ZERO_GRADS), and its device operations per call
-             against the plain block's
+             against the plain block's; #7 flash_attention, forward and
+             backward, at the two-head path's shapes (8 objects x 2 heads,
+             576 queries, head and value width 128, Lk 580 and 4068 in
+             training, 4096 with two invalid slots in serving) and one head
+             over 128-channel memory (8 x 1, width 256, values 128), each
+             tensor within 2e-2 of its own max|plain|, beside
+             F.scaled_dot_product_attention forward and backward
   train      the headline train step (SAM2-tiny 384 px, bf16, T=10, O=8,
              C=7, B=2, point prompts, trainable memory attention and memory
              encoder, AdamW lr 1e-4): 1 warm-up and 5 timed steps; finite
              losses, frozen leaves bit-for-bit unchanged, every memory
              attention leaf moved, every kernel (and the three backward
-             programs) launched but #6 and #8
+             programs) launched but #6, #7 and #8; then the same step with
+             two memory-attention heads (memory_attention_num_heads=2: the
+             cross-attention through #7 forward and backward, 72 calls
+             each per step, and #3-#5 not launched)
   train_all  the all-trainable step (the same shapes, every module but the
              pointer projections trainable: the trunk runs #1 forward and
              #6 backward): 1 warm-up and 5 timed steps; finite losses,
@@ -45,9 +54,9 @@ Phases (all by default):
              memory-only step fused (#8's backward for the input
              gradients)
   train_cpu  one step of a short clip (T=3, O=4, 384 px) on the card (bf16)
-             and on the CPU (float32, plain versions), memory-only and
-             all-trainable: loss and each trainable top-level entry's
-             gradient must agree
+             and on the CPU (float32, plain versions), memory-only,
+             all-trainable and memory-only with two memory-attention heads:
+             loss and each trainable top-level entry's gradient must agree
   serve      the streaming VideoPredictor in the usual configuration
              (use_flash_attention=True, 384 px, bf16, 8 objects, 7 memory
              slots): 2 synthetic 480x854 videos, point prompts on frame 0,
@@ -57,9 +66,12 @@ Phases (all by default):
              8-frame video with fused_twoway=True (#8 forward in the
              conditioning and every tracked step) beside it unfused:
              logits within relative L2 0.1, propagate frames/s and device
-             operations per tracked frame of each
+             operations per tracked frame of each; then one 8-frame video
+             with two memory-attention heads (#7 forward, 4 calls per
+             tracked frame, #3-#5 not launched) beside one head, in turns
   cpu        the first 4 frames of one video on the card and on the CPU in
-             float32 (plain versions); low-res logits must agree
+             float32 (plain versions), with one and with two memory-
+             attention heads; low-res logits must agree
 
 Weights are ``synthetic_params``: the port's seeded random init moved off
 its constants (every parameter + 0.05 N(0, 1), the memory encoder's CXBlock
@@ -68,8 +80,9 @@ CXBlocks) and the object-score head's last bias at +10, so every object
 reads present and the card-vs-CPU check compares mask logits rather than a
 presence threshold. TF32 is off for both matmuls and cuDNN. The last lines
 are the card's name and power limit, a JSON line of per-kernel numbers
-(``launches`` from the train phase, #6's from train_all, #8's from the
-fused all-trainable steps, else the serve phase, else null), and
+(``launches`` from the train phase, #6's from train_all, #7's from the
+two-head train steps, #8's from the fused all-trainable steps, else the
+serve phase, else null), and
 {"ok": true, "device": ...}.
 The script needs the repository beside it and a CUDA device; without
 either it exits non-zero and prints no result.
@@ -78,6 +91,7 @@ either it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -93,9 +107,10 @@ from sam2_video_tpu_torch.models import memory_encoder as me
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 KERNEL_TOL = 2e-2             # of max(1, |plain|): bf16 rounding points differ
-# flash_attention_kproj's output and dq, dkin, dv are softmax averages of
-# O(1) values, well below 1: its limit is KERNEL_TOL of max|plain| itself
-KPROJ_FLOOR = 0.0
+# the attention kernels' outputs and input gradients (#3's out, dq, dkin,
+# dv; #7's out, dq, dk, dv) are softmax averages of O(1) values, well below
+# 1: their limit is KERNEL_TOL of max|plain| itself
+ATTENTION_FLOOR = 0.0
 CPU_REL_L2_TOL = 0.1          # card bf16 vs CPU float32, over 4 frames
 PHASES = ("build", "kernels", "train", "train_all", "train_cpu", "serve",
           "cpu")
@@ -288,6 +303,16 @@ def kproj_cost(BH, Lq, Lk, backward: bool, tensors):
     proj, qk, pv = 2 * Lk * 64 * 256, 2 * Lq * Lk * 256, 2 * Lq * Lk * 64
     flops = proj + qk + pv if not backward else \
         3 * proj + 3 * qk + 2 * pv
+    return BH * flops, _nbytes(*tensors)
+
+
+def flash_cost(BH, Lq, Lk, D, Dv, backward: bool, tensors):
+    """(flops, bytes) of flash_attention. Forward: QK^T (2 Lq Lk D) and PV
+    (2 Lq Lk Dv) per batch-head. Backward, from the saved q, k, v, out and
+    lse: QK^T again, dQ and dK (2 Lq Lk D each), dP and dV (2 Lq Lk Dv
+    each). Bytes: every input read once, every output written once."""
+    qk, pv = 2 * Lq * Lk * D, 2 * Lq * Lk * Dv
+    flops = qk + pv if not backward else 3 * qk + 2 * pv
     return BH * flops, _nbytes(*tensors)
 
 
@@ -512,7 +537,7 @@ def phase_memattn_kernels(params, cfg, seed: int, objects: int):
         torch.cuda.synchronize()
         (ko, kg, kf, kb), (po, pg, pf, pb) = res["kernel"], res["plain"]
         err, rel = _check_grads([f"kproj out Lk={Lk}"], [ko], [po],
-                                failures, KPROJ_FLOOR)
+                                failures, ATTENTION_FLOOR)
         lib = _sdpa_ms(q3, kin, v, kw, kbias, bias, nsp, F_, mcfg, fa)
         fl, nb = kproj_cost(O, L, Lk, False, [q3, kin, v, bias, ko])
         r = _kernel_row("flash_attention_kproj", fsrc, f"{frep}:391", err,
@@ -521,7 +546,7 @@ def phase_memattn_kernels(params, cfg, seed: int, objects: int):
         fwd_rows.append(r)
         err, rel = _check_grads(
             [f"kproj d{n} Lk={Lk}" for n in ("q", "kin", "v", "wk", "bk")],
-            kg, pg, failures, KPROJ_FLOOR)
+            kg, pg, failures, ATTENTION_FLOOR)
         fl, nb = kproj_cost(O, L, Lk, True, [q3, kin, v, bias, ko, cot, *kg])
         r = _kernel_row("flash_attention_kproj_bwd", fsrc, f"{frep}:440",
                         err, kb, pb, (fl, nb + 2 * kw.numel()))
@@ -536,6 +561,100 @@ def phase_memattn_kernels(params, cfg, seed: int, objects: int):
         raise SystemExit(f"{len(failures)} kernel outputs disagree with "
                          "their plain versions:\n" + "\n".join(failures))
     return rows
+
+
+# kernel #7 at the shapes its paths give it: (label, objects, heads, head
+# width, value width, memory slots, pointer tokens, two invalid slots)
+FLASH_CASES = (
+    ("2 heads, training, frame 1", 8, 2, 128, 128, 1, 4, False),
+    ("2 heads, training, frame 9", 8, 2, 128, 128, 7, 36, False),
+    ("2 heads, serving", 8, 2, 128, 128, 7, 64, True),
+    ("1 head over 128-channel memory, frame 9", 8, 1, 256, 128, 7, 18,
+     False),
+)
+FLASH = ("flash_attention", "flash_attention_bwd")
+
+
+def _library_attention_ms(q, k, v, valid, cot):
+    """ms of F.scaled_dot_product_attention (bf16, the keys that ``valid``
+    marks), forward and backward, on the kernel's inputs: the yardstick of
+    the JSON line, used nowhere in the port."""
+    import torch.nn.functional as F
+
+    mask = None if valid is None else valid[None, None, None, :]
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+    return (cuda_ms(lambda: F.scaled_dot_product_attention(
+        *leaves, attn_mask=mask)), _time_backward(out, leaves, cot))
+
+
+def phase_flash_kernels(seed: int):
+    """Kernel #7 forward and backward against its plain version (backward:
+    autograd through the plain forward with the same random cotangent) at
+    FLASH_CASES, with F.scaled_dot_product_attention timed on the same
+    tensors. Returns the JSON rows: the two-head training shape at frame 9
+    (Lk 4068), the worst error of all cases."""
+    from sam2_video_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(seed + 17)
+    src = "sam2_video_tpu_torch/csrc/flash_attention.cu"
+    rep = "sam2_video_tpu/ops/flash_attention.py"
+    L = (384 // 16) ** 2
+    failures, rows, worst = [], {}, {"fwd": 0.0, "bwd": 0.0}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+
+    for i, (label, O, H, D, Dv, slots, ptr, masked) in enumerate(
+            FLASH_CASES):
+        Lk = slots * L + ptr
+        q, k, v = rnd(O, H, L, D), rnd(O, H, Lk, D), rnd(O, H, Lk, Dv)
+        valid = bias = None
+        if masked:
+            valid = torch.ones(Lk, dtype=torch.bool, device=dev)
+            valid[2 * L: 4 * L] = False
+            bias = torch.where(valid, 0.0, -1e9).float()
+        cot = rnd(O, H, L, Dv)
+        res = {}
+        for kind, fn in (("kernel", fa.flash_attention),
+                         ("plain", fa.flash_attention_plain)):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v)]
+            out = fn(*leaves, bias)
+            grads = torch.autograd.grad(out, leaves, cot, retain_graph=True)
+            t_f = cuda_ms(lambda: fn(*leaves, bias))
+            t_b = _time_backward(out, leaves, cot)
+            res[kind] = (out, grads, t_f, t_b)
+        lib_f, lib_b = _library_attention_ms(q, k, v, valid, cot)
+        torch.cuda.synchronize()
+        (ko, kg, kf, kb), (po, pg, pf, pb) = res["kernel"], res["plain"]
+        tag = f"O={O} H={H} Lq={L} Lk={Lk} D={D} Dv={Dv}"
+        err_f, rel_f = _check_grads([f"flash out {tag}"], [ko], [po],
+                                    failures, ATTENTION_FLOOR)
+        r_f = _kernel_row(FLASH[0], src, f"{rep}:93", err_f, kf, pf,
+                          flash_cost(O * H, L, Lk, D, Dv, False,
+                                     [q, k, v, bias, ko]), lib_f)
+        _print_row(f"flash_attention {label}: {tag}", err_f, rel_f, r_f)
+        err_b, rel_b = _check_grads(
+            [f"flash d{n} {tag}" for n in ("q", "k", "v")], kg, pg, failures,
+            ATTENTION_FLOOR)
+        r_b = _kernel_row(FLASH[1], src, f"{rep}:183", err_b, kb, pb,
+                          flash_cost(O * H, L, Lk, D, Dv, True,
+                                     [q, k, v, bias, ko, cot, *kg]), lib_b)
+        _print_row(f"flash_attention backward {label}: {tag}", err_b, rel_b,
+                   r_b)
+        worst["fwd"] = max(worst["fwd"], err_f)
+        worst["bwd"] = max(worst["bwd"], err_b)
+        if i == 1:
+            rows = {"fwd": r_f, "bwd": r_b}
+        del res, ko, kg, po, pg
+    if failures:
+        raise SystemExit(f"{len(failures)} kernel #7 tensors disagree with "
+                         "the plain version:\n" + "\n".join(failures))
+    for key in ("fwd", "bwd"):
+        rows[key]["max_abs_err"] = worst[key]
+    return [rows["fwd"], rows["bwd"]]
 
 
 def hiera_block_bwd_cost(spec, B: int, H: int, W: int, mlp_ratio: float,
@@ -1057,7 +1176,7 @@ def run_video(pred, video, centres):
 
 def _counters():
     """Every kernel wrapper's launch counter: name -> (wrapper, attribute);
-    the backward programs of kernels #3-#5 and #8 count on their own, kernel #6
+    the backward programs of kernels #3-#5, #7 and #8 count on their own, kernel #6
     (the trunk's backward, B1 and B2 per block) on the trainable block's
     wrapper."""
     from sam2_video_tpu_torch.ops import flash_attention as fa
@@ -1073,6 +1192,7 @@ def _counters():
                                          "launches"),
            "fused_memory_encoder": (mek.fused_memory_encoder, "launches")}
     for name, fn in (("flash_attention_kproj", fa.flash_attention_kproj),
+                     ("flash_attention", fa.flash_attention),
                      ("fused_self_block", mlk.fused_self_block),
                      ("fused_tail_block", mlk.fused_tail_block),
                      ("fused_twoway_block", twk.fused_twoway_block)):
@@ -1115,8 +1235,6 @@ def phase_serve(params, cfg, seed: int, frames: int, objects: int):
     """The usual configuration (use_flash_attention=True: kernels #1-#5
     forward) on two videos, then a shorter pass of one video with
     use_flash_attention=False (the plain memory attention)."""
-    import dataclasses
-
     from sam2_video_tpu_torch import VideoPredictor
 
     pred = VideoPredictor(params, cfg, max_objects=objects, device=DEVICE)
@@ -1136,9 +1254,11 @@ def phase_serve(params, cfg, seed: int, frames: int, objects: int):
               f"logits {logits.shape} finite", flush=True)
     counts = read_counts()
     _require(counts, [n for n in counts if "_bwd" not in n
-                      and n not in TWOWAY], "serving")
+                      and n not in TWOWAY + FLASH], "serving")
     if counts["fused_twoway_block"]:
         raise SystemExit("serving with fused_twoway=False ran kernel #8")
+    if counts[FLASH[0]]:
+        raise SystemExit("one-head serving ran kernel #7")
     plain_cfg = dataclasses.replace(cfg, use_flash_attention=False)
     pred = VideoPredictor(params, plain_cfg, max_objects=objects,
                           device=DEVICE)
@@ -1153,7 +1273,8 @@ def phase_serve(params, cfg, seed: int, frames: int, objects: int):
           f"{logits.shape} finite", flush=True)
     _require(plain, ["fused_block", "fused_memory_encoder"], "plain-memory"
              "-attention serving")
-    if plain["fused_self_block"] or plain["flash_attention_kproj"]:
+    if (plain["fused_self_block"] or plain["flash_attention_kproj"]
+            or plain[FLASH[0]]):
         raise SystemExit("use_flash_attention=False ran a memory-attention "
                          "kernel")
     return counts
@@ -1169,8 +1290,6 @@ def phase_serve_fused(params, cfg, seed: int, frames: int, objects: int):
     (unfused, fused, fused, unfused); then device operations and kernel
     launch calls per tracked frame (torch.profiler over the tracked
     frames). Returns the fused pass's counts."""
-    import dataclasses
-
     from sam2_video_tpu_torch import VideoPredictor
 
     video, centres = synthetic_video(seed + 200, frames, objects=objects)
@@ -1218,12 +1337,63 @@ def phase_serve_fused(params, cfg, seed: int, frames: int, objects: int):
     return counts["fused"]
 
 
+# kernels #3-#5, which a one-head memory attention runs and a multi-head one
+# does not (its cross-attention takes #7)
+MEMATTN_FUSED = ("flash_attention_kproj", "flash_attention_kproj_bwd",
+                 "fused_self_block", "fused_self_block_bwd",
+                 "fused_tail_block", "fused_tail_block_bwd")
+HEADS = 2
+
+
+def phase_serve_heads(params, cfg, seed: int, frames: int, objects: int):
+    """The predictor with HEADS memory-attention heads (#7 forward in the
+    cross-attention of each of the 4 layers of every tracked step) beside
+    the usual one head, on one synthetic video of ``frames`` frames and
+    ``objects`` objects: a pass of each with every counter at 0 just before
+    it (the two-head pass launches #1, #2 and #7 and none of #3-#5), then
+    two timed passes of each in turns (1, 2, 2, 1 heads). Returns the two-
+    head pass's counts."""
+    from sam2_video_tpu_torch import VideoPredictor
+
+    video, centres = synthetic_video(seed + 300, frames, objects=objects)
+    cfgs = {1: cfg, HEADS: dataclasses.replace(
+        cfg, memory_attention_num_heads=HEADS)}
+    preds = {h: VideoPredictor(params, c, max_objects=objects, device=DEVICE)
+             for h, c in cfgs.items()}
+    counts, enc, prop = {}, {h: [] for h in cfgs}, {h: [] for h in cfgs}
+    S4 = cfg.image_size // 4
+    for h, pred in preds.items():
+        reset_counts()
+        _, _, logits = run_video(pred, video, centres)
+        counts[h] = read_counts()
+        if logits.shape != (frames, objects, 1, S4, S4) or \
+                not np.isfinite(logits.astype(np.float32)).all():
+            raise SystemExit(f"serving with {h} heads: bad logits "
+                             f"{logits.shape}")
+    for h in (1, HEADS, HEADS, 1):
+        enc_s, prop_s, _ = run_video(preds[h], video, centres)
+        enc[h].append(frames / enc_s)
+        prop[h].append(frames / prop_s)
+    for h in cfgs:
+        print(f"serve memory_attention_num_heads={h}: {frames} frames "
+              f"480x854 -> {cfg.image_size}px, {objects} objects: encode "
+              f"frames/s " + ", ".join(f"{f:.2f}" for f in enc[h])
+              + "; propagate frames/s " + ", ".join(f"{f:.2f}"
+                                                    for f in prop[h])
+              + f"; kernel #7 launches {counts[h][FLASH[0]]}", flush=True)
+    _require(counts[HEADS], ["fused_block", "fused_memory_encoder",
+                             FLASH[0]], "two-head serving")
+    ran = [n for n in MEMATTN_FUSED + (FLASH[1],) if counts[HEADS][n]]
+    if ran or counts[1][FLASH[0]]:
+        raise SystemExit(f"two-head serving ran {ran}, or one-head serving "
+                         "ran kernel #7")
+    return counts[HEADS]
+
+
 def phase_cpu(params, cfg, seed: int, objects: int):
     """4 frames on the card (bf16, kernels) and on the CPU (float32, plain
     versions, the same weights made again from ``seed``); relative L2 of
     the low-res logits."""
-    import dataclasses
-
     from sam2_video_tpu_torch import VideoPredictor
 
     video, centres = synthetic_video(seed + 100, 4, objects=objects)
@@ -1238,7 +1408,8 @@ def phase_cpu(params, cfg, seed: int, objects: int):
     a, b = on_card.astype(np.float32), on_cpu.astype(np.float32)
     rel = float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12))
     agree = float(((a > 0) == (b > 0)).mean())
-    print(f"card vs cpu (4 frames, {objects} objects): rel_l2={rel:.4g} "
+    print(f"card vs cpu (4 frames, {objects} objects, memory attention "
+          f"heads {cfg.memory_attention_num_heads}): rel_l2={rel:.4g} "
           f"tol={CPU_REL_L2_TOL} max_abs_err={np.abs(a - b).max():.4g} "
           f"|cpu| max={np.abs(b).max():.4g} sign_agreement={agree:.4f} "
           f"{'OK' if rel <= CPU_REL_L2_TOL else 'FAIL'}", flush=True)
@@ -1284,14 +1455,19 @@ def phase_train(cfg, seed: int):
     bf16, T=10, O=8, C=7, B=2, point prompts, trainable memory attention
     and memory encoder, AdamW lr 1e-4 without a schedule. One warm-up step,
     then TRAIN_STEPS timed steps with every launch counter at 0 just before
-    them. Returns the counts."""
+    them. With one memory-attention head every kernel but #6, #7 and #8
+    must launch; with several (``cfg.memory_attention_num_heads``) #1, #2
+    and #7 forward and backward, and none of #3-#5. Returns (the counts,
+    median step ms)."""
+    heads = cfg.memory_attention_num_heads
+    label = "train" if heads == 1 else f"train {heads} heads"
     params = synthetic_params(cfg, seed).to(DEVICE)
     state, step, batch = _train_setup(cfg, params, DEVICE, TRAIN_T, TRAIN_O,
                                       TRAIN_C, TRAIN_B)
     before = {n: t.detach().clone() for n, t in params.named_parameters()}
     state, m = step(state, batch)
     torch.cuda.synchronize()
-    print(f"train warm-up step: loss {float(m['total_loss']):.6g}",
+    print(f"{label} warm-up step: loss {float(m['total_loss']):.6g}",
           flush=True)
     reset_counts()
     times, losses = [], []
@@ -1304,7 +1480,7 @@ def phase_train(cfg, seed: int):
         losses.append(float(m["total_loss"]))
     counts = read_counts()
     ms = 1e3 * float(np.median(times))
-    print(f"train B={TRAIN_B} T={TRAIN_T} O={TRAIN_O} {cfg.image_size}px "
+    print(f"{label} B={TRAIN_B} T={TRAIN_T} O={TRAIN_O} {cfg.image_size}px "
           f"{cfg.compute_dtype}: step ms median {ms:.3f} (each: "
           + ", ".join(f"{1e3 * t:.3f}" for t in times) + f"), clips/s "
           f"{TRAIN_B / (ms / 1e3):.3f}; losses "
@@ -1313,7 +1489,7 @@ def phase_train(cfg, seed: int):
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
           flush=True)
     if not all(np.isfinite(losses)):
-        raise SystemExit(f"train: non-finite loss {losses}")
+        raise SystemExit(f"{label}: non-finite loss {losses}")
     moved = frozen_changed = 0
     for n, t in params.named_parameters():
         same = torch.equal(t, before[n])
@@ -1323,18 +1499,25 @@ def phase_train(cfg, seed: int):
             frozen_changed += not same
         elif n.startswith("memory_attention."):
             if same:
-                raise SystemExit(f"train: memory_attention leaf {n} did "
+                raise SystemExit(f"{label}: memory_attention leaf {n} did "
                                  "not move")
             moved += 1
     if frozen_changed:
-        raise SystemExit(f"train: {frozen_changed} frozen leaves changed")
-    print(f"train: all {moved} memory_attention leaves moved, frozen "
+        raise SystemExit(f"{label}: {frozen_changed} frozen leaves changed")
+    print(f"{label}: all {moved} memory_attention leaves moved, frozen "
           "leaves bit-for-bit unchanged", flush=True)
-    _require(counts, [n for n in counts
-                      if not n.startswith("fused_block_trainable_bwd")
-                      and n not in TWOWAY], "training")
-    if counts["fused_block_trainable_bwd"]:
-        raise SystemExit("train: the frozen trunk ran kernel #6")
+    if heads == 1:
+        required = [n for n in counts
+                    if not n.startswith("fused_block_trainable_bwd")
+                    and n not in TWOWAY + FLASH]
+        absent = FLASH
+    else:
+        required, absent = ["fused_block", "fused_memory_encoder",
+                            *FLASH], MEMATTN_FUSED
+    _require(counts, required, label)
+    ran = [n for n in absent + ("fused_block_trainable_bwd",) if counts[n]]
+    if ran:
+        raise SystemExit(f"{label} ran {ran}")
     return counts, ms
 
 
@@ -1414,7 +1597,7 @@ def phase_train_all(cfg, seed: int):
         "unchanged: " + ", ".join(f"{k} {v}" for k, v in sorted(
             unused.items())) + "), pointer projections bit-for-bit "
         "unchanged", flush=True)
-    _require(counts, [n for n in counts if n not in TWOWAY] + [
+    _require(counts, [n for n in counts if n not in TWOWAY + FLASH] + [
         f"fused_block_trainable_bwd[{g}]" for g in _trunk_classes(cfg)],
         "all-trainable training")
     return counts, ms
@@ -1423,15 +1606,16 @@ def phase_train_all(cfg, seed: int):
 def phase_train_cpu(cfg, seed: int):
     """One step of a short clip (T=3, O=4, B=1, 384 px) on the card in bf16
     (kernels) and on the CPU in float32 (plain versions), from the same
-    weights and clip, for the memory-only and the all-trainable combos:
-    the loss and each trainable top-level entry's gradient must agree."""
+    weights and clip, for the memory-only and the all-trainable combos and
+    the memory-only combo with HEADS memory-attention heads: the loss and
+    each trainable top-level entry's gradient must agree."""
     for trainable in (TRAINABLE, TRAINABLE_ALL):
         _train_cpu(cfg, seed, trainable)
+    _train_cpu(dataclasses.replace(cfg, memory_attention_num_heads=HEADS),
+               seed, TRAINABLE)
 
 
 def _train_cpu(cfg, seed: int, trainable):
-    import dataclasses
-
     out = {}
     for dev, c in ((DEVICE, cfg),
                    ("cpu", dataclasses.replace(cfg, compute_dtype="float32"))):
@@ -1442,7 +1626,8 @@ def _train_cpu(cfg, seed: int, trainable):
         out[dev] = (float(m["total_loss"]),
                     {n: g.detach().float().cpu() for n, g in grads.items()})
         del params, state, step, grads
-    _compare_steps(f"train card vs cpu, trainable {'+'.join(trainable)}",
+    _compare_steps(f"train card vs cpu, trainable {'+'.join(trainable)}, "
+                   f"memory attention heads {cfg.memory_attention_num_heads}",
                    out[DEVICE], out["cpu"])
 
 
@@ -1493,8 +1678,6 @@ def phase_train_fused(cfg, seed: int):
     turns, kernel #8's counters at 0 just before them; then the memory-only
     step fused, whose frozen decoder still runs #8's backward for the input
     gradients. Returns (the timed steps' counts, fused step ms)."""
-    import dataclasses
-
     runs = {}
     for label, c in (("unfused", cfg),
                      ("fused", dataclasses.replace(cfg, fused_twoway=True))):
@@ -1601,9 +1784,13 @@ def main() -> int:
         rows += phase_memattn_kernels(params, cfg, args.seed, OBJECTS)
         rows += phase_hiera_bwd_kernels(params, cfg, args.seed, TRAIN_T)
         rows += phase_twoway_kernels(params, cfg, args.seed)
+        rows += phase_flash_kernels(args.seed)
+    heads_cfg = dataclasses.replace(cfg, memory_attention_num_heads=HEADS)
     launches = {}
     if "train" in phases:
         launches, _ = phase_train(cfg, args.seed)
+        heads, _ = phase_train(heads_cfg, args.seed)
+        launches.update({k: heads[k] for k in FLASH})
     if "train_all" in phases:
         trained_all, _ = phase_train_all(cfg, args.seed)
         fused, _ = phase_train_fused(cfg, args.seed)
@@ -1617,14 +1804,18 @@ def main() -> int:
         served = phase_serve(params, cfg, args.seed, FRAMES, OBJECTS)
         served_fused = phase_serve_fused(params, cfg, args.seed, CHUNK,
                                          OBJECTS)
+        served_heads = phase_serve_heads(params, cfg, args.seed, CHUNK,
+                                         OBJECTS)
         launches = {**served, **{k: served_fused[k] for k in TWOWAY},
-                    **launches}
+                    **{k: served_heads[k] for k in FLASH}, **launches}
     if "cpu" in phases:
         phase_cpu(params, cfg, args.seed, OBJECTS)
+        phase_cpu(params, heads_cfg, args.seed, OBJECTS)
 
     # each kernel's launches on its training path (#1-#5: the memory-only
-    # step, #6 per geometry class: the all-trainable step, #8 the fused
-    # all-trainable steps), else serving's (#8: the fused pass), else null
+    # step, #6 per geometry class: the all-trainable step, #7 the two-head
+    # memory-only step, #8 the fused all-trainable steps), else serving's
+    # (#7: the two-head pass, #8: the fused pass), else null
     for r in rows:
         r["launches"] = launches.get(r["name"])
     print(card, flush=True)

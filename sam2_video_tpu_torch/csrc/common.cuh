@@ -16,6 +16,8 @@
 //                   partials and their reduction in a fixed order, so
 //                   weight gradients need no float atomics and two runs
 //                   give the same bits;
+//   - ld32(), pack2(), split2(), ldsm_b_kn(): mma.sync operands of the
+//                   attention kernels, f32 values as bf16 hi/lo pairs;
 //   - Arena:        carving of one caller-allocated workspace.
 // Every routine launches on the caller's stream and allocates nothing.
 #pragma once
@@ -83,6 +85,50 @@ __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync operands of the attention kernels (#3, #7)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
+  __nv_bfloat162 v;
+  v.x = lo;
+  v.y = hi;
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (a, b) as bf16 pairs: hi = round(a, b), lo = round of the remainders, so
+// an f32 value that feeds a tensor-core product does so to ~16 bits as two
+// products (hi and lo) instead of to 8
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = *reinterpret_cast<uint32_t*>(&l);
+}
+
+// B fragments of two adjacent 8-column tiles (columns n0 .. n0 + 15) over
+// rows k0 .. k0 + 15 of a row-major [k][n] bf16 tile in shared memory (row
+// stride ld, a multiple of 8; n0 a multiple of 8): ldmatrix .trans, so a
+// fragment's k pairs need not be adjacent in memory. b0 covers columns
+// n0 .., b1 columns n0 + 8 ..
+__device__ __forceinline__ void ldsm_b_kn(const bf16* s, int ld, int k0,
+                                          int n0, uint32_t (&b0)[2],
+                                          uint32_t (&b1)[2]) {
+  const int lane = threadIdx.x & 31;
+  const bf16* p = s + (k0 + (lane & 15)) * ld + n0 + (lane >> 4) * 8;
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(b0[0]), "=r"(b0[1]), "=r"(b1[0]), "=r"(b1[1])
+      : "r"(a));
 }
 
 constexpr int GEMM_BM = 64, GEMM_BN = 64, GEMM_BK = 32;

@@ -45,27 +45,6 @@ constexpr int LDD = KD + 4;          // f32 row stride of the dk tile
 constexpr int KP_THREADS = 128;
 constexpr int WK_PART = KD * KV + KD;   // one dWk / dbk partial
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (a, b) as bf16 pairs: hi = round(a, b), lo = round of the remainders
-__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
-                                       uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = *reinterpret_cast<uint32_t*>(&l);
-}
-
 // RoPE factors of key `key` at pair j: the axial table of the key's slot
 // position for spatial keys, the identity for pointer (and pad) keys
 __device__ __forceinline__ void rope_cs(const float* cosv, const float* sinv,

@@ -16,11 +16,12 @@ flags, d_model 256, kv_in_dim 64): per layer ``fused_self_block`` ->
 ``flash_attention_kproj`` -> ``fused_tail_block``, the kernels on a CUDA
 tensor and their plain versions on a CPU tensor. The block kernels take a
 grid of h*w % 32 == 0 tokens; another grid raises on a CUDA tensor
-(ROADMAP.md, queue 2, item 9). Otherwise the layers run plain, with the
-single-head flash-kproj cross-attention where only that kernel applies. A
-flash configuration that needs the generic flash attention (several heads,
-or keys without the k-projection) runs plain on the CPU and raises on a
-CUDA tensor: that kernel is not ported (ROADMAP.md, queue 2, item 7).
+(ROADMAP.md, queue 2, item 9). Otherwise the layers run plain, and the
+cross-attention takes the flash-kproj kernel where only that kernel
+applies, else the generic ``flash_attention`` (as the JAX package routes
+them): several heads with a projected v, or one head with the raw memory
+as v. Its self-attention stays plain ``sdpa``, where the JAX package runs
+XLA. ``use_flash=False`` runs every attention through plain ``sdpa``.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import torch.nn.functional as F
 from ..ops import common as nn
 from ..ops import memattn_layer_kernel as mlk
 from ..ops.attention import merge_heads, sdpa, split_heads
-from ..ops.flash_attention import (KERNEL_DIM, KERNEL_KV,
+from ..ops.flash_attention import (KERNEL_DIM, KERNEL_KV, flash_attention,
                                    flash_attention_kproj)
 from ..ops.position_encoding import (apply_rope_half, axial_rope_table_half,
                                      deinterleave_perm)
@@ -55,10 +56,6 @@ class MemoryAttentionConfig:
     use_flash: bool = True
 
 
-GENERIC_FLASH_NOT_PORTED = (
-    "use_flash_attention=True with several heads or without the fused "
-    "k-projection needs the generic flash-attention kernel, which is not "
-    "ported to CUDA yet: see ROADMAP.md, queue 2, item 7")
 RAGGED_GRID_NOT_PORTED = (
     "the fused memory-attention block kernels take a grid of h*w % 32 == 0 "
     "tokens; other grids are not ported to CUDA yet: see ROADMAP.md, queue "
@@ -175,18 +172,16 @@ def _cross_attn(p, cfg, tgt, memory, query_pos, pos, rope_q, rope_k,
     k_in = memory + pos if cfg.pos_enc_at_cross_attn_keys else memory
     ap = p["cross_attn_image"]
     q = nn.linear(_permed(ap, "q_proj", cfg.num_heads), q_in)
+    key_bias = (torch.where(key_valid, 0.0, -1e9).float()
+                if key_valid is not None else None)
     if cfg.use_flash and kproj_eligible(cfg):
         # the k-projection and RoPE fused into the attention kernel
         kp = _permed(ap, "k_proj", cfg.num_heads)
-        key_bias = (torch.where(key_valid, 0.0, -1e9).float()
-                    if key_valid is not None else None)
         h, w = feat_hw
         attn = flash_attention_kproj(
             apply_rope_half(q, *rope_q), k_in, memory, kp["weight"],
             kp["bias"], key_bias, num_spatial_k, (w, h), cfg.rope_theta)
         return tgt + nn.linear(ap["out_proj"], nn.linear(ap["v_proj"], attn))
-    if cfg.use_flash and tgt.is_cuda:
-        raise NotImplementedError(GENERIC_FLASH_NOT_PORTED)
     k = nn.linear(_permed(ap, "k_proj", cfg.num_heads), k_in)
     if cfg.num_heads > 1:
         q = split_heads(q, cfg.num_heads)
@@ -199,11 +194,14 @@ def _cross_attn(p, cfg, tgt, memory, query_pos, pos, rope_q, rope_k,
     q = apply_rope_half(q, *rope_q)
     k_spatial = apply_rope_half(k[..., :num_spatial_k, :], *rope_k)
     k = torch.cat([k_spatial, k[..., num_spatial_k:, :]], dim=-2)
-    bias = None
-    if key_valid is not None:
-        bias = torch.where(key_valid, 0.0, -1e9).float()
-        bias = bias.reshape((1,) * (q.ndim - 1) + bias.shape)
-    attn = sdpa(q, k, v, bias)
+    if cfg.use_flash:
+        # the generic flash attention, kernel #7; the [Lk] key bias
+        # broadcasts over objects and heads
+        attn = flash_attention(q, k, v, key_bias)
+    else:
+        bias = (key_bias.reshape((1,) * (q.ndim - 1) + key_bias.shape)
+                if key_bias is not None else None)
+        attn = sdpa(q, k, v, bias)
     if cfg.num_heads > 1:
         attn = merge_heads(attn)
     if commute_v:

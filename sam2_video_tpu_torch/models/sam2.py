@@ -95,6 +95,13 @@ class SAM2Config:
     # (its decoder reaches the kernel only when called with its own
     # config). Off by default as there, so every path computes what it did.
     fused_twoway: bool = False
+    # Memory attention's head count: the JAX package's
+    # MemoryAttentionConfig.num_heads (the reference YAML's
+    # memory_attention.layer.{self,cross}_attention.num_heads, 1 in every
+    # released config), which its SAM2Config does not forward. The
+    # parameter shapes do not depend on it. With several heads the
+    # cross-attention takes the generic flash attention (kernel #7).
+    memory_attention_num_heads: int = 1
 
     def dtype(self) -> torch.dtype:
         return (torch.bfloat16 if self.compute_dtype == "bfloat16"
@@ -153,6 +160,7 @@ class SAM2Config:
             self) -> memory_attention_mod.MemoryAttentionConfig:
         return memory_attention_mod.MemoryAttentionConfig(
             d_model=self.d_model, kv_in_dim=self.mem_dim,
+            num_heads=self.memory_attention_num_heads,
             use_flash=self.use_flash_attention)
 
     @property

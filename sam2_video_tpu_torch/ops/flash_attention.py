@@ -1,9 +1,10 @@
-"""Memory cross-attention with the key projection and RoPE fused in, as a
-hand-written CUDA kernel for Hopper, forward and backward.
+"""Memory cross-attention kernels, hand-written CUDA for Hopper, forward
+and backward: the counterparts of the two TPU kernels of
+``sam2_video_tpu/ops/flash_attention.py``.
 
-Replaces the TPU kernel ``sam2_video_tpu/ops/flash_attention.py``
-``flash_attention_kproj`` (Pallas ``_fwd_kproj_kernel`` and the merged
-``_bwd_kproj_kernel``). Source: ``csrc/flash_kproj.cu``.
+``flash_attention_kproj`` replaces ``flash_attention_kproj`` (Pallas
+``_fwd_kproj_kernel`` and the merged ``_bwd_kproj_kernel``). Source:
+``csrc/flash_kproj.cu``.
 
 - What it computes: k = RoPE(kin Wk^T + bk) per key tile, never stored
   (the leading ``num_spatial`` keys rotate by the axial table of one slot,
@@ -25,9 +26,26 @@ Replaces the TPU kernel ``sam2_video_tpu/ops/flash_attention.py``
   grid). dWk and dbk are f32; they come back in the dtype Wk and bk had
   inside the function (q's), as in the JAX package.
 
-``flash_attention_kproj`` takes the plain version for CPU tensors and runs
-the kernel for CUDA tensors (or raises). ``flash_attention_kproj.launches``
-counts forward launches, ``.backward_launches`` backward ones.
+``flash_attention`` replaces the generic ``flash_attention`` (Pallas
+``_fwd_kernel`` and the merged dq/dk/dv ``_bwd_kernel``). Source:
+``csrc/flash_attention.cu``.
+
+- What it computes: softmax(q k^T / sqrt(D) + key_bias) v over [..., L, D]
+  heads, with an additive float32 key bias and the row logsumexp kept for
+  the backward; f32 statistics, an online softmax over 64-key tiles, the
+  probabilities and score gradients fed to the tensor cores as bf16 hi +
+  lo, one rounding at each output. The key bias gets no gradient (the
+  TPU kernel returns zeros for it).
+- Head widths D and value widths Dv of 64, 128 or 256, any Lq and Lk (the
+  last query and key tiles are masked): no padding of the keys to a
+  multiple of 256, no padding of v to 128 lanes, no Lq limit.
+- Backward: a dq pass over key tiles and a dk / dv pass over query tiles
+  (the TPU kernel's single ordered sweep carried dq in VMEM), no float
+  atomics, so two runs give the same bits.
+
+Each wrapper takes its plain version for CPU tensors and runs its kernel
+for CUDA tensors (or raises). ``.launches`` counts forward launches,
+``.backward_launches`` backward ones.
 """
 
 from __future__ import annotations
@@ -201,6 +219,121 @@ def flash_attention_kproj(q, kin, v, wk_weight, wk_bias, key_bias,
 
 flash_attention_kproj.launches = 0
 flash_attention_kproj.backward_launches = 0
+
+
+FLASH_WIDTHS = (64, 128, 256)   # head and value widths of the kernel
+
+
+def flash_attention_plain(q, k, v, key_bias=None):
+    """The kernel's function in plain PyTorch: f32 logits, softmax and PV
+    (not ``ops/attention.py`` ``sdpa``, which rounds p before PV), one
+    rounding at the output."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
+    if key_bias is not None:
+        s = s + key_bias.float()[..., None, :]
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, v.float()).to(q.dtype)
+
+
+class _FlashFn(torch.autograd.Function):
+    """q [BH, Lq, D], k [BH, Lk, D], v [BH, Lk, Dv] (all bf16); bias [1 or
+    BH, Lk] f32 or None."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        BH, Lq, D = q.shape
+        Lk, Dv = v.shape[1:]
+        dev = q.device
+        out = torch.empty((BH, Lq, Dv), dtype=q.dtype, device=dev)
+        lse = torch.empty((BH, Lq), dtype=torch.float32, device=dev)
+        lib = _flash_lib()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            status = lib.fa_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+                _bias_stride(bias), out.data_ptr(), lse.data_ptr(), BH, Lq,
+                Lk, D, Dv, stream)
+        kernel_build.check_launch(status, "fa_fwd")
+        flash_attention.launches += 1
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        BH, Lq, D = q.shape
+        Lk, Dv = v.shape[1:]
+        dev = q.device
+        dout = dout.to(q.dtype).contiguous()
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        delta = torch.empty((BH, Lq), dtype=torch.float32, device=dev)
+        lib = _flash_lib()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            status = lib.fa_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+                _bias_stride(bias), out.data_ptr(), lse.data_ptr(),
+                dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                delta.data_ptr(), BH, Lq, Lk, D, Dv, stream)
+        kernel_build.check_launch(status, "fa_bwd")
+        flash_attention.backward_launches += 1
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, key_bias=None):
+    """softmax(q k^T / sqrt(D) + key_bias) v.
+
+    q [..., Lq, D]; k [..., Lk, D]; v [..., Lk, Dv]; key_bias [Lk] or
+    [..., Lk] additive float32 (broadcast over the leading axes, heads
+    included), or None. Returns [..., Lq, Dv] in q's dtype. On the card D
+    and Dv must be in ``FLASH_WIDTHS``."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, key_bias)
+    if not q.is_cuda:
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"flash_attention kernel takes bfloat16 {name}, "
+                            f"got {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {t.device}")
+    *lead, Lq, D = q.shape
+    Lk, Dv = v.shape[-2:]
+    if D not in FLASH_WIDTHS or Dv not in FLASH_WIDTHS:
+        raise NotImplementedError(
+            f"flash_attention kernel takes head widths D and value widths Dv "
+            f"in {FLASH_WIDTHS}, got D {D}, Dv {Dv}")
+    if (tuple(k.shape) != (*lead, Lk, D) or tuple(v.shape[:-2]) != tuple(lead)
+            or Lq == 0 or Lk == 0):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
+    BH = math.prod(lead)
+    bias = None
+    if key_bias is not None:
+        kb = key_bias.to(q.device, torch.float32)
+        bias = (kb.reshape(1, Lk) if kb.ndim == 1 else
+                kb.expand(*lead, Lk).reshape(BH, Lk)).contiguous()
+    out = _FlashFn.apply(q.reshape(BH, Lq, D).contiguous(),
+                         k.reshape(BH, Lk, D).contiguous(),
+                         v.reshape(BH, Lk, Dv).contiguous(), bias)
+    return out.reshape(*lead, Lq, Dv)
+
+
+flash_attention.launches = 0
+flash_attention.backward_launches = 0
+
+
+def _flash_lib() -> ctypes.CDLL:
+    lib = kernel_build.load("flash_attention")
+    if not getattr(lib, "_sam2_typed", False):
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        lib.fa_fwd.argtypes = [P] * 4 + [L] + [P] * 2 + [I] * 5 + [P]
+        lib.fa_fwd.restype = I
+        lib.fa_bwd.argtypes = [P] * 4 + [L] + [P] * 7 + [I] * 5 + [P]
+        lib.fa_bwd.restype = I
+        lib._sam2_typed = True
+    return lib
 
 
 def _lib() -> ctypes.CDLL:

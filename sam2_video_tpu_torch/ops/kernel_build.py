@@ -20,7 +20,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 SOURCES = ("hiera_block", "hiera_block_bwd", "memory_encoder", "flash_kproj",
-           "memattn_layer", "twoway_block")
+           "flash_attention", "memattn_layer", "twoway_block")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,10 +1,12 @@
 """Where the serving path's device time goes, on one NVIDIA GPU.
 
     python3 -m sam2_video_tpu_torch.profile_serving [--fused-twoway]
+        [--memory-attention-heads N]
 
 Builds the SAM2-tiny 384-px bf16 predictor (``synthetic_params`` weights,
 the usual use_flash_attention=True; with ``--fused-twoway`` the decoder's
-two-way blocks run kernel #8), warms it up on a video of the same length,
+two-way blocks run kernel #8; with ``--memory-attention-heads 2`` memory
+attention runs two heads, whose cross-attention takes kernel #7), warms it up on a video of the same length,
 then runs under
 ``torch.profiler`` three windows of one synthetic 480x854 video:
 ``encode`` (init_state: resize + trunk + neck), ``prompt`` (8 point
@@ -63,14 +65,17 @@ def report(prof, label: str, wall_s: float, top: int = TOP):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--fused-twoway", action="store_true")
-    fused = ap.parse_args().fused_twoway
+    ap.add_argument("--memory-attention-heads", type=int, default=1)
+    args = ap.parse_args()
+    fused, heads = args.fused_twoway, args.memory_attention_heads
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     cfg = sam2_mod.SAM2Config(image_size=384, compute_dtype="bfloat16",
-                              fused_twoway=fused)
+                              fused_twoway=fused,
+                              memory_attention_num_heads=heads)
     pred = VideoPredictor(synthetic_params(cfg, SEED), cfg,
                           max_objects=OBJECTS, device="cuda")
     # warm up at the profiled length: new batch shapes pay one-time costs
@@ -95,7 +100,8 @@ def main() -> int:
         list(pred.propagate_in_video(state))
 
     for label, fn in (("encode", encode), ("prompt", prompt),
-                      (f"propagate fused_twoway={fused}", propagate)):
+                      (f"propagate fused_twoway={fused} "
+                       f"memory_attention_heads={heads}", propagate)):
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()

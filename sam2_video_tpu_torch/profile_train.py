@@ -1,7 +1,7 @@
 """Where the headline train step's device time goes, on one NVIDIA GPU.
 
     python3 -m sam2_video_tpu_torch.profile_train [--trainable mem|all]
-        [--fused-twoway]
+        [--fused-twoway] [--memory-attention-heads N]
 
 Builds the train step of ``bench.py``'s headline configuration in the port
 (SAM2-tiny 384 px, bf16, T=10, O=8, C=7, B=2, point prompts, AdamW lr
@@ -10,7 +10,9 @@ memory attention and memory encoder (``mem``, the default) or every
 module but the pointer projections (``all``: the reference's
 mem+md+pe+ie, whose trunk runs kernel #6 backward); with
 ``--fused-twoway`` the decoder's two-way blocks run kernel #8 forward and
-backward. Runs one warm-up step, then one step under ``torch.profiler``.
+backward; with ``--memory-attention-heads 2`` memory attention runs two
+heads, whose cross-attention takes the generic flash attention (kernel
+#7) forward and backward in place of kernels #3-#5. Runs one warm-up step, then one step under ``torch.profiler``.
 Prints the step's wall time, the summed device (kernel) time, the device
 busy share, the kernels that take the most device time and the host
 operations that take the most CPU time (``profile_serving``'s report).
@@ -42,6 +44,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trainable", choices=sorted(TRAINABLE), default="mem")
     ap.add_argument("--fused-twoway", action="store_true")
+    ap.add_argument("--memory-attention-heads", type=int, default=1)
     args = ap.parse_args()
     trainable = TRAINABLE[args.trainable]
     if not torch.cuda.is_available():
@@ -52,7 +55,9 @@ def main() -> int:
     cfg = sam2_mod.SAM2Config(image_size=384, compute_dtype="bfloat16",
                               use_flash_attention=True,
                               use_activation_checkpoint=False,
-                              fused_twoway=args.fused_twoway)
+                              fused_twoway=args.fused_twoway,
+                              memory_attention_num_heads=(
+                                  args.memory_attention_heads))
     params = synthetic_params(cfg, SEED).to("cuda")
     tx = make_optimizer(params, {"lr": 1e-4, "type": "AdamW"},
                         {"enabled": False}, total_steps=1000,
@@ -70,7 +75,8 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     report(prof, f"train step B={B} T={T} O={O} trainable "
-           f"{'+'.join(trainable)} fused_twoway={args.fused_twoway}", wall,
+           f"{'+'.join(trainable)} fused_twoway={args.fused_twoway} "
+           f"memory_attention_heads={args.memory_attention_heads}", wall,
            top=16)
     print(f"loss {float(metrics['total_loss']):.6g}", flush=True)
     print(torch.cuda.get_device_name(0), flush=True)

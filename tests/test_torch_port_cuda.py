@@ -473,3 +473,108 @@ def test_twoway_kernel_refuses_other_geometries_on_the_card(card):
     with pytest.raises(TypeError, match="bfloat16"):
         twk.fused_twoway_block(layer, *(t.float() for t in x), False)
     assert twk.fused_twoway_block.launches == launches
+
+
+# kernel #7, the generic flash attention: its output and dq, dk, dv are
+# softmax averages well below 1, so, as for flash_attention_kproj, each is
+# held to TOL of its own max|plain| (floor 0)
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead, Lq, Lk, D, Dv, masked", [
+    ((3, 2), 100, 70, 128, 128, False),     # 2 heads, ragged Lq and Lk
+    ((2, 2), 64, 580, 128, 128, True),      # one slot + 4 pointers, masked
+    ((2,), 33, 130, 256, 128, True),        # one head over 128 channels
+    ((2, 4), 40, 200, 64, 64, False),       # 4 heads of d_model 256
+    ((1,), 17, 65, 256, 256, False),
+    ((2,), 70, 129, 64, 256, True),
+])
+def test_flash_attention_matches_plain(card, lead, Lq, Lk, D, Dv, masked):
+    """Kernel #7 forward and backward (autograd through the plain forward
+    with the same cotangent) at small ragged shapes of every width class;
+    two backward runs give the same bits."""
+    from sam2_video_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(Lq * Lk + D + Dv)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to("cuda", torch.bfloat16)
+
+    bias = None
+    if masked:
+        bias = torch.zeros(Lk)
+        bias[Lk // 4: Lk // 2] = -1e9
+        bias = bias.cuda()
+    inputs = [rnd(*lead, Lq, D), rnd(*lead, Lk, D), rnd(*lead, Lk, Dv)]
+    cots = [rnd(*lead, Lq, Dv)]
+
+    def run(fn):
+        return lambda q, k, v: fn(q, k, v, bias)
+
+    launches = (fa.flash_attention.launches,
+                fa.flash_attention.backward_launches)
+    _check_vjp(run(fa.flash_attention), run(fa.flash_attention_plain),
+               inputs, cots, floor=0.0)
+    assert (fa.flash_attention.launches,
+            fa.flash_attention.backward_launches) == (launches[0] + 1,
+                                                      launches[1] + 1)
+    _, first = _vjp(run(fa.flash_attention), inputs, cots)
+    _, again = _vjp(run(fa.flash_attention), inputs, cots)
+    for a, b in zip(first, again, strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_other_widths_on_the_card(card):
+    """A head or value width outside 64 / 128 / 256, or float32, raises on
+    a CUDA tensor (the JAX package would take XLA's sdpa; the port does
+    not fall back)."""
+    from sam2_video_tpu_torch.ops import flash_attention as fa
+
+    x = torch.zeros((2, 16, 96), device="cuda", dtype=torch.bfloat16)
+    y = torch.zeros((2, 16, 128), device="cuda", dtype=torch.bfloat16)
+    launches = fa.flash_attention.launches
+    with pytest.raises(NotImplementedError, match=r"\(64, 128, 256\)"):
+        fa.flash_attention(x, x, y)
+    with pytest.raises(NotImplementedError, match="Dv 96"):
+        fa.flash_attention(y, y, x)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attention(y.float(), y.float(), y.float())
+    assert fa.flash_attention.launches == launches
+
+
+@pytest.mark.cuda
+def test_two_head_memory_attention_runs_flash_attention(card):
+    """Memory attention with two heads and use_flash=True on CUDA tensors:
+    the cross-attention launches kernel #7 forward in every layer and, under
+    autograd, backward; kernels #3-#5 do not run."""
+    from sam2_video_tpu_torch.models import memory_attention as ma
+    from sam2_video_tpu_torch.ops import flash_attention as fa
+    from sam2_video_tpu_torch.ops import memattn_layer_kernel as mlk
+
+    cfg, params = card
+    cfg = dataclasses.replace(cfg, use_flash_attention=True,
+                              memory_attention_num_heads=2)
+    mcfg = cfg.memory_attention_config
+    assert mcfg.num_heads == 2 and not ma.fused_eligible(mcfg)
+    p = ma.prepare(params["memory_attention"], mcfg)
+    gen = torch.Generator().manual_seed(2)
+    HW = cfg.num_spatial_tokens
+    curr = torch.randn((2, HW, 256), generator=gen).to(
+        "cuda", torch.bfloat16).requires_grad_(True)
+    mem = torch.randn((2, 2 * HW + 8, 64), generator=gen).to(
+        "cuda", torch.bfloat16)
+    valid = torch.ones(2 * HW + 8, dtype=torch.bool, device="cuda")
+    valid[HW: 2 * HW] = False
+    before = (fa.flash_attention.launches,
+              fa.flash_attention.backward_launches,
+              fa.flash_attention_kproj.launches, mlk.fused_self_block.launches)
+    out = ma.apply(p, mcfg, curr, mem, None, mem, feat_hw=(24, 24),
+                   num_spatial_k=2 * HW, key_valid=valid)
+    out.float().square().sum().backward()
+    assert torch.isfinite(out.float()).all()
+    assert torch.isfinite(curr.grad.float()).all()
+    layers = mcfg.num_layers
+    assert (fa.flash_attention.launches,
+            fa.flash_attention.backward_launches,
+            fa.flash_attention_kproj.launches,
+            mlk.fused_self_block.launches) == (
+        before[0] + layers, before[1] + layers, before[2], before[3])
