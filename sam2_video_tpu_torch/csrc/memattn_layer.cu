@@ -36,6 +36,12 @@
 // pass adds the partials in a fixed order. No float atomics: the result is
 // the same from run to run.
 //
+// The GEMMs take rows in multiples of 32 per object. Any other token count L
+// reaches them padded (ops/memattn_layer_kernel.py) to the next multiple of
+// 32: the self block masks the pad keys in its softmax, the pad rows'
+// outputs are dropped and their cotangents are zero, so nothing of the pad
+// reaches an output or a gradient (the tail's rows are independent).
+//
 // The C entry points launch their kernels in order on the caller's stream,
 // carve their scratch from one workspace the caller allocates (its size
 // from *_workspace_bytes) and return cudaGetLastError().
@@ -104,21 +110,23 @@ __device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) 
   return r;
 }
 
-// exact row softmax of f32 scores: p = exp(s - max) / sum, stored as f32
-// (p32, optional) and bf16 (pb). One block per row.
+// exact row softmax of f32 scores over the first nv of n columns: p =
+// exp(s - max) / sum, 0 at and past nv (pad keys), stored as f32 (p32,
+// optional) and bf16 (pb). One block per row.
 __global__ void __launch_bounds__(ROW_THREADS)
-softmax_rows_kernel(const float* __restrict__ s, float* p32, bf16* pb, int n) {
+softmax_rows_kernel(const float* __restrict__ s, float* p32, bf16* pb, int n,
+                    int nv) {
   __shared__ float red[ROW_THREADS / 32];
   const size_t row = blockIdx.x;
   const float* sr = s + row * n;
   float m = -INFINITY;
-  for (int i = threadIdx.x; i < n; i += ROW_THREADS) m = fmaxf(m, sr[i]);
+  for (int i = threadIdx.x; i < nv; i += ROW_THREADS) m = fmaxf(m, sr[i]);
   m = block_reduce(m, red, true);
   float t = 0.f;
-  for (int i = threadIdx.x; i < n; i += ROW_THREADS) t += expf(sr[i] - m);
+  for (int i = threadIdx.x; i < nv; i += ROW_THREADS) t += expf(sr[i] - m);
   t = block_reduce(t, red, false);
   for (int i = threadIdx.x; i < n; i += ROW_THREADS) {
-    const float p = expf(sr[i] - m) / t;
+    const float p = i < nv ? expf(sr[i] - m) / t : 0.f;
     if (p32) p32[row * n + i] = p;
     pb[row * n + i] = to_bf16(p);
   }
@@ -192,11 +200,12 @@ extern "C" long memattn_self_workspace_bytes(int N, int L, int bwd) {
 }
 
 // forward recompute shared by both passes: xn, roped q/k and v in qkv,
-// probabilities (pb bf16; p32 when given), o, out = x + o Wo^T + bo
+// probabilities (pb bf16; p32 when given) over the first Lv keys of each
+// object's L tokens, o, out = x + o Wo^T + bo
 static void self_forward_core(const bf16* x, const void* const* w,
                               const float* cosv, const float* sinv,
                               bf16* out, SelfBufs& b, float* p32, int N,
-                              int L, cudaStream_t st) {
+                              int L, int Lv, cudaStream_t st) {
   auto W = [&](int i) { return static_cast<const bf16*>(w[i]); };
   auto F = [&](int i) { return static_cast<const float*>(w[i]); };
   const int NL = N * L, D = D_MODEL, D3 = 3 * D_MODEL;
@@ -216,7 +225,7 @@ static void self_forward_core(const bf16* x, const void* const* w,
   e.out32 = b.s;
   bgemm<false, false>(b.qkv, D3, (long)L * D3, b.qkv + D, D3, (long)L * D3,
                       L, L, D, N, e, st);
-  softmax_rows_kernel<<<NL, ROW_THREADS, 0, st>>>(b.s, p32, b.pb, L);
+  softmax_rows_kernel<<<NL, ROW_THREADS, 0, st>>>(b.s, p32, b.pb, L, Lv);
   // o = P v (v read column-wise: B(n = d, k = key) = v[key][d])
   e = bepi(D, (long)L * D);
   e.out = b.o;
@@ -229,9 +238,13 @@ static void self_forward_core(const bf16* x, const void* const* w,
   bgemm<false, false>(b.o, D, 0, W(S_WO), D, 0, NL, D, D, 1, e, st);
 }
 
+// x [N, L, 256] bf16 with L % 32 == 0, of which the first Lv tokens of
+// each object are real: the rest are pad keys, masked in the softmax (the
+// caller pads, drops the pad rows' outputs and gives them zero cotangents,
+// so they add nothing to any gradient)
 extern "C" int memattn_self_fwd(const void* x, const void* const* w,
                                 const void* cosv, const void* sinv, void* out,
-                                void* q3, void* ws, int N, int L,
+                                void* q3, void* ws, int N, int L, int Lv,
                                 void* stream_ptr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   Arena ar{static_cast<char*>(ws), 0};
@@ -241,7 +254,7 @@ extern "C" int memattn_self_fwd(const void* x, const void* const* w,
   const int NL = N * L, D = D_MODEL;
   bf16* o = static_cast<bf16*>(out);
   self_forward_core(static_cast<const bf16*>(x), w, cs, sn, o, b, nullptr, N,
-                    L, st);
+                    L, Lv, st);
   // q3 = rope(LN2(out) Wqc^T + bqc); xn is free again and holds LN2(out)
   layer_norm<bf16>(o, b.xn, static_cast<const float*>(w[S_LN2W]),
                    static_cast<const float*>(w[S_LN2B]), NL, D, 1, LN_EPS, 0,
@@ -260,7 +273,7 @@ extern "C" int memattn_self_fwd(const void* x, const void* const* w,
 extern "C" int memattn_self_bwd(const void* x_, const void* const* w,
                                 const void* cosv, const void* sinv,
                                 const void* dout_, const void* dq3_, void* dx,
-                                void* grads, void* ws, int N, int L,
+                                void* grads, void* ws, int N, int L, int Lv,
                                 void* stream_ptr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   Arena ar{static_cast<char*>(ws), 0};
@@ -279,7 +292,7 @@ extern "C" int memattn_self_bwd(const void* x_, const void* const* w,
 
   // ---- forward recompute (out lands in doutc's buffer until LN2 is done)
   bf16* out = b.dob;
-  self_forward_core(x, w, cs, sn, out, b, b.p32, N, L, st);
+  self_forward_core(x, w, cs, sn, out, b, b.p32, N, L, Lv, st);
   layer_norm<bf16>(out, b.y2, F(S_LN2W), F(S_LN2B), NL, D, 1, LN_EPS, 0, st);
 
   // ---- q3 = rope(qc_proj(LN2(out))) backward

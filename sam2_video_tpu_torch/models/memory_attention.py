@@ -14,9 +14,9 @@ raw 64-dim memory.
 configuration (``fused_eligible``: one head, ReLU, the default pos-enc
 flags, d_model 256, kv_in_dim 64): per layer ``fused_self_block`` ->
 ``flash_attention_kproj`` -> ``fused_tail_block``, the kernels on a CUDA
-tensor and their plain versions on a CPU tensor. The block kernels take a
-grid of h*w % 32 == 0 tokens; another grid raises on a CUDA tensor
-(ROADMAP.md, queue 2, item 9). Otherwise the layers run plain, and the
+tensor and their plain versions on a CPU tensor, at any token grid (the
+block kernels pad the tokens to a multiple of 32 and mask the pad keys).
+Otherwise the layers run plain, and the
 cross-attention takes the flash-kproj kernel where only that kernel
 applies, else the generic ``flash_attention`` (as the JAX package routes
 them): several heads with a projected v, or one head with the raw memory
@@ -54,12 +54,6 @@ class MemoryAttentionConfig:
     pos_enc_at_cross_attn_queries: bool = False
     activation: str = "relu"
     use_flash: bool = True
-
-
-RAGGED_GRID_NOT_PORTED = (
-    "the fused memory-attention block kernels take a grid of h*w % 32 == 0 "
-    "tokens; other grids are not ported to CUDA yet: see ROADMAP.md, queue "
-    "2, item 9")
 
 
 def kproj_eligible(cfg: MemoryAttentionConfig) -> bool:
@@ -230,8 +224,6 @@ def apply(p, cfg: MemoryAttentionConfig, curr, memory, curr_pos, memory_pos,
     if cfg.pos_enc_at_input and curr_pos is not None:
         output = output + 0.1 * curr_pos
     if fused_eligible(cfg):
-        if curr.is_cuda and h * w % 32:
-            raise NotImplementedError(RAGGED_GRID_NOT_PORTED)
         return _fused_layers(p, cfg, output, memory, memory_pos, rope_q,
                              num_spatial_k, key_valid, (w, h))
 

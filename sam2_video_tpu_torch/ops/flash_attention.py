@@ -28,7 +28,7 @@ and backward: the counterparts of the two TPU kernels of
 
 ``flash_attention`` replaces the generic ``flash_attention`` (Pallas
 ``_fwd_kernel`` and the merged dq/dk/dv ``_bwd_kernel``). Source:
-``csrc/flash_attention.cu``.
+``csrc/flash_attention.cu`` (Hopper helpers in ``csrc/sm90.cuh``).
 
 - What it computes: softmax(q k^T / sqrt(D) + key_bias) v over [..., L, D]
   heads, with an additive float32 key bias and the row logsumexp kept for
@@ -39,6 +39,11 @@ and backward: the counterparts of the two TPU kernels of
 - Head widths D and value widths Dv of 64, 128 or 256, any Lq and Lk (the
   last query and key tiles are masked): no padding of the keys to a
   multiple of 256, no padding of v to 128 lanes, no Lq limit.
+- On H100 the tensor cores bound it: every product is a wgmma fed from a
+  two-stage cp.async ring of 128-byte-swizzled tiles, and the keys of the
+  forward and of the dq pass are split across blocks (``split_tiles``)
+  when the query tiles alone do not fill the card twice; a combine merges
+  the splits in split order.
 - Backward: a dq pass over key tiles and a dk / dv pass over query tiles
   (the TPU kernel's single ordered sweep carried dq in VMEM), no float
   atomics, so two runs give the same bits.
@@ -51,6 +56,7 @@ for CUDA tensors (or raises). ``.launches`` counts forward launches,
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -236,6 +242,49 @@ def flash_attention_plain(q, k, v, key_bias=None):
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
+TILE = 64             # queries / keys per tile of kernel #7
+MIN_SPLIT_TILES = 8   # key tiles a split runs at least
+
+
+def split_tiles(blocks: int, Lk: int, per_sm: int, sms: int) -> int:
+    """Key tiles per split of kernel #7's forward and dq pass, for a grid
+    of ``blocks`` blocks (query tiles x batch-heads x column blocks) before
+    the split, on ``sms`` SMs that hold ``per_sm`` blocks each. The keys
+    stay whole (one split) when the blocks already fill two waves;
+    otherwise the split count S, with at least MIN_SPLIT_TILES tiles each,
+    that minimises waves x tiles per split (the time of the longest SM),
+    the smaller S on a tie. Splits = ceil(tiles / the returned value)."""
+    tiles = -(-Lk // TILE)
+    slots = per_sm * sms
+    if blocks >= 2 * slots:
+        return tiles
+    best, best_cost = tiles, None
+    for S in range(1, max(1, tiles // MIN_SPLIT_TILES) + 1):
+        tps = -(-tiles // S)
+        cost = -(-blocks * -(-tiles // tps) // slots) * tps
+        if best_cost is None or cost < best_cost:
+            best, best_cost = tps, cost
+    return best
+
+
+def flash_splits(BH: int, Lq: int, Lk: int, D: int, Dv: int,
+                 sms: int) -> tuple[tuple[int, int], tuple[int, int]]:
+    """((S, tiles per split) of the forward, the same of the dq pass) of
+    kernel #7 at these shapes on a card of ``sms`` SMs (``split_tiles``)."""
+    per_sm = 2 if D <= 128 and Dv <= 128 else 1
+    qt, tiles = -(-Lq // TILE), -(-Lk // TILE)
+    out = []
+    for blocks in (qt * BH, qt * BH * max(1, D // 128)):
+        tps = split_tiles(blocks, Lk, per_sm, sms)
+        out.append((-(-tiles // tps), tps))
+    return out[0], out[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 class _FlashFn(torch.autograd.Function):
     """q [BH, Lq, D], k [BH, Lk, D], v [BH, Lk, Dv] (all bf16); bias [1 or
     BH, Lk] f32 or None."""
@@ -245,15 +294,18 @@ class _FlashFn(torch.autograd.Function):
         BH, Lq, D = q.shape
         Lk, Dv = v.shape[1:]
         dev = q.device
+        (S, tps), _ = flash_splits(BH, Lq, Lk, D, Dv, _sms(dev))
         out = torch.empty((BH, Lq, Dv), dtype=q.dtype, device=dev)
         lse = torch.empty((BH, Lq), dtype=torch.float32, device=dev)
+        part = (torch.empty(S * BH * Lq * (Dv + 2), dtype=torch.float32,
+                            device=dev) if S > 1 else None)
         lib = _flash_lib()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             status = lib.fa_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-                _bias_stride(bias), out.data_ptr(), lse.data_ptr(), BH, Lq,
-                Lk, D, Dv, stream)
+                _bias_stride(bias), out.data_ptr(), lse.data_ptr(),
+                _ptr(part), BH, Lq, Lk, D, Dv, tps, stream)
         kernel_build.check_launch(status, "fa_fwd")
         flash_attention.launches += 1
         ctx.save_for_backward(q, k, v, bias, out, lse)
@@ -265,9 +317,12 @@ class _FlashFn(torch.autograd.Function):
         BH, Lq, D = q.shape
         Lk, Dv = v.shape[1:]
         dev = q.device
+        _, (S, tps) = flash_splits(BH, Lq, Lk, D, Dv, _sms(dev))
         dout = dout.to(q.dtype).contiguous()
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         delta = torch.empty((BH, Lq), dtype=torch.float32, device=dev)
+        part = (torch.empty(S * BH * Lq * D, dtype=torch.float32, device=dev)
+                if S > 1 else None)
         lib = _flash_lib()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -275,7 +330,7 @@ class _FlashFn(torch.autograd.Function):
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
                 _bias_stride(bias), out.data_ptr(), lse.data_ptr(),
                 dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                delta.data_ptr(), BH, Lq, Lk, D, Dv, stream)
+                delta.data_ptr(), _ptr(part), BH, Lq, Lk, D, Dv, tps, stream)
         kernel_build.check_launch(status, "fa_bwd")
         flash_attention.backward_launches += 1
         return dq, dk, dv, None
@@ -328,9 +383,9 @@ def _flash_lib() -> ctypes.CDLL:
     lib = kernel_build.load("flash_attention")
     if not getattr(lib, "_sam2_typed", False):
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-        lib.fa_fwd.argtypes = [P] * 4 + [L] + [P] * 2 + [I] * 5 + [P]
+        lib.fa_fwd.argtypes = [P] * 4 + [L] + [P] * 3 + [I] * 6 + [P]
         lib.fa_fwd.restype = I
-        lib.fa_bwd.argtypes = [P] * 4 + [L] + [P] * 7 + [I] * 5 + [P]
+        lib.fa_bwd.argtypes = [P] * 4 + [L] + [P] * 8 + [I] * 6 + [P]
         lib.fa_bwd.restype = I
         lib._sam2_typed = True
     return lib

@@ -24,6 +24,13 @@ in a fixed order. Weight and bias gradients are float32. The kernels round
 once per fused epilogue where the plain versions round after every op: a
 few bf16 ulps, which chip_smoke.py bounds at 2e-2 of the output scale.
 
+Any token count: the kernels' GEMMs take rows in multiples of 32 per
+object, so another L is padded to the next multiple (``ROW_MULTIPLE``)
+with zero rows; the self block masks the pad keys in its softmax, the pad
+rows' outputs are dropped, and their zero cotangents add nothing to any
+gradient (JAX's fused path needs L % 8 and runs plain otherwise; the
+port's kernels run at every L, e.g. 36 tokens at 96 px, 784 at 448 px).
+
 The TPU tail consumed the 128-lane padded flash output with a zero-column
 augmented v-proj weight; here the cross-attention output is 64 wide and
 the v-proj weight is used as it is.
@@ -46,6 +53,7 @@ from .attention import sdpa
 from .position_encoding import apply_rope_half
 
 D_MODEL = 256
+ROW_MULTIPLE = 32   # tokens per object the kernels' GEMMs take
 
 
 # ---------------------------------------------------------------------------
@@ -104,9 +112,17 @@ def _self_ops(w):
             _f32(ln2b), _bf(wqc), _f32(bqc)]
 
 
+def _pad_rows(t, L: int):
+    """t [N, L0, C] padded with zero rows to [N, L, C]."""
+    return F.pad(t, (0, 0, 0, L - t.shape[1])) if L != t.shape[1] else t
+
+
 class _SelfFn(torch.autograd.Function):
+    """x [N, L, 256] (L % ROW_MULTIPLE == 0) of which the first Lv tokens
+    are real, cos / sin [L, 256]."""
+
     @staticmethod
-    def forward(ctx, x, cos, sin, *w):
+    def forward(ctx, x, cos, sin, Lv, *w):
         N, L, D = x.shape
         dev = x.device
         ops = _self_ops(w)
@@ -117,10 +133,12 @@ class _SelfFn(torch.autograd.Function):
             stream = torch.cuda.current_stream(dev).cuda_stream
             status = lib.memattn_self_fwd(
                 x.data_ptr(), _table(ops), cos.data_ptr(), sin.data_ptr(),
-                out.data_ptr(), q3.data_ptr(), ws.data_ptr(), N, L, stream)
+                out.data_ptr(), q3.data_ptr(), ws.data_ptr(), N, L, Lv,
+                stream)
         kernel_build.check_launch(status, "memattn_self_fwd")
         fused_self_block.launches += 1
         ctx.save_for_backward(x, cos, sin, *w)
+        ctx.Lv = Lv
         return out, q3
 
     @staticmethod
@@ -140,7 +158,7 @@ class _SelfFn(torch.autograd.Function):
             status = lib.memattn_self_bwd(
                 x.data_ptr(), _table(ops), cos.data_ptr(), sin.data_ptr(),
                 dout.data_ptr(), dq3.data_ptr(), dx.data_ptr(), g.data_ptr(),
-                ws.data_ptr(), N, L, stream)
+                ws.data_ptr(), N, L, ctx.Lv, stream)
         kernel_build.check_launch(status, "memattn_self_bwd")
         fused_self_block.backward_launches += 1
         d = D_MODEL
@@ -151,7 +169,7 @@ class _SelfFn(torch.autograd.Function):
         dbq, dbk, dbv = dbqkv.split(d)
         grads = (dln1w, dln1b, dwq, dbq, dwk, dbk, dwv, dbv,
                  dwo.view(d, d), dbo, dln2w, dln2b, dwqc.view(d, d), dbqc)
-        return (dx, None, None) + tuple(
+        return (dx, None, None, None) + tuple(
             gr.to(t.dtype) for gr, t in zip(grads, w))
 
 
@@ -166,9 +184,9 @@ def fused_self_block(p_self, p_qc, ln1, ln2, x, cos, sin):
         raise TypeError(f"fused_self_block kernel takes bfloat16, got "
                         f"{x.dtype}")
     *lead, L, D = x.shape
-    if D != D_MODEL or L % 32:
+    if D != D_MODEL:
         raise ValueError(f"fused_self_block kernel takes [..., L, "
-                         f"{D_MODEL}] with L % 32 == 0, got {tuple(x.shape)}")
+                         f"{D_MODEL}], got {tuple(x.shape)}")
     if tuple(cos.shape) != (L, D) or tuple(sin.shape) != (L, D):
         raise ValueError("cos / sin must be [L, D] tables")
     w = (ln1["weight"], ln1["bias"], p_self["q"]["weight"],
@@ -176,9 +194,12 @@ def fused_self_block(p_self, p_qc, ln1, ln2, x, cos, sin):
          p_self["v"]["weight"], p_self["v"]["bias"],
          p_self["out"]["weight"], p_self["out"]["bias"], ln2["weight"],
          ln2["bias"], p_qc["weight"], p_qc["bias"])
-    x3 = x.reshape(-1, L, D).contiguous()
-    out, q3 = _SelfFn.apply(x3, _f32(cos), _f32(sin), *w)
-    return out.reshape(x.shape), q3.reshape(x.shape)
+    Lp = -(-L // ROW_MULTIPLE) * ROW_MULTIPLE
+    x3 = _pad_rows(x.reshape(-1, L, D), Lp).contiguous()
+    cos, sin = (_pad_rows(_f32(t)[None], Lp)[0].contiguous()
+                for t in (cos, sin))
+    out, q3 = _SelfFn.apply(x3, cos, sin, L, *w)
+    return (out[:, :L].reshape(x.shape), q3[:, :L].reshape(x.shape))
 
 
 fused_self_block.launches = 0
@@ -261,9 +282,10 @@ def fused_tail_block(p_v, p_out, ln3, p_l1, p_l2, y, a):
     w = (p_v["weight"], p_v["bias"], p_out["weight"], p_out["bias"],
          ln3["weight"], ln3["bias"], p_l1["weight"], p_l1["bias"],
          p_l2["weight"], p_l2["bias"])
-    out = _TailFn.apply(y.reshape(-1, L, D).contiguous(),
-                        a.reshape(-1, L, KV).contiguous(), *w)
-    return out.reshape(y.shape)
+    Lp = -(-L // ROW_MULTIPLE) * ROW_MULTIPLE
+    out = _TailFn.apply(_pad_rows(y.reshape(-1, L, D), Lp).contiguous(),
+                        _pad_rows(a.reshape(-1, L, KV), Lp).contiguous(), *w)
+    return out[:, :L].reshape(y.shape)
 
 
 fused_tail_block.launches = 0
@@ -277,9 +299,9 @@ def _lib() -> ctypes.CDLL:
         T = ctypes.POINTER(ctypes.c_void_p)
         lib.memattn_self_workspace_bytes.argtypes = [I, I, I]
         lib.memattn_self_workspace_bytes.restype = L
-        lib.memattn_self_fwd.argtypes = [P, T] + [P] * 5 + [I, I, P]
+        lib.memattn_self_fwd.argtypes = [P, T] + [P] * 5 + [I] * 3 + [P]
         lib.memattn_self_fwd.restype = I
-        lib.memattn_self_bwd.argtypes = [P, T] + [P] * 7 + [I, I, P]
+        lib.memattn_self_bwd.argtypes = [P, T] + [P] * 7 + [I] * 3 + [P]
         lib.memattn_self_bwd.restype = I
         lib.memattn_tail_grad_floats.argtypes = [I, I]
         lib.memattn_tail_grad_floats.restype = L

@@ -18,6 +18,7 @@ averages well below 1 in size, so its limit is 2e-2 of max|plain| of each
 tensor, with no floor of 1.
 """
 
+import copy
 import dataclasses
 
 import pytest
@@ -153,11 +154,13 @@ def _layer(params, cfg):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("image_size, objects", [(384, 8), (512, 16)])
+@pytest.mark.parametrize("image_size, objects", [(384, 8), (512, 16),
+                                                (96, 2), (448, 3)])
 def test_memattn_blocks_match_plain(card, image_size, objects):
     """Kernels #4 and #5, forward and backward, at the 384 px training
-    grid (576 tokens, 8 objects) and the 512 px one (1024 tokens, two clips
-    of 8 objects stacked).
+    grid (576 tokens, 8 objects), the 512 px one (1024 tokens, two clips
+    of 8 objects stacked) and two grids whose token count is not a multiple
+    of 32 (96 px: 36 tokens, 448 px: 784), which the wrappers pad.
 
     The tail's ReLU backward is discontinuous: where a pre-activation
     rounds to zero in one product and not in the other (the kernel and
@@ -278,19 +281,50 @@ def test_memattn_kernels_refuse_float32_on_the_card(card):
 
 
 @pytest.mark.cuda
-def test_fused_memory_attention_refuses_a_ragged_grid_on_the_card(card):
-    """The block kernels take h*w % 32 == 0 tokens: a 6x6 grid raises on a
-    CUDA tensor instead of running the layers plain."""
+def test_fused_memory_attention_runs_a_ragged_grid_on_the_card(card):
+    """Memory attention on the fused path at a 6x6 grid (36 tokens, the
+    96 px synthetic combo) and a 28x28 grid (784 tokens, 448 px), whose
+    token counts are not multiples of 32: kernels #3-#5 run forward and
+    backward on the card, and the output and the gradients of the current
+    features and the memory agree with the plain layers in float32 on the
+    CPU (relative L2 0.05 and 0.1: bf16 through four layers)."""
     from sam2_video_tpu_torch.models import memory_attention as ma
+    from sam2_video_tpu_torch.ops import memattn_layer_kernel as mlk
 
     cfg, params = card
     mcfg = dataclasses.replace(cfg.memory_attention_config, use_flash=True)
     assert ma.fused_eligible(mcfg)
-    curr = torch.zeros((2, 36, 256), device="cuda", dtype=torch.bfloat16)
-    mem = torch.zeros((2, 36 + 4, 64), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="queue 2, item 9"):
-        ma.apply(params["memory_attention"], mcfg, curr, mem, None, mem,
-                 feat_hw=(6, 6), num_spatial_k=36)
+    for side in (6, 28):
+        HW = side * side
+        gen = torch.Generator().manual_seed(side)
+        curr = torch.randn((2, HW, 256), generator=gen)
+        mem = torch.randn((2, 2 * HW + 4, 64), generator=gen)
+        cot = torch.randn((2, HW, 256), generator=gen)
+        valid = torch.ones(2 * HW + 4, dtype=torch.bool)
+        valid[HW: 2 * HW] = False
+        res = []
+        for dev, dt in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+            tree = params["memory_attention"]
+            if dev == "cpu":
+                tree = copy.deepcopy(tree).to("cpu")
+            p = ma.prepare(tree, mcfg)
+            x, m = (t.to(dev, dt).requires_grad_(True) for t in (curr, mem))
+            before = (mlk.fused_self_block.launches,
+                      mlk.fused_tail_block.backward_launches)
+            out = ma.apply(p, mcfg, x, m, None, m, feat_hw=(side, side),
+                           num_spatial_k=2 * HW,
+                           key_valid=valid.to(dev))
+            out.backward(cot.to(dev, dt))
+            res.append([t.detach().float().cpu()
+                        for t in (out, x.grad, m.grad)])
+            if dev == "cuda":
+                assert (mlk.fused_self_block.launches,
+                        mlk.fused_tail_block.backward_launches) == (
+                    before[0] + mcfg.num_layers,
+                    before[1] + mcfg.num_layers)
+        for i, (got, want) in enumerate(zip(*res, strict=True)):
+            assert torch.isfinite(got).all()
+            assert _rel_l2(got, want) < (0.05 if i == 0 else 0.1), (side, i)
 
 
 # kernel #6 on q-pool blocks: the gradients a 2x2 max-pool routes (dx, the
@@ -520,6 +554,79 @@ def test_flash_attention_matches_plain(card, lead, Lq, Lk, D, Dv, masked):
     _, again = _vjp(run(fa.flash_attention), inputs, cots)
     for a, b in zip(first, again, strict=True):
         assert torch.equal(a, b)
+
+
+def _flash_case(lead, Lq, Lk, D, Dv, masked, seed):
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to("cuda", torch.bfloat16)
+
+    bias = None
+    if masked:
+        bias = torch.zeros(Lk)
+        bias[Lk // 4: Lk // 2] = -1e9
+        bias = bias.cuda()
+    return (bias, [rnd(*lead, Lq, D), rnd(*lead, Lk, D), rnd(*lead, Lk, Dv)],
+            [rnd(*lead, Lq, Dv)])
+
+
+def _check_flash(lead, Lq, Lk, D, Dv, masked, splits):
+    """Kernel #7 against its plain version, forward and backward, with
+    ``splits`` (S of the forward, S of the dq pass) checked first; the
+    launch counters move by one each way, and a second run gives the same
+    bits."""
+    from sam2_video_tpu_torch.ops import flash_attention as fa
+
+    BH = 1
+    for n in lead:
+        BH *= n
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    got = fa.flash_splits(BH, Lq, Lk, D, Dv, sms)
+    assert (got[0][0], got[1][0]) == splits, got
+    bias, inputs, cots = _flash_case(lead, Lq, Lk, D, Dv, masked, Lk + Lq)
+
+    def run(fn):
+        return lambda q, k, v: fn(q, k, v, bias)
+
+    launches = (fa.flash_attention.launches,
+                fa.flash_attention.backward_launches)
+    _check_vjp(run(fa.flash_attention), run(fa.flash_attention_plain),
+               inputs, cots, floor=0.0)
+    assert (fa.flash_attention.launches,
+            fa.flash_attention.backward_launches) == (launches[0] + 1,
+                                                      launches[1] + 1)
+    first = _vjp(run(fa.flash_attention), inputs, cots)
+    again = _vjp(run(fa.flash_attention), inputs, cots)
+    for a, b in zip([*first[0], *first[1]], [*again[0], *again[1]],
+                    strict=True):
+        assert torch.equal(a, b)
+
+
+# the split edges of the split rule on a small grid (2 x 2 batch-heads of
+# 100 queries, Lq not a multiple of 64; tests/test_torch_port_flash.py
+# test_flash_split_rule): below one split, exactly two of 8 tiles, one key
+# past them (two of 9 and 8 tiles, the last holding one key), and D 256
+# (two dq column blocks) one key past them
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lk, D, Dv, masked, splits", [
+    (8 * 64 - 1, 128, 128, False, (1, 1)),
+    (16 * 64, 128, 128, True, (2, 2)),
+    (16 * 64 + 1, 128, 128, False, (2, 2)),
+    (16 * 64 + 1, 256, 64, True, (2, 2)),
+])
+def test_flash_attention_split_edges(card, Lk, D, Dv, masked, splits):
+    _check_flash((2, 2), 100, Lk, D, Dv, masked, splits)
+
+
+# the two-head path's shapes (8 objects x 2 heads, 576 queries, width 128)
+# with the split rule: Lk 580 (frame 1, one split), 4068 (frame 9) and
+# 4096 (serving, two invalid slots), where the keys split five ways
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lk, masked, splits", [
+    (580, False, (1, 1)), (4068, False, (5, 5)), (4096, True, (5, 5))])
+def test_flash_attention_path_shapes(card, Lk, masked, splits):
+    _check_flash((8, 2), 576, Lk, 128, 128, masked, splits)
 
 
 @pytest.mark.cuda

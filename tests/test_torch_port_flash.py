@@ -119,6 +119,29 @@ def test_flash_attention_plain_matches_jax_kernel(monkeypatch, D, Dv, BH):
         _close(a, b, GRAD, name)
 
 
+# kernel #7's split of the keys across blocks (forward, dq pass) on 132
+# SMs: (S, key tiles per split) each
+@pytest.mark.parametrize("BH, Lq, Lk, D, Dv, want", [
+    # the two-head path at frame 9: 144 query blocks, two per SM
+    (16, 576, 4068, 128, 128, ((5, 13), (5, 13))),
+    # frame 1: 10 key tiles, fewer than two splits of 8
+    (16, 576, 580, 128, 128, ((1, 10), (1, 10))),
+    # one head over 128-channel memory: one block per SM, dq in two
+    # 128-column blocks
+    (8, 576, 4050, 256, 128, ((5, 13), (8, 8))),
+    # 576 query blocks already fill two waves: the keys stay whole
+    (64, 576, 4068, 128, 128, ((1, 64), (1, 64))),
+    # a small grid splits the keys as finely as MIN_SPLIT_TILES allows:
+    # the card tests' split edges (8 tiles: one split; 16: two of 8; 17:
+    # two of 9 and 8, the last tile holding one key)
+    (4, 100, 8 * 64 - 1, 128, 128, ((1, 8), (1, 8))),
+    (4, 100, 16 * 64, 128, 128, ((2, 8), (2, 8))),
+    (4, 100, 16 * 64 + 1, 256, 64, ((2, 9), (2, 9))),
+])
+def test_flash_split_rule(BH, Lq, Lk, D, Dv, want):
+    assert tfa.flash_splits(BH, Lq, Lk, D, Dv, sms=132) == want
+
+
 def test_flash_attention_broadcasts_the_key_bias_over_heads():
     """q [O, H, Lq, D] with a [Lk] key bias and with the same bias given per
     (object, head): the same values."""

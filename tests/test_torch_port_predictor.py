@@ -3,15 +3,15 @@ on the CPU: SAM2-tiny at image_size=128, float32, use_flash_attention=False,
 2 objects point-prompted on frame 0 of a 6-frame synthetic video, the same
 JAX parameter tree on both sides (``from_jax_params`` for the port).
 
-Both predictors see the same model-resolution frames (the JAX predictor's
-cv2 squash-resize is swapped for the port's, which is held against cv2 on
-its own below), and the JAX Hiera MLP is made exact-erf as in the models
+Both predictors get the same raw frames: the port's squash-resize
+computes cv2.INTER_LINEAR's fixed-point arithmetic, which the JAX
+predictor calls, so both models see the same pixels (held bit for bit
+against cv2 below); the JAX Hiera MLP is made exact-erf as in the models
 test. Tolerances: logits cross the host as float16, whose spacing is 2^-11
 relative, so 2e-3 relative (a float32 difference may flip one rounding)
 and 2e-3 absolute near zero; scores are float32 means of sigmoids, 1e-4.
 """
 
-import cv2
 import jax
 import numpy as np
 import pytest
@@ -23,6 +23,8 @@ from sam2_video_tpu_torch.eval import predictor as tpred_mod
 from sam2_video_tpu_torch.eval.predictor import VideoPredictor
 from sam2_video_tpu_torch.models import sam2 as tsam2
 from test_torch_port_models import jax_tree, one_torch_thread  # noqa: F401
+
+cv2 = pytest.importorskip("cv2")
 
 IMG, T, O = 128, 6, 2
 KW = dict(image_size=IMG, compute_dtype="float32", use_flash_attention=False,
@@ -70,12 +72,6 @@ def test_video_predictor_matches_jax(jax_params, monkeypatch):
     monkeypatch.setattr(jax.nn, "gelu",
                         lambda x, approximate=True: exact(x,
                                                           approximate=False))
-
-    def port_resize(out, frames, size):
-        out[:] = tpred_mod.resize_frames(torch.from_numpy(frames),
-                                         size).numpy()
-
-    monkeypatch.setattr(jpred_mod, "_resize_frames_into", port_resize)
     key = ("seq", JCFG, O, 1)
     jpred_mod._JIT_BUNDLES.pop(key, None)
     try:
@@ -97,20 +93,23 @@ def test_video_predictor_matches_jax(jax_params, monkeypatch):
     assert sorted(state.mem_bank) == list(range(1, T))
 
 
-def test_frame_resize_matches_cv2():
-    """Squash-resize of uint8 frames (bilinear, align_corners=False, no
-    antialias) against cv2.INTER_LINEAR, whose 11-bit fixed-point weights
-    sum to slightly under one: at most one level apart, most pixels equal,
-    and a mean offset under a quarter level."""
-    frames = _video((480, 854))[:2]
+@pytest.mark.parametrize("hw", [(480, 854), (1024, 1280), (256, 320)])
+def test_frame_resize_matches_cv2(hw):
+    """Squash-resize of uint8 frames to 384 x 384 equals cv2.INTER_LINEAR
+    bit for bit (its 11-bit fixed-point weights and integer passes), on the
+    synthetic video at 480x854 and on random frames at 1024x1280 and at
+    256x320 (an upscale, where cv2 clamps the edge rows' indices but not
+    their weights)."""
+    if hw == (480, 854):
+        frames = _video(hw)[:2]
+    else:
+        frames = np.random.default_rng(7).integers(
+            0, 256, (2, *hw, 3), dtype=np.uint8)
     got = tpred_mod.resize_frames(torch.from_numpy(frames), 384).numpy()
     want = np.stack([cv2.resize(f, (384, 384),
                                 interpolation=cv2.INTER_LINEAR)
                      for f in frames])
-    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
-    assert diff.max() <= 1
-    assert (diff == 0).mean() > 0.8
-    assert abs((got.astype(np.float64) - want).mean()) < 0.25
+    np.testing.assert_array_equal(got, want)
 
 
 def test_logits_to_orig_matches_jax():
