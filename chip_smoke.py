@@ -393,15 +393,13 @@ def _print_row(label, err, rel, r):
 
 
 def phase_memattn_kernels(params, cfg, seed: int, objects: int):
-    """Kernels #3-#5, forward and backward, against their plain versions
-    (backward: autograd through the plain forward with the same random
-    cotangent) at the training shapes: 8 objects, 576 queries; #4/#5 also
+    """Kernels #4 and #5, forward and backward, against their plain
+    versions (backward: autograd through the plain forward with the same
+    random cotangent) at the training shapes: 8 objects, 576 tokens; also
     at 3 objects x 784 tokens (448 px) and 2 x 36 (96 px), which the
-    wrappers pad to a multiple of 32; the cross-attention at Lk = 580 and
-    4068 (training, no bias) and 4096 (serving, -1e9 on two invalid
-    slots). Returns the rows of the JSON line (576 tokens)."""
+    wrappers pad to a multiple of 32. Returns the rows of the JSON line
+    (576 tokens)."""
     from sam2_video_tpu_torch.models import memory_attention as ma
-    from sam2_video_tpu_torch.ops import flash_attention as fa
     from sam2_video_tpu_torch.ops import memattn_layer_kernel as mlk
     from sam2_video_tpu_torch.ops.position_encoding import \
         axial_rope_table_half
@@ -412,7 +410,7 @@ def phase_memattn_kernels(params, cfg, seed: int, objects: int):
     lp = ma.prepare(params["memory_attention"], mcfg)["layers"]["0"]
     sp, cp = lp["self_attn"], lp["cross_attn_image"]
     F_, O = cfg.feat_size, objects
-    L, D, KV = F_ * F_, cfg.d_model, cfg.mem_dim
+    D, KV = cfg.d_model, cfg.mem_dim
 
     def rnd(*shape, scale=1.0):
         return (scale * torch.randn(shape, generator=gen)).to(
@@ -521,64 +519,160 @@ def phase_memattn_kernels(params, cfg, seed: int, objects: int):
         if side == F_:
             rows.append(r)
 
-    # ---- flash_attention_kproj at three key counts
-    HW = L
-    fsrc = "sam2_video_tpu_torch/csrc/flash_kproj.cu"
-    frep = "sam2_video_tpu/ops/flash_attention.py"
+    if failures:
+        raise SystemExit(f"{len(failures)} kernel outputs disagree with "
+                         "their plain versions:\n" + "\n".join(failures))
+    return rows
+
+
+# kernel #3 at the shapes its paths give it: (label, objects, queries (None:
+# one slot's), slot side, slots, pointer tokens, masked). The first three
+# are the one-head path's at 384 px (Lk 580, 4068 and 4096, two of seven
+# slots masked by -1e9), the fourth 448 px, where a slot of 784 keys
+# straddles key tiles and the last tile mixes spatial and pointer keys; the
+# next three the split rule's edges (kproj_plan) on a small grid (2
+# objects x 100 queries, 12 x 12 slots of 144 keys, so tiles straddle
+# slots too): the most keys without a split (Lk 320, 5 tiles), exactly two
+# splits of 3 tiles (384), one key past them (385: two of 4 and 3 tiles,
+# the last holding one key); the last three the dq pass's warpgroup edges
+# (KPROJ_DQ_MAX_ROPE_ROWS) at 2 objects x 100 queries: 34 x 34 slots, the
+# largest with two warpgroups per dq block, 35 x 35, one past it, and 64 x
+# 64 (1024 px), the largest grid the kernel takes.
+KPROJ_CASES = (
+    ("training, frame 1", 8, None, 24, 1, 4, False),
+    ("training, frame 9", 8, None, 24, 7, 36, False),
+    ("serving", 8, None, 24, 7, 64, True),
+    ("448 px, frame 9", 3, None, 28, 7, 36, False),
+    ("split edge: no split", 2, 100, 12, 2, 32, False),
+    ("split edge: two splits exactly", 2, 100, 12, 2, 96, True),
+    ("split edge: one key past two splits", 2, 100, 12, 2, 97, False),
+    ("dq edge: two warpgroups, 34 x 34 slots", 2, 100, 34, 2, 4, False),
+    ("dq edge: one warpgroup, 35 x 35 slots", 2, 100, 35, 2, 4, True),
+    ("dq edge: one warpgroup, 64 x 64 slots", 2, 100, 64, 1, 4, False),
+)
+KPROJ = ("flash_attention_kproj", "flash_attention_kproj_bwd")
+
+
+def _kproj_keys(kin, kw, kbias, nsp, side, theta, fa):
+    """The keys kernel #3 projects, k = RoPE(kin Wk^T + bk), in bf16: the
+    library yardstick's input (sdpa over pre-projected keys)."""
+    with torch.no_grad():
+        cos, sin = fa.kproj_rope_tables(256, (side, side), theta,
+                                        torch.bfloat16, kin.device)
+        Lk = kin.shape[-2]
+        reps = nsp // cos.shape[0]
+        c = torch.cat([cos.repeat(reps, 1), cos.new_ones((Lk - nsp, 128))])
+        s = torch.cat([sin.repeat(reps, 1), sin.new_zeros((Lk - nsp, 128))])
+        kpre = kin.float() @ kw.float().t() + kbias.float()
+        k1, k2 = kpre[..., :128], kpre[..., 128:]
+        return torch.cat([k1 * c - k2 * s, k2 * c + k1 * s], -1).to(
+            torch.bfloat16)
+
+
+def phase_kproj_kernels(params, cfg, seed: int):
+    """Kernel #3 forward and backward against its plain version (backward:
+    autograd through the plain forward with the same random cotangent) at
+    KPROJ_CASES, each tensor within KERNEL_TOL of its own max|plain|, with
+    the plan (key splits of the forward and of the dq pass, warpgroups
+    per dq block), CUDA-event ms, the device operations, launches and
+    device ms of one forward and one backward call, beside
+    F.scaled_dot_product_attention forward and backward on the keys
+    projected beforehand (4-D, a boolean mask; events and device ms); a
+    second backward must give the same bits. Returns the JSON rows: the
+    training shape at frame 9 (Lk 4068), the worst error of all cases."""
+    from sam2_video_tpu_torch.models import memory_attention as ma
+    from sam2_video_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(seed + 13)
+    mcfg = cfg.memory_attention_config
+    cp = ma.prepare(params["memory_attention"], mcfg)["layers"]["0"][
+        "cross_attn_image"]
     kw, kbias = cp["_kp"]["weight"], cp["_kp"]["bias"]
-    cases = [("training, frame 1", 1, 1 * 4, False),
-             ("training, frame 9", 7, 9 * 4, False),
-             ("serving", 7, 16 * 4, True)]
-    fwd_rows, bwd_rows = [], []
-    for label, slots, ptr_tokens, masked in cases:
+    src = "sam2_video_tpu_torch/csrc/flash_kproj.cu"
+    rep = "sam2_video_tpu/ops/flash_attention.py"
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    failures, rows, worst = [], {}, {"fwd": 0.0, "bwd": 0.0}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+
+    for i, (label, O, L, side, slots, ptr, masked) in enumerate(KPROJ_CASES):
+        HW = side * side
+        L = L or HW
         nsp = slots * HW
-        Lk = nsp + ptr_tokens
-        q3, kin, v = rnd(O, L, D), rnd(O, Lk, KV), rnd(O, Lk, KV)
-        bias = None
+        Lk = nsp + ptr
+        q, kin, v, cot = rnd(O, L, 256), rnd(O, Lk, 64), rnd(O, Lk, 64), \
+            rnd(O, L, 64)
+        valid = bias = None
         if masked:
-            valid = torch.ones(Lk, dtype=torch.bool)
+            valid = torch.ones(Lk, dtype=torch.bool, device=dev)
             valid[2 * HW: 4 * HW] = False
-            bias = torch.where(valid, 0.0, -1e9).float().to(dev)
-        cot = rnd(O, L, KV)
+            bias = torch.where(valid, 0.0, -1e9).float()
         res = {}
         for kind, fn in (("kernel", fa.flash_attention_kproj),
                          ("plain", fa.flash_attention_kproj_plain)):
-            leaves = [t.detach().clone().requires_grad_(True)
-                      for t in (q3, kin, v, kw, kbias)]
-            args = lambda: (*leaves, bias, nsp, (F_, F_),  # noqa: E731
+            leaves = _leaves((q, kin, v, kw, kbias))
+            args = lambda: (*leaves, bias, nsp, (side, side),  # noqa: E731
                             mcfg.rope_theta)
             out = fn(*args())
             grads = torch.autograd.grad(out, leaves, cot, retain_graph=True)
             t_f = cuda_ms(lambda: fn(*args()))
             t_b = _time_backward(out, leaves, cot)
+            if kind == "kernel":
+                ops = (_device_launches(lambda: fn(*args())),
+                       _device_launches(lambda: torch.autograd.grad(
+                           out, leaves, cot, retain_graph=True)))
+                again = torch.autograd.grad(out, leaves, cot,
+                                            retain_graph=True)
+                for n, a, b in zip(("dq", "dkin", "dv", "dwk", "dbk"),
+                                   grads, again, strict=True):
+                    if not torch.equal(a, b):
+                        failures.append(f"kproj {n} Lk={Lk}: two backward "
+                                        "runs differ")
+                        print("FAIL " + failures[-1], flush=True)
             res[kind] = (out, grads, t_f, t_b)
+        k = _kproj_keys(kin, kw, kbias, nsp, side, mcfg.rope_theta, fa)
+        lib_f, lib_b, dev_f, dev_b = _library_attention_ms(
+            q[:, None], k[:, None], v[:, None], valid, cot[:, None])
         torch.cuda.synchronize()
+        plan = fa.kproj_plan(O, L, Lk, (side, side), sms)
         (ko, kg, kf, kb), (po, pg, pf, pb) = res["kernel"], res["plain"]
-        err, rel = _check_grads([f"kproj out Lk={Lk}"], [ko], [po],
-                                failures, ATTENTION_FLOOR)
-        lib = _sdpa_ms(q3, kin, v, kw, kbias, bias, nsp, F_, mcfg, fa)
-        fl, nb = kproj_cost(O, L, Lk, False, [q3, kin, v, bias, ko])
-        r = _kernel_row("flash_attention_kproj", fsrc, f"{frep}:391", err,
-                        kf, pf, (fl, nb + 2 * kw.numel()), lib)
-        _print_row(f"flash_attention_kproj {label}: Lk={Lk}", err, rel, r)
-        fwd_rows.append(r)
-        err, rel = _check_grads(
-            [f"kproj d{n} Lk={Lk}" for n in ("q", "kin", "v", "wk", "bk")],
-            kg, pg, failures, ATTENTION_FLOOR)
-        fl, nb = kproj_cost(O, L, Lk, True, [q3, kin, v, bias, ko, cot, *kg])
-        r = _kernel_row("flash_attention_kproj_bwd", fsrc, f"{frep}:440",
-                        err, kb, pb, (fl, nb + 2 * kw.numel()))
-        _print_row(f"flash_attention_kproj backward Lk={Lk}", err, rel, r)
-        bwd_rows.append(r)
-    # the JSON rows: the largest training shape (frame 9), worst error
-    for group in (fwd_rows, bwd_rows):
-        r = dict(group[1])
-        r["max_abs_err"] = max(x["max_abs_err"] for x in group)
-        rows.append(r)
+        tag = f"O={O} Lq={L} Lk={Lk} slot {side}x{side}"
+        err_f, rel_f = _check_grads([f"kproj out {tag}"], [ko], [po],
+                                    failures, ATTENTION_FLOOR)
+        wb = 2 * kw.numel()
+        fl, nb = kproj_cost(O, L, Lk, False, [q, kin, v, bias, ko])
+        r_f = _kernel_row(KPROJ[0], src, f"{rep}:391", err_f, kf, pf,
+                          (fl, nb + wb), lib_f)
+        _print_row(f"flash_attention_kproj {label}: {tag} "
+                   f"splits={plan.fwd[0]} "
+                   f"device_ops/launches={ops[0][0]}/{ops[0][1]} device_ms="
+                   f"{ops[0][2]:.4f} (sdpa {dev_f:.4f}); events:", err_f,
+                   rel_f, r_f)
+        err_b, rel_b = _check_grads(
+            [f"kproj d{n} {tag}" for n in ("q", "kin", "v", "wk", "bk")], kg,
+            pg, failures, ATTENTION_FLOOR)
+        fl, nb = kproj_cost(O, L, Lk, True, [q, kin, v, bias, ko, cot, *kg])
+        r_b = _kernel_row(KPROJ[1], src, f"{rep}:440", err_b, kb, pb,
+                          (fl, nb + wb), lib_b)
+        _print_row(f"flash_attention_kproj backward {label}: {tag} dq "
+                   f"warpgroups={plan.dq_warpgroups} splits={plan.dq[0]} "
+                   f"dWk blocks={plan.dw[0]} "
+                   f"device_ops/launches={ops[1][0]}/{ops[1][1]} device_ms="
+                   f"{ops[1][2]:.4f} (sdpa {dev_b:.4f}); events:", err_b,
+                   rel_b, r_b)
+        worst["fwd"] = max(worst["fwd"], err_f)
+        worst["bwd"] = max(worst["bwd"], err_b)
+        if i == 1:
+            rows = {"fwd": r_f, "bwd": r_b}
+        del res, ko, kg, po, pg
     if failures:
-        raise SystemExit(f"{len(failures)} kernel outputs disagree with "
-                         "their plain versions:\n" + "\n".join(failures))
-    return rows
+        raise SystemExit(f"{len(failures)} kernel #3 tensors disagree with "
+                         "the plain version:\n" + "\n".join(failures))
+    for key in ("fwd", "bwd"):
+        rows[key]["max_abs_err"] = worst[key]
+    return [rows["fwd"], rows["bwd"]]
 
 
 # kernel #7 at the shapes its paths give it: (label, objects, heads, head
@@ -999,29 +1093,6 @@ def phase_hiera_bwd_kernels(params, cfg, seed: int, frames: int):
               f"{rows[-1]['ms']:.4f} plain_ms {rows[-1]['plain_ms']:.4f} "
               f"bound_ms {rows[-1]['bound_ms']:.4f}", flush=True)
     return rows
-
-
-def _sdpa_ms(q3, kin, v, kw, kbias, bias, nsp, F_, mcfg, fa):
-    """ms of F.scaled_dot_product_attention (bf16) over the keys the kernel
-    projects, materialised beforehand: context for the JSON line only."""
-    import torch.nn.functional as F
-
-    with torch.no_grad():
-        cos, sin = fa.kproj_rope_tables(q3.shape[-1], (F_, F_),
-                                        mcfg.rope_theta, torch.float32,
-                                        q3.device)
-        D = q3.shape[-1]
-        kpre = kin.float() @ kw.float().t() + kbias.float()
-        Lk = kin.shape[1]
-        reps = nsp // cos.shape[0]
-        c = torch.cat([cos.repeat(reps, 1), cos.new_ones((Lk - nsp, D // 2))])
-        s = torch.cat([sin.repeat(reps, 1), sin.new_zeros((Lk - nsp, D // 2))])
-        k1, k2 = kpre[..., :D // 2], kpre[..., D // 2:]
-        k = torch.cat([k1 * c - k2 * s, k2 * c + k1 * s], -1).to(q3.dtype)
-        vv = v.to(q3.dtype)
-        mask = None if bias is None else bias.to(q3.dtype)[None, None, :]
-        return cuda_ms(lambda: F.scaled_dot_product_attention(
-            q3, k, vv, attn_mask=mask))
 
 
 def twoway_cost(O, N, HW, backward: bool, tensors, n_weights: int):
@@ -1838,6 +1909,7 @@ def main() -> int:
             rows = phase_kernels(sam2_mod.prepare(params, cfg), cfg,
                                  args.seed, CHUNK, OBJECTS)
         rows += phase_memattn_kernels(params, cfg, args.seed, OBJECTS)
+        rows += phase_kproj_kernels(params, cfg, args.seed)
         rows += phase_hiera_bwd_kernels(params, cfg, args.seed, TRAIN_T)
         rows += phase_twoway_kernels(params, cfg, args.seed)
         rows += phase_flash_kernels(args.seed)

@@ -70,66 +70,6 @@ constexpr int COLS = 128;            // dq / dk / dv columns per block
 template <int D, int DV>
 constexpr int fa_min_blocks() { return (D <= 128 && DV <= 128) ? 2 : 1; }
 
-// 1024-byte aligned base of the dynamic shared memory (the swizzle atoms
-// are 1024 bytes); the launch asks for 1 KB more than the carve
-__device__ __forceinline__ uint32_t aligned_smem(unsigned char* raw,
-                                                 unsigned char** gen) {
-  const uint32_t a = smem_u32(raw);
-  const uint32_t b = (a + 1023u) & ~1023u;
-  *gen = raw + (b - a);
-  return b;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffff, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffff, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffff, v, 1);
-  return v + __shfl_xor_sync(0xffffffff, v, 2);
-}
-
-// column of accumulator register i (64-wide accumulator, this thread)
-__device__ __forceinline__ int acc_col(int i) {
-  return (i >> 2) * 8 + 2 * (threadIdx.x & 3) + (i & 1);
-}
-
-// store a 64 x NC f32 accumulator's rows (< n) as bf16 (times mul) into a
-// row-major [.., ld] matrix at dst (row 0 = the tile's first row)
-template <int NC>
-__device__ __forceinline__ void store_bf16(const float (&acc)[NC / 2],
-                                           bf16* dst, int ld, int rows_left,
-                                           float mul) {
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = warp * 16 + g + 8 * h;
-    if (r >= rows_left) continue;
-#pragma unroll
-    for (int n = 0; n < NC / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r * ld + acc_col(4 * n)) =
-          __floats2bfloat162_rn(acc[4 * n + 2 * h] * mul,
-                                acc[4 * n + 2 * h + 1] * mul);
-  }
-}
-
-// the same as f32 pairs
-template <int NC>
-__device__ __forceinline__ void store_f32(const float (&acc)[NC / 2],
-                                          float* dst, int ld, int rows_left) {
-  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = warp * 16 + g + 8 * h;
-    if (r >= rows_left) continue;
-#pragma unroll
-    for (int n = 0; n < NC / 8; ++n)
-      *reinterpret_cast<float2*>(dst + (size_t)r * ld + acc_col(4 * n)) =
-          make_float2(acc[4 * n + 2 * h], acc[4 * n + 2 * h + 1]);
-  }
-}
-
 // the key range [t0, t1) of tiles of split blockIdx.z
 __device__ __forceinline__ void split_range(int Lk, int tiles_per_split,
                                             int& t0, int& t1) {
@@ -304,49 +244,6 @@ fa_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
-// out and lse of rows = BH * Lq rows from the S splits' partials, merged in
-// split order: a warp per row
-template <int DV>
-__global__ void fa_combine_kernel(const float* __restrict__ part, int S,
-                                  int rows, bf16* __restrict__ out,
-                                  float* __restrict__ lse) {
-  const int row = blockIdx.x * 4 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const float2* ml = reinterpret_cast<const float2*>(part + (size_t)S * rows * DV);
-  float M = -INFINITY;
-  for (int s = 0; s < S; ++s) M = fmaxf(M, ml[(size_t)s * rows + row].x);
-  float tot = 0.f, acc[DV / 32];
-#pragma unroll
-  for (int i = 0; i < DV / 32; ++i) acc[i] = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const float2 e = ml[(size_t)s * rows + row];
-    const float w = expf(e.x - M);
-    tot += w * e.y;
-    const float* po = part + ((size_t)s * rows + row) * DV;
-#pragma unroll
-    for (int i = 0; i < DV / 32; ++i) acc[i] += w * po[lane + 32 * i];
-  }
-  const float inv = 1.f / tot;
-#pragma unroll
-  for (int i = 0; i < DV / 32; ++i)
-    out[(size_t)row * DV + lane + 32 * i] = to_bf16(acc[i] * inv);
-  if (lane == 0) lse[row] = M + logf(tot);
-}
-
-// delta[row] = sum_d dout[row][d] * out[row][d] in f32, a warp per row
-__global__ void fa_delta_kernel(const bf16* __restrict__ dout,
-                                const bf16* __restrict__ out,
-                                float* __restrict__ delta, int rows, int DV) {
-  const size_t row = (size_t)blockIdx.x * 4 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= (size_t)rows) return;
-  float s = 0.f;
-  for (int c = lane; c < DV; c += 32)
-    s += to_f32(dout[row * DV + c]) * to_f32(out[row * DV + c]);
-  s = warp_sum(s);
-  if (lane == 0) delta[row] = s;
-}
-
 // ---------------------------------------------------------------------------
 // Backward pass 1, dq: grid (ceil(Lq / 64), BH * D / DQC, S)
 // ---------------------------------------------------------------------------
@@ -471,18 +368,6 @@ fa_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   store_f32<DQC>(acc, part + (((size_t)blockIdx.z * BH + b) * Lq + q0) * D + c0,
                  D, rows_left);
-}
-
-// dq = bf16(scale * sum of the S partials, in split order)
-__global__ void fa_dq_combine_kernel(const float* __restrict__ part, int S,
-                                     long n, float scale,
-                                     bf16* __restrict__ dq) {
-  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n;
-       i += (long)gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < S; ++s) acc += part[s * n + i];
-    dq[i] = to_bf16(acc * scale);
-  }
 }
 
 // ---------------------------------------------------------------------------

@@ -227,22 +227,53 @@ def test_memattn_blocks_match_plain(card, image_size, objects):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("image_size, objects, slots, ptr_tokens, masked", [
-    (384, 8, 1, 4, False),      # training, frame 1: Lk = 580
-    (384, 8, 7, 36, False),     # training, frame 9: Lk = 4068
-    (384, 8, 7, 64, True),      # serving: Lk = 4096, two invalid slots
-    (512, 16, 7, 36, False),    # 512 px, two clips stacked: Lk = 7204
-])
-def test_flash_attention_kproj_matches_plain(card, image_size, objects, slots,
-                                             ptr_tokens, masked):
+@pytest.mark.parametrize(
+    "image_size, objects, queries, slots, ptr_tokens, masked, plan_want", [
+        (384, 8, None, 1, 4, False, None),   # training, frame 1: Lk = 580
+        (384, 8, None, 7, 36, False, None),  # training, frame 9: Lk = 4068
+        (384, 8, None, 7, 64, True, None),   # serving: Lk = 4096, two
+                                             # invalid slots
+        (512, 16, None, 7, 36, False, None),  # two clips stacked: Lk 7204
+        # 448 px: slots of 784 keys straddle key tiles, and the last tile
+        # holds the end of the last slot and the pointer keys (Lk 5524)
+        (448, 3, None, 7, 36, False, None),
+        # the split rule's edges (kproj_plan, tests/test_torch_port_kproj.py)
+        # on 12 x 12 slots of 144 keys, 100 queries: the most keys without
+        # a split (Lk 320, 5 tiles), two splits of 3 tiles exactly (384),
+        # one key past them (385: two of 4 and 3 tiles, the last holding
+        # one key); plan_want: splits of the forward and of the dq pass,
+        # warpgroups per dq block
+        (192, 2, 100, 2, 32, False, (1, 1, 2)),
+        (192, 2, 100, 2, 96, True, (2, 2, 2)),
+        (192, 2, 100, 2, 97, False, (2, 2, 2)),
+        # the dq pass's warpgroup edges (KPROJ_DQ_MAX_ROPE_ROWS): 34 x 34
+        # slots, the largest with two warpgroups per dq block (their RoPE
+        # rows fill shared memory to the byte); 35 x 35, one past it; 64 x
+        # 64 (1024 px), the largest grid the kernel takes
+        (544, 2, 100, 2, 4, False, (10, 10, 2)),
+        (560, 2, 100, 2, 4, True, (13, 13, 1)),
+        (1024, 2, 100, 1, 4, False, (13, 13, 1)),
+    ])
+def test_flash_attention_kproj_matches_plain(card, image_size, objects,
+                                             queries, slots, ptr_tokens,
+                                             masked, plan_want):
+    """Kernel #3 forward and backward (autograd through the plain forward
+    with the same cotangent); the launch counters move by one each way, and
+    a second backward gives the same bits for dq, dkin, dv, dWk and dbk."""
     from sam2_video_tpu_torch.ops import flash_attention as fa
 
     cfg, params = card
     kp = _layer(params, cfg)["cross_attn_image"]["_kp"]
     F = image_size // 16
     HW = F * F
+    Lq = queries or HW
     nsp = slots * HW
     Lk = nsp + ptr_tokens
+    if plan_want is not None:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = fa.kproj_plan(objects, Lq, Lk, (F, F), sms)
+        assert (plan.fwd[0], plan.dq[0], plan.dq_warpgroups) == plan_want, \
+            plan
     gen = torch.Generator().manual_seed(Lk)
 
     def rnd(*shape):
@@ -257,13 +288,21 @@ def test_flash_attention_kproj_matches_plain(card, image_size, objects, slots,
     def run(fn):
         return lambda q, kin, v, w, b: fn(q, kin, v, w, b, bias, nsp, (F, F))
 
-    launches = fa.flash_attention_kproj.backward_launches
+    inputs = [rnd(objects, Lq, 256), rnd(objects, Lk, 64),
+              rnd(objects, Lk, 64), kp["weight"], kp["bias"]]
+    cots = [rnd(objects, Lq, 64)]
+    launches = (fa.flash_attention_kproj.launches,
+                fa.flash_attention_kproj.backward_launches)
     _check_vjp(run(fa.flash_attention_kproj),
-               run(fa.flash_attention_kproj_plain),
-               [rnd(objects, HW, 256), rnd(objects, Lk, 64),
-                rnd(objects, Lk, 64), kp["weight"], kp["bias"]],
-               [rnd(objects, HW, 64)], floor=0.0)
-    assert fa.flash_attention_kproj.backward_launches == launches + 1
+               run(fa.flash_attention_kproj_plain), inputs, cots, floor=0.0)
+    assert (fa.flash_attention_kproj.launches,
+            fa.flash_attention_kproj.backward_launches) == (launches[0] + 1,
+                                                            launches[1] + 1)
+    first = _vjp(run(fa.flash_attention_kproj), inputs, cots)
+    again = _vjp(run(fa.flash_attention_kproj), inputs, cots)
+    for a, b in zip([*first[0], *first[1]], [*again[0], *again[1]],
+                    strict=True):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
