@@ -16,7 +16,9 @@ Phases (all by default):
              plain forward, one random cotangent), #4 fused_self_block and
              #5 fused_tail_block (8 objects, 576 tokens; also 3 x 784
              tokens at 448 px and 2 x 36 at 96 px, which the wrappers pad
-             to a multiple of 32) and #3 flash_attention_kproj (Lk 580 and
+             to a multiple of 32; device ms and device operations of one
+             call beside plain's, a second run bit-equal) and #3
+             flash_attention_kproj (Lk 580 and
              4068 in training, 4096 with two invalid slots in serving; its
              limit is 2e-2 of max|plain| of each tensor, the others' of
              max(1, max|plain|)); #6, the
@@ -384,6 +386,13 @@ def _kernel_row(name, source, replaces, err, t_k, t_p, cost, library=None):
                 bound_by=by, library_ms=library)
 
 
+def _ops_text(k, p) -> str:
+    """Device operations / launches and device ms of one kernel call and
+    one plain call (_device_launches)."""
+    return (f"device_ops/launches={k[0]}/{k[1]} device_ms={k[2]:.4f} "
+            f"(plain {p[0]}/{p[1]}, {p[2]:.4f})")
+
+
 def _print_row(label, err, rel, r):
     print(f"{label} max_abs_err={err:.4g} max_err/scale={rel:.4g} "
           f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
@@ -392,12 +401,25 @@ def _print_row(label, err, rel, r):
              else ""), flush=True)
 
 
+def _twice_same(label, outs, grads, again, failures):
+    """A failure for each tensor of a second run (outputs, then gradients)
+    that is not bit-equal to the first."""
+    for i, (a, b) in enumerate(zip([*outs, *grads], [*again[0], *again[1]],
+                                   strict=True)):
+        if not torch.equal(a, b):
+            failures.append(f"{label} tensor {i}: two runs differ")
+            print("FAIL " + failures[-1], flush=True)
+
+
 def phase_memattn_kernels(params, cfg, seed: int, objects: int):
     """Kernels #4 and #5, forward and backward, against their plain
     versions (backward: autograd through the plain forward with the same
     random cotangent) at the training shapes: 8 objects, 576 tokens; also
     at 3 objects x 784 tokens (448 px) and 2 x 36 (96 px), which the
-    wrappers pad to a multiple of 32. Returns the rows of the JSON line
+    wrappers pad to a multiple of 32. For kernel and plain version, each
+    way: CUDA-event ms, and the device operations, launches and device ms
+    of one call (torch.profiler); a second kernel run must give the same
+    bits in every output and gradient. Returns the rows of the JSON line
     (576 tokens)."""
     from sam2_video_tpu_torch.models import memory_attention as ma
     from sam2_video_tpu_torch.ops import memattn_layer_kernel as mlk
@@ -463,16 +485,26 @@ def phase_memattn_kernels(params, cfg, seed: int, objects: int):
                                         retain_graph=True)
             t_f = cuda_ms(lambda: fn(*self_args(w), xl, cs, sn))
             t_b = _time_backward(outs, [xl] + w, cots)
-            res[kind] = (outs, grads, t_f, t_b)
+            ops = (_device_launches(lambda: fn(*self_args(w), xl, cs, sn)),
+                   _device_launches(lambda: torch.autograd.grad(
+                       outs, [xl] + w, cots, retain_graph=True)))
+            if kind == "kernel":
+                o2 = fn(*self_args(w), xl, cs, sn)
+                _twice_same(f"self L={Lg}", outs, grads,
+                            (o2, torch.autograd.grad(o2, [xl] + w, cots)),
+                            failures)
+            res[kind] = (outs, grads, t_f, t_b, ops)
         torch.cuda.synchronize()
-        (ko, kg, kf, kb), (po, pg, pf, pb) = res["kernel"], res["plain"]
+        (ko, kg, kf, kb, kops), (po, pg, pf, pb, pops) = (res["kernel"],
+                                                          res["plain"])
         err, rel = _check_grads([f"self out L={Lg}", f"self q3 L={Lg}"], ko,
                                 po, failures)
         wb = _nbytes(*w0) // 2
         fl, nb = self_block_cost(nobj, Lg, False, [x, *ko])
         r = _kernel_row("fused_self_block", src, f"{rep}:382", err, kf, pf,
                         (fl, nb + wb))
-        _print_row(f"fused_self_block x{tuple(x.shape)}", err, rel, r)
+        _print_row(f"fused_self_block x{tuple(x.shape)} "
+                   f"{_ops_text(kops[0], pops[0])}; events:", err, rel, r)
         if side == F_:
             rows.append(r)
         err, rel = _check_grads(
@@ -480,7 +512,8 @@ def phase_memattn_kernels(params, cfg, seed: int, objects: int):
         fl, nb = self_block_cost(nobj, Lg, True, [x, *cots, *kg])
         r = _kernel_row("fused_self_block_bwd", src, f"{rep}:402", err, kb,
                         pb, (fl, nb + wb))
-        _print_row(f"fused_self_block backward L={Lg}", err, rel, r)
+        _print_row(f"fused_self_block backward L={Lg} "
+                   f"{_ops_text(kops[1], pops[1])}; events:", err, rel, r)
         if side == F_:
             rows.append(r)
 
@@ -496,16 +529,25 @@ def phase_memattn_kernels(params, cfg, seed: int, objects: int):
                                         retain_graph=True)
             t_f = cuda_ms(lambda: fn(*tail_args(w), yl, al))
             t_b = _time_backward(out, [yl, al] + w, cot)
-            res[kind] = (out, grads, t_f, t_b)
+            ops = (_device_launches(lambda: fn(*tail_args(w), yl, al)),
+                   _device_launches(lambda: torch.autograd.grad(
+                       out, [yl, al] + w, cot, retain_graph=True)))
+            if kind == "kernel":
+                o2 = fn(*tail_args(w), yl, al)
+                _twice_same(f"tail L={Lg}", [out], grads,
+                            ([o2], torch.autograd.grad(o2, [yl, al] + w,
+                                                       cot)), failures)
+            res[kind] = (out, grads, t_f, t_b, ops)
         torch.cuda.synchronize()
-        (ko, kg, kf, kb), (po, pg, pf, pb) = res["kernel"], res["plain"]
+        (ko, kg, kf, kb, kops), (po, pg, pf, pb, pops) = (res["kernel"],
+                                                          res["plain"])
         err, rel = _check_grads([f"tail out L={Lg}"], [ko], [po], failures)
         wb = _nbytes(*t0) // 2
         fl, nb = tail_block_cost(nobj, Lg, KV, HID, False, [y, a, ko])
         r = _kernel_row("fused_tail_block", src, f"{rep}:482", err, kf, pf,
                         (fl, nb + wb))
-        _print_row(f"fused_tail_block y{tuple(y.shape)} hid={HID}", err,
-                   rel, r)
+        _print_row(f"fused_tail_block y{tuple(y.shape)} hid={HID} "
+                   f"{_ops_text(kops[0], pops[0])}; events:", err, rel, r)
         if side == F_:
             rows.append(r)
         err, rel = _check_grads(
@@ -515,7 +557,8 @@ def phase_memattn_kernels(params, cfg, seed: int, objects: int):
         fl, nb = tail_block_cost(nobj, Lg, KV, HID, True, [y, a, cot, *kg])
         r = _kernel_row("fused_tail_block_bwd", src, f"{rep}:502", err, kb,
                         pb, (fl, nb + wb))
-        _print_row(f"fused_tail_block backward L={Lg}", err, rel, r)
+        _print_row(f"fused_tail_block backward L={Lg} "
+                   f"{_ops_text(kops[1], pops[1])}; events:", err, rel, r)
         if side == F_:
             rows.append(r)
 

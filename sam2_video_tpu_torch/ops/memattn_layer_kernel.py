@@ -14,18 +14,26 @@ Replaces the TPU kernels of ``sam2_video_tpu/ops/memattn_layer_kernel.py``
   linear1 -> ReLU -> linear2 -> +residual.
 
 On H100 (8 objects, 576 tokens, d 256, hidden 2048) the products bound
-both blocks; every product runs on the tensor cores through one batched
-mma.sync GEMM with fused epilogues, the L x L scores live in device memory
-(query-tiled, exact row softmax), and the backward passes recompute the
-forward from the block inputs, as the TPU kernels do. The TPU backward
-sums weight gradients across objects in one VMEM block (its grid runs in
-order); here each object writes an f32 partial and a last pass adds them
-in a fixed order. Weight and bias gradients are float32. The kernels round
-once per fused epilogue where the plain versions round after every op: a
-few bf16 ulps, which chip_smoke.py bounds at 2e-2 of the output scale.
+both blocks. Every product is a wgmma on 128-byte-swizzled tiles staged by
+cp.async (``csrc/sm90.cuh``, ``csrc/sm90_gemm.cuh``): row chains (64 rows
+x all 256 columns per block: LN1 -> q, k, v with RoPE; o -> out-proj ->
+LN2 -> q-proj; v-proj -> out-proj -> LN3), a grouped GEMM for the MLP and
+the backward products, and flash kernels for the L x L self-attention (a
+two-pass exact softmax forward; dq and dk / dv passes), so the scores
+never reach device memory. The backward passes recompute the forward from
+the block inputs, as the TPU kernels do. The TPU backward sums weight
+gradients across objects in one VMEM block (its grid runs in order); here
+each weight gradient is one GEMM over the rows of all objects cut into a
+fixed number of K chunks (``k_splits``), the bias gradients are column
+sums inside the same GEMMs, and a last kernel adds the f32 partials in a
+fixed order: the same bits twice, no float atomics. The forward packs the
+weights (bf16 matrices, f32 vectors) into one buffer in one launch and
+keeps it for the backward. Weight and bias gradients are float32. The
+kernels round once per fused epilogue where the plain versions round after
+every op: a few bf16 ulps, which chip_smoke.py bounds at 2e-2 of the
+output scale.
 
-Any token count: the kernels' GEMMs take rows in multiples of 32 per
-object, so another L is padded to the next multiple (``ROW_MULTIPLE``)
+Any token count: the wrappers pad L to a multiple of 32 (``ROW_MULTIPLE``)
 with zero rows; the self block masks the pad keys in its softmax, the pad
 rows' outputs are dropped, and their zero cotangents add nothing to any
 gradient (JAX's fused path needs L % 8 and runs plain otherwise; the
@@ -53,7 +61,7 @@ from .attention import sdpa
 from .position_encoding import apply_rope_half
 
 D_MODEL = 256
-ROW_MULTIPLE = 32   # tokens per object the kernels' GEMMs take
+ROW_MULTIPLE = 32   # tokens per object the wrappers pad to
 
 
 # ---------------------------------------------------------------------------
@@ -87,34 +95,34 @@ def fused_tail_block_plain(p_v, p_out, ln3, p_l1, p_l2, y, a):
 # ---------------------------------------------------------------------------
 
 
-def _bf(t):
-    return t.to(torch.bfloat16).contiguous()
-
-
 def _f32(t):
     return t.float().contiguous()
 
 
-def _table(ops):
-    return (ctypes.c_void_p * len(ops))(*(t.data_ptr() for t in ops))
+def _leaves(w):
+    """The leaves as the kernels read them (f32 or bf16, contiguous), their
+    pointer table and the mask of the bf16 ones (bit i: leaf i)."""
+    w = [t if t.dtype in (torch.float32, torch.bfloat16) and
+         t.is_contiguous() else _f32(t) for t in w]
+    table = (ctypes.c_void_p * len(w))(*(t.data_ptr() for t in w))
+    mask = sum(1 << i for i, t in enumerate(w) if t.dtype == torch.bfloat16)
+    return w, table, mask
 
 
 def _workspace(nbytes: int, dev):
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
-def _self_ops(w):
-    """[ln1w, ln1b, Wqkv, bqkv, Wo, bo, ln2w, ln2b, Wqc, bqc] from the 14
-    leaves, derived on each call from the current parameters."""
-    (ln1w, ln1b, wq, bq, wk, bk, wv, bv, wo, bo, ln2w, ln2b, wqc, bqc) = w
-    return [_f32(ln1w), _f32(ln1b), _bf(torch.cat([wq, wk, wv])),
-            _f32(torch.cat([bq, bk, bv])), _bf(wo), _f32(bo), _f32(ln2w),
-            _f32(ln2b), _bf(wqc), _f32(bqc)]
-
-
 def _pad_rows(t, L: int):
     """t [N, L0, C] padded with zero rows to [N, L, C]."""
     return F.pad(t, (0, 0, 0, L - t.shape[1])) if L != t.shape[1] else t
+
+
+def k_splits(M: int, N: int, K: int) -> int:
+    """K chunks of a weight gradient [M, N] summed over K rows (the
+    kernels' rule, ``csrc/sm90_gemm.cuh`` gm_k_splits); needs the built
+    library."""
+    return _lib().memattn_k_splits(M, N, K)
 
 
 class _SelfFn(torch.autograd.Function):
@@ -125,28 +133,29 @@ class _SelfFn(torch.autograd.Function):
     def forward(ctx, x, cos, sin, Lv, *w):
         N, L, D = x.shape
         dev = x.device
-        ops = _self_ops(w)
+        leaves, table, mask = _leaves(w)
         out, q3 = torch.empty_like(x), torch.empty_like(x)
         lib = _lib()
+        packed = _workspace(lib.memattn_self_pack_bytes(), dev)
         ws = _workspace(lib.memattn_self_workspace_bytes(N, L, 0), dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             status = lib.memattn_self_fwd(
-                x.data_ptr(), _table(ops), cos.data_ptr(), sin.data_ptr(),
-                out.data_ptr(), q3.data_ptr(), ws.data_ptr(), N, L, Lv,
-                stream)
+                x.data_ptr(), table, mask, packed.data_ptr(), cos.data_ptr(),
+                sin.data_ptr(), out.data_ptr(), q3.data_ptr(), ws.data_ptr(),
+                N, L, Lv, stream)
         kernel_build.check_launch(status, "memattn_self_fwd")
         fused_self_block.launches += 1
-        ctx.save_for_backward(x, cos, sin, *w)
+        ctx.save_for_backward(x, cos, sin, packed)
         ctx.Lv = Lv
+        ctx.leaf_dtypes = [t.dtype for t in w]
         return out, q3
 
     @staticmethod
     def backward(ctx, dout, dq3):
-        x, cos, sin, *w = ctx.saved_tensors
+        x, cos, sin, packed = ctx.saved_tensors
         N, L, D = x.shape
         dev = x.device
-        ops = _self_ops(w)
         dout = dout.to(x.dtype).contiguous()
         dq3 = dq3.to(x.dtype).contiguous()
         dx = torch.empty_like(x)
@@ -156,9 +165,10 @@ class _SelfFn(torch.autograd.Function):
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             status = lib.memattn_self_bwd(
-                x.data_ptr(), _table(ops), cos.data_ptr(), sin.data_ptr(),
-                dout.data_ptr(), dq3.data_ptr(), dx.data_ptr(), g.data_ptr(),
-                ws.data_ptr(), N, L, ctx.Lv, stream)
+                x.data_ptr(), packed.data_ptr(), cos.data_ptr(),
+                sin.data_ptr(), dout.data_ptr(), dq3.data_ptr(),
+                dx.data_ptr(), g.data_ptr(), ws.data_ptr(), N, L, ctx.Lv,
+                stream)
         kernel_build.check_launch(status, "memattn_self_bwd")
         fused_self_block.backward_launches += 1
         d = D_MODEL
@@ -170,7 +180,7 @@ class _SelfFn(torch.autograd.Function):
         grads = (dln1w, dln1b, dwq, dbq, dwk, dbk, dwv, dbv,
                  dwo.view(d, d), dbo, dln2w, dln2b, dwqc.view(d, d), dbqc)
         return (dx, None, None, None) + tuple(
-            gr.to(t.dtype) for gr, t in zip(grads, w))
+            gr.to(dt) for gr, dt in zip(grads, ctx.leaf_dtypes))
 
 
 def fused_self_block(p_self, p_qc, ln1, ln2, x, cos, sin):
@@ -206,40 +216,35 @@ fused_self_block.launches = 0
 fused_self_block.backward_launches = 0
 
 
-def _tail_ops(w):
-    wv, bv, wo, bo, ln3w, ln3b, w1, b1, w2, b2 = w
-    return [_bf(wv), _f32(bv), _bf(wo), _f32(bo), _f32(ln3w), _f32(ln3b),
-            _bf(w1), _f32(b1), _bf(w2), _f32(b2)]
-
-
 class _TailFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, a, *w):
         N, L, _ = y.shape
         KV, HID = a.shape[-1], w[6].shape[0]
         dev = y.device
-        ops = _tail_ops(w)
+        leaves, table, mask = _leaves(w)
         out = torch.empty_like(y)
         lib = _lib()
+        packed = _workspace(lib.memattn_tail_pack_bytes(KV, HID), dev)
         ws = _workspace(lib.memattn_tail_workspace_bytes(N, L, KV, HID, 0),
                         dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             status = lib.memattn_tail_fwd(
-                y.data_ptr(), a.data_ptr(), _table(ops), out.data_ptr(),
-                ws.data_ptr(), N, L, KV, HID, stream)
+                y.data_ptr(), a.data_ptr(), table, mask, packed.data_ptr(),
+                out.data_ptr(), ws.data_ptr(), N, L, KV, HID, stream)
         kernel_build.check_launch(status, "memattn_tail_fwd")
         fused_tail_block.launches += 1
-        ctx.save_for_backward(y, a, *w)
+        ctx.save_for_backward(y, a, packed)
+        ctx.leaves = [(t.shape, t.dtype) for t in w]
         return out
 
     @staticmethod
     def backward(ctx, g):
-        y, a, *w = ctx.saved_tensors
+        y, a, packed = ctx.saved_tensors
         N, L, D = y.shape
-        KV, HID = a.shape[-1], w[6].shape[0]
+        KV, HID = a.shape[-1], ctx.leaves[6][0][0]
         dev = y.device
-        ops = _tail_ops(w)
         g = g.to(y.dtype).contiguous()
         dy, da = torch.empty_like(y), torch.empty_like(a)
         lib = _lib()
@@ -250,15 +255,14 @@ class _TailFn(torch.autograd.Function):
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             status = lib.memattn_tail_bwd(
-                y.data_ptr(), a.data_ptr(), _table(ops), g.data_ptr(),
+                y.data_ptr(), a.data_ptr(), packed.data_ptr(), g.data_ptr(),
                 dy.data_ptr(), da.data_ptr(), grads.data_ptr(),
                 ws.data_ptr(), N, L, KV, HID, stream)
         kernel_build.check_launch(status, "memattn_tail_bwd")
         fused_tail_block.backward_launches += 1
-        sizes = [t.numel() for t in w]
-        parts = torch.split(grads, sizes)
-        return (dy, da) + tuple(gr.view(t.shape).to(t.dtype)
-                                for gr, t in zip(parts, w))
+        parts = torch.split(grads, [shape.numel() for shape, _ in ctx.leaves])
+        return (dy, da) + tuple(gr.view(shape).to(dt) for gr, (shape, dt)
+                                in zip(parts, ctx.leaves))
 
 
 def fused_tail_block(p_v, p_out, ln3, p_l1, p_l2, y, a):
@@ -274,11 +278,12 @@ def fused_tail_block(p_v, p_out, ln3, p_l1, p_l2, y, a):
                             f" got {t.dtype}")
     *lead, L, D = y.shape
     KV, HID = a.shape[-1], p_l1["weight"].shape[0]
-    if (D != D_MODEL or KV % 32 or HID % 64 or tuple(a.shape[:-1]) !=
-            tuple(y.shape[:-1])):
+    if (D != D_MODEL or KV % 64 or KV > D_MODEL or HID % 64 or
+            tuple(a.shape[:-1]) != tuple(y.shape[:-1])):
         raise ValueError(f"fused_tail_block kernel takes y [..., L, "
-                         f"{D_MODEL}] and a [..., L, kv] with kv % 32 == 0,"
-                         f" got {tuple(y.shape)}, {tuple(a.shape)}")
+                         f"{D_MODEL}] and a [..., L, kv] with kv in 64, 128,"
+                         f" 192, 256 and a hidden width % 64 == 0, got "
+                         f"{tuple(y.shape)}, {tuple(a.shape)}, hidden {HID}")
     w = (p_v["weight"], p_v["bias"], p_out["weight"], p_out["bias"],
          ln3["weight"], ln3["bias"], p_l1["weight"], p_l1["bias"],
          p_l2["weight"], p_l2["bias"])
@@ -297,19 +302,25 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_sam2_typed", False):
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
         T = ctypes.POINTER(ctypes.c_void_p)
+        lib.memattn_k_splits.argtypes = [I, I, I]
+        lib.memattn_k_splits.restype = I
+        lib.memattn_self_pack_bytes.argtypes = []
+        lib.memattn_self_pack_bytes.restype = L
         lib.memattn_self_workspace_bytes.argtypes = [I, I, I]
         lib.memattn_self_workspace_bytes.restype = L
-        lib.memattn_self_fwd.argtypes = [P, T] + [P] * 5 + [I] * 3 + [P]
+        lib.memattn_self_fwd.argtypes = [P, T, I] + [P] * 6 + [I] * 3 + [P]
         lib.memattn_self_fwd.restype = I
-        lib.memattn_self_bwd.argtypes = [P, T] + [P] * 7 + [I] * 3 + [P]
+        lib.memattn_self_bwd.argtypes = [P] * 9 + [I] * 3 + [P]
         lib.memattn_self_bwd.restype = I
+        lib.memattn_tail_pack_bytes.argtypes = [I, I]
+        lib.memattn_tail_pack_bytes.restype = L
         lib.memattn_tail_grad_floats.argtypes = [I, I]
         lib.memattn_tail_grad_floats.restype = L
         lib.memattn_tail_workspace_bytes.argtypes = [I] * 5
         lib.memattn_tail_workspace_bytes.restype = L
-        lib.memattn_tail_fwd.argtypes = [P, P, T, P, P] + [I] * 4 + [P]
+        lib.memattn_tail_fwd.argtypes = [P, P, T, I, P, P, P] + [I] * 4 + [P]
         lib.memattn_tail_fwd.restype = I
-        lib.memattn_tail_bwd.argtypes = [P, P, T] + [P] * 5 + [I] * 4 + [P]
+        lib.memattn_tail_bwd.argtypes = [P] * 8 + [I] * 4 + [P]
         lib.memattn_tail_bwd.restype = I
         lib._sam2_typed = True
     return lib

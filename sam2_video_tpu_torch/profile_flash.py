@@ -1,11 +1,21 @@
-"""Device time of the flash attention kernels by key split, on one NVIDIA
-GPU: #7 (the generic flash attention) by default, #3
-(``flash_attention_kproj``) with ``--kproj``.
+"""Device time of the attention kernels on one NVIDIA GPU: #7 (the generic
+flash attention) by key split by default, #3 (``flash_attention_kproj``)
+with ``--kproj``, #4 and #5 (the memory-attention layer blocks) with
+``--memattn``.
 
     python3 -m sam2_video_tpu_torch.profile_flash [--lk 580,1156,2308,4068]
         [--tiles 0,64,32,16,13,10,8,6]
     python3 -m sam2_video_tpu_torch.profile_flash --kproj
         [--lk 580,1156,2308,4068,4096] [--tiles 0,...]
+    python3 -m sam2_video_tpu_torch.profile_flash --memattn
+
+``--memattn``: ``fused_self_block`` and ``fused_tail_block`` forward and
+backward (autograd through the kernel, random cotangents) at the training
+shape (8 objects, 576 tokens, d 256, memory 64, hidden 2048, bf16 inputs,
+float32 weight leaves from a seed), beside their plain PyTorch versions:
+device ms per call, device operations per call and the kernels by name.
+It uses the wrappers' public functions only, so it also times an older
+tree of the package (copy this file into it).
 
 #7: at the two-head memory-attention path's shape (8 objects x 2 heads, 576
 queries, head and value width 128). #3: at the one-head path's (8 objects,
@@ -44,8 +54,9 @@ OBJECTS, HEADS, LQ, WIDTH, SEED, CALLS = 8, 2, 576, 128, 0, 5
 SLOT = 24                       # #3: one memory slot is 24 x 24 (384 px)
 
 
-def device_ms(fn) -> tuple[float, dict]:
-    """(summed device ms per call, device ms per call by kernel)."""
+def device_ms(fn, counts: dict | None = None) -> tuple[float, dict]:
+    """(summed device ms per call, device ms per call by kernel); with
+    ``counts``, the device operations per call by kernel go there."""
     fn()
     for _ in range(3):   # a trace now and then comes back with no device event
         torch.cuda.synchronize()
@@ -53,11 +64,14 @@ def device_ms(fn) -> tuple[float, dict]:
             for _ in range(CALLS):
                 fn()
             torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
         by = {e.key.split("(")[0].removeprefix("void "):
-              e.self_device_time_total / 1e3 / CALLS
-              for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA}
+              e.self_device_time_total / 1e3 / CALLS for e in evs}
         if by:
+            if counts is not None:
+                counts.update({e.key.split("(")[0].removeprefix("void "):
+                               e.count / CALLS for e in evs})
             return sum(by.values()), by
     raise RuntimeError("profile_flash: the profiler recorded no device event")
 
@@ -179,10 +193,76 @@ def profile_kproj(lks, tiles_list, dev, sms, gen) -> None:
                   f"{_kernels(by_f, by_b)}", flush=True)
 
 
+def _memattn_args(dev, gen, N=OBJECTS, L=LQ, KV=64, HID=2048):
+    """Leaves (float32, requiring grad), bf16 inputs and cotangents of
+    fused_self_block and fused_tail_block at the training shape."""
+    from .ops.position_encoding import axial_rope_table_half
+
+    D = 256
+    rnd = lambda *s: torch.randn(s, generator=gen)  # noqa: E731
+    leaf = lambda t: t.to(dev).requires_grad_(True)  # noqa: E731
+
+    def lin(o, i):
+        return {"weight": leaf(rnd(o, i) / i ** 0.5),
+                "bias": leaf(0.1 * rnd(o))}
+
+    def ln():
+        return {"weight": leaf(1 + 0.1 * rnd(D)), "bias": leaf(0.1 * rnd(D))}
+
+    act = lambda *s: rnd(*s).to(dev, torch.bfloat16)  # noqa: E731
+    side = int(L ** 0.5)
+    cos, sin = axial_rope_table_half(D, side, side, device=dev)
+    self_p = ({"q": lin(D, D), "k": lin(D, D), "v": lin(D, D),
+               "out": lin(D, D)}, lin(D, D), ln(), ln())
+    tail_p = (lin(D, KV), lin(D, D), ln(), lin(HID, D), lin(D, HID))
+    x, y, a = act(N, L, D), act(N, L, D), act(N, L, KV)
+    return (self_p, x, cos, sin, [act(N, L, D), act(N, L, D)],
+            tail_p, y, a, act(N, L, D))
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _tree_leaves(v)]
+    return [tree]
+
+
+def profile_memattn(dev, gen) -> None:
+    from .ops import memattn_layer_kernel as mlk
+
+    (self_p, x, cos, sin, self_cots, tail_p, y, a,
+     tail_cot) = _memattn_args(dev, gen)
+    xl, yl, al = (t.clone().requires_grad_(True) for t in (x, y, a))
+    cases = (
+        ("fused_self_block", lambda f: f(*self_p, xl, cos, sin),
+         mlk.fused_self_block, mlk.fused_self_block_plain,
+         [xl] + _tree_leaves(self_p), self_cots),
+        ("fused_tail_block", lambda f: f(*tail_p, yl, al),
+         mlk.fused_tail_block, mlk.fused_tail_block_plain,
+         [yl, al] + _tree_leaves(tail_p), [tail_cot]))
+    for name, call, kernel, plain, inputs, cots in cases:
+        for kind, fn in (("kernel", kernel), ("plain", plain)):
+            outs = call(fn)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            n_f, n_b = {}, {}
+            t_f, by_f = device_ms(lambda: call(fn), n_f)
+            t_b, by_b = device_ms(lambda: torch.autograd.grad(
+                outs, inputs, cots, retain_graph=True), n_b)
+            print(f"{name} {kind}: forward {t_f:.4f} ms, "
+                  f"{sum(n_f.values()):g} device ops; backward {t_b:.4f} "
+                  f"ms, {sum(n_b.values()):g} device ops", flush=True)
+            if kind == "kernel":
+                print(f"  forward: {_kernels(by_f)}", flush=True)
+                print(f"  backward: {_kernels(by_b)}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kproj", action="store_true",
                     help="kernel #3 instead of #7")
+    ap.add_argument("--memattn", action="store_true",
+                    help="kernels #4 and #5 instead of #7")
     ap.add_argument("--lk", default=None)
     ap.add_argument("--tiles", default="0,64,32,16,13,10,8,6")
     args = ap.parse_args()
@@ -196,7 +276,9 @@ def main() -> int:
                      else "580,1156,2308,4068")
     lks = [int(x) for x in lk.split(",")]
     tiles = [int(x) for x in args.tiles.split(",")]
-    if args.kproj:
+    if args.memattn:
+        profile_memattn(dev, gen)
+    elif args.kproj:
         profile_kproj(lks, tiles, dev, sms, gen)
     else:
         profile_flash(lks, tiles, dev, sms, gen)

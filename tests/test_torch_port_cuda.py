@@ -153,6 +153,74 @@ def _layer(params, cfg):
                       cfg.memory_attention_config)["layers"]["1"]
 
 
+def _memattn_fns(params, cfg, grid_w, grid_h):
+    """(self leaves, self_fn, tail leaves, tail_fn) of layer 1 on a grid_w x
+    grid_h token grid: ``self_fn(fn)`` / ``tail_fn(fn)`` wrap a
+    fused_*_block (kernel or plain) as a function of its inputs and
+    leaves."""
+    from sam2_video_tpu_torch.ops.position_encoding import \
+        axial_rope_table_half
+
+    lp = _layer(params, cfg)
+    sp, cp = lp["self_attn"], lp["cross_attn_image"]
+    cos, sin = axial_rope_table_half(256, grid_w, grid_h, device="cuda")
+    w = [lp["norm1"]["weight"], lp["norm1"]["bias"], sp["_qp"]["weight"],
+         sp["_qp"]["bias"], sp["_kp"]["weight"], sp["_kp"]["bias"],
+         sp["v_proj"]["weight"], sp["v_proj"]["bias"],
+         sp["out_proj"]["weight"], sp["out_proj"]["bias"],
+         lp["norm2"]["weight"], lp["norm2"]["bias"], cp["_qp"]["weight"],
+         cp["_qp"]["bias"]]
+
+    def self_fn(fn):
+        def run(x, *w):
+            lin = lambda i: {"weight": w[i], "bias": w[i + 1]}  # noqa: E731
+            return fn({"q": lin(2), "k": lin(4), "v": lin(6),
+                       "out": lin(8)}, lin(12), lin(0), lin(10), x, cos, sin)
+        return run
+
+    t = [cp["v_proj"]["weight"], cp["v_proj"]["bias"],
+         cp["out_proj"]["weight"], cp["out_proj"]["bias"],
+         lp["norm3"]["weight"], lp["norm3"]["bias"],
+         lp["linear1"]["weight"], lp["linear1"]["bias"],
+         lp["linear2"]["weight"], lp["linear2"]["bias"]]
+
+    def tail_fn(fn):
+        def run(y, a, *w):
+            lin = lambda i: {"weight": w[i], "bias": w[i + 1]}  # noqa: E731
+            return fn(lin(0), lin(2), lin(4), lin(6), lin(8), y, a)
+        return run
+
+    return w, self_fn, t, tail_fn
+
+
+def _check_memattn(params, cfg, grid_w, grid_h, objects, seed,
+                   grads_vs_f32=False):
+    """#4 and #5 forward and backward against their plain versions on one
+    grid (the tail's gradients by relative L2 to float32 with
+    ``grads_vs_f32``); each wrapper launches once each way."""
+    from sam2_video_tpu_torch.ops import memattn_layer_kernel as mlk
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to("cuda", torch.bfloat16)
+
+    w, self_fn, t, tail_fn = _memattn_fns(params, cfg, grid_w, grid_h)
+    x = rnd(objects, grid_w * grid_h, 256)
+    launches = (mlk.fused_self_block.launches,
+                mlk.fused_self_block.backward_launches)
+    _check_vjp(self_fn(mlk.fused_self_block),
+               self_fn(mlk.fused_self_block_plain), [x] + w,
+               [rnd(*x.shape), rnd(*x.shape)])
+    assert (mlk.fused_self_block.launches,
+            mlk.fused_self_block.backward_launches) == \
+        (launches[0] + 1, launches[1] + 1)
+    _check_vjp(tail_fn(mlk.fused_tail_block),
+               tail_fn(mlk.fused_tail_block_plain),
+               [x, rnd(objects, grid_w * grid_h, 64)] + t, [rnd(*x.shape)],
+               grads_vs_f32=grads_vs_f32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("image_size, objects", [(384, 8), (512, 16),
                                                 (96, 2), (448, 3)])
@@ -170,60 +238,71 @@ def test_memattn_blocks_match_plain(card, image_size, objects):
     on the card. So at 512 px the tail's gradients are held to the plain
     version in float32 by relative L2, where a few flipped units weigh
     what they are, and a wrong mask or a lost partial does not pass."""
+    cfg, params = card
+    F = image_size // 16
+    _check_memattn(params, cfg, F, F, objects, image_size,
+                   grads_vs_f32=image_size == 512)
+
+
+# token grids of the new design's edges: (grid w, grid h, objects). One
+# object of 32 tokens (one wgmma row tile, half of it past the object); 3
+# objects of 40 tokens (padded to 64: N L = 192 rows, not a multiple of the
+# GEMMs' 128-row block tile, pad keys in every attention tile); and the
+# K-chunk rule's edges (sm90_gemm.cuh gm_k_splits: chunks of at least 8
+# 64-row tiles): 15 and 16 objects of 64 tokens (15 and 16 row tiles: one
+# chunk, then two, for every 256 x 256 weight gradient), 71 x 64 and 72 x
+# 64 rows (8 chunks of 9 tiles, then 9 of 8).
+MEMATTN_EDGES = ((8, 4, 1), (8, 5, 3), (8, 8, 15), (8, 8, 16), (8, 8, 71),
+                 (8, 8, 72))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid_w, grid_h, objects", MEMATTN_EDGES)
+def test_memattn_blocks_edges(card, grid_w, grid_h, objects):
+    """#4 and #5 at the edges of their tiles and K chunks (MEMATTN_EDGES),
+    each tensor within 2e-2 of max(1, |plain|); the split counts are the
+    rule's. The K-chunk edges take 960-4608 rows, where one ReLU unit that
+    rounds to zero on one side only moves a row of the tail's gradients
+    by more than the max-abs bound (test_memattn_blocks_match_plain), so
+    there the tail's gradients are held to float32 by relative L2."""
     from sam2_video_tpu_torch.ops import memattn_layer_kernel as mlk
-    from sam2_video_tpu_torch.ops.position_encoding import \
-        axial_rope_table_half
 
     cfg, params = card
-    lp = _layer(params, cfg)
-    sp, cp = lp["self_attn"], lp["cross_attn_image"]
-    F = image_size // 16
-    gen = torch.Generator().manual_seed(image_size)
+    rows = objects * -(-grid_w * grid_h // mlk.ROW_MULTIPLE) * \
+        mlk.ROW_MULTIPLE
+    tiles = -(-rows // 64)
+    want = {15: 1, 16: 2, 71: 8, 72: 9}.get(tiles)
+    if want is not None:
+        assert mlk.k_splits(256, 256, rows) == want
+    _check_memattn(params, cfg, grid_w, grid_h, objects, 1000 + objects,
+                   grads_vs_f32=want is not None)
+
+
+@pytest.mark.cuda
+def test_memattn_blocks_same_bits_twice(card):
+    """The same inputs give the same bits twice in every output and
+    gradient of #4 and #5 (no float atomics; partials added in a fixed
+    order), at the training shape."""
+    from sam2_video_tpu_torch.ops import memattn_layer_kernel as mlk
+
+    cfg, params = card
+    w, self_fn, t, tail_fn = _memattn_fns(params, cfg, 24, 24)
+    gen = torch.Generator().manual_seed(7)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen).to("cuda", torch.bfloat16)
 
-    cos, sin = axial_rope_table_half(256, F, F, device="cuda")
-    w = [lp["norm1"]["weight"], lp["norm1"]["bias"], sp["_qp"]["weight"],
-         sp["_qp"]["bias"], sp["_kp"]["weight"], sp["_kp"]["bias"],
-         sp["v_proj"]["weight"], sp["v_proj"]["bias"],
-         sp["out_proj"]["weight"], sp["out_proj"]["bias"],
-         lp["norm2"]["weight"], lp["norm2"]["bias"], cp["_qp"]["weight"],
-         cp["_qp"]["bias"]]
-
-    def self_fn(fn):
-        def run(x, *w):
-            lin = lambda i: {"weight": w[i], "bias": w[i + 1]}  # noqa: E731
-            return fn({"q": lin(2), "k": lin(4), "v": lin(6),
-                       "out": lin(8)}, lin(12), lin(0), lin(10), x, cos, sin)
-        return run
-
-    x = rnd(objects, F * F, 256)
-    launches = (mlk.fused_self_block.launches,
-                mlk.fused_self_block.backward_launches)
-    _check_vjp(self_fn(mlk.fused_self_block),
-               self_fn(mlk.fused_self_block_plain), [x] + w,
-               [rnd(*x.shape), rnd(*x.shape)])
-    assert (mlk.fused_self_block.launches,
-            mlk.fused_self_block.backward_launches) == \
-        (launches[0] + 1, launches[1] + 1)
-
-    t = [cp["v_proj"]["weight"], cp["v_proj"]["bias"],
-         cp["out_proj"]["weight"], cp["out_proj"]["bias"],
-         lp["norm3"]["weight"], lp["norm3"]["bias"],
-         lp["linear1"]["weight"], lp["linear1"]["bias"],
-         lp["linear2"]["weight"], lp["linear2"]["bias"]]
-
-    def tail_fn(fn):
-        def run(y, a, *w):
-            lin = lambda i: {"weight": w[i], "bias": w[i + 1]}  # noqa: E731
-            return fn(lin(0), lin(2), lin(4), lin(6), lin(8), y, a)
-        return run
-
-    _check_vjp(tail_fn(mlk.fused_tail_block),
-               tail_fn(mlk.fused_tail_block_plain),
-               [x, rnd(objects, F * F, 64)] + t, [rnd(*x.shape)],
-               grads_vs_f32=image_size == 512)
+    x = rnd(8, 576, 256)
+    for fn, inputs, cots in (
+            (self_fn(mlk.fused_self_block), [x] + w,
+             [rnd(*x.shape), rnd(*x.shape)]),
+            (tail_fn(mlk.fused_tail_block), [x, rnd(8, 576, 64)] + t,
+             [rnd(*x.shape)])):
+        first = _vjp(fn, inputs, cots)
+        again = _vjp(fn, inputs, cots)
+        for a, b in zip([*first[0], *first[1]], [*again[0], *again[1]],
+                        strict=True):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
