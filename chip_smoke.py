@@ -912,64 +912,6 @@ POOL_ROUTED = ("dx", "dnorm1.weight", "dattn.qkv.weight", "dproj.weight")
 POOL_WALK_REL_L2 = 1e-2
 
 
-class _MaxPoolJaxRule(torch.autograd.Function):
-    """2x2 max-pool of [N, H, W, C] whose backward routes as JAX's
-    _unpool2x2_rows_cols (and kernel #6): to the column whose row-pair max
-    is larger, then to the larger row, the first on a tie. A yardstick for
-    the q-pool blocks only (``_plain_kernel_walk``): the plain version
-    keeps torch's rule."""
-
-    @staticmethod
-    def forward(ctx, x, window, stride):
-        ctx.save_for_backward(x)
-        return torch.nn.functional.max_pool2d(
-            x.permute(0, 3, 1, 2), window, stride).permute(0, 2, 3, 1)
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        N, H, W, C = x.shape
-        Ho, Wo = H // 2, W // 2
-        c = x[:, :2 * Ho, :2 * Wo].float().reshape(N, Ho, 2, Wo, 2, C)
-        v00, v01 = c[:, :, 0, :, 0], c[:, :, 0, :, 1]
-        v10, v11 = c[:, :, 1, :, 0], c[:, :, 1, :, 1]
-        col = torch.maximum(v00, v10) < torch.maximum(v01, v11)
-        row = torch.where(col, v01 < v11, v00 < v10)
-        dx = torch.zeros((N, Ho, 2, Wo, 2, C), dtype=g.dtype,
-                         device=g.device)
-        for r in (0, 1):
-            for cc in (0, 1):
-                hit = (row == bool(r)) & (col == bool(cc))
-                dx[:, :, r, :, cc] = torch.where(hit, g, torch.zeros_like(g))
-        out = torch.zeros_like(x)
-        out[:, :2 * Ho, :2 * Wo] = dx.reshape(N, 2 * Ho, 2 * Wo, C)
-        return out, None, None
-
-
-def _plain_kernel_walk(p, x, spec, q_stride, mlp_ratio):
-    """The plain block with the kernel's walk: JAX's max-pool backward rule
-    and the kernel's rounding points in its products (bf16 weights,
-    acc + float32 bias, one bf16 rounding), so that its pre-pool values
-    are the kernel's up to float32 summation order."""
-    import torch.nn.functional as F
-
-    from sam2_video_tpu_torch.ops import common as nn
-    from sam2_video_tpu_torch.ops import hiera_block_bwd as hbb
-
-    def linear(pp, v):
-        b = pp.get("bias")
-        return F.linear(v.float(), pp["weight"].to(v.dtype).float(),
-                        None if b is None else b.float()).to(v.dtype)
-
-    saved = nn.max_pool2d, nn.linear
-    nn.max_pool2d, nn.linear = _MaxPoolJaxRule.apply, linear
-    try:
-        return hbb.fused_block_trainable_plain(p, x, spec, q_stride,
-                                               mlp_ratio)
-    finally:
-        nn.max_pool2d, nn.linear = saved
-
-
 # kernel #6, blocks without a dim change: dx = dy + the two branches'
 # LayerNorm backwards, and the identity part, the random cotangent, is
 # several times larger than the branches, so the max-abs check of dx reads
@@ -1006,9 +948,12 @@ def phase_hiera_bwd_kernels(params, cfg, seed: int, frames: int):
     Function) against autograd through the plain bf16 block, for each of
     the 12 blocks of the tiny trunk (every geometry class) at the training
     shape: ``frames`` frames of 384 px per call, ``synthetic_params``
-    weights, one random cotangent. Returns one JSON row per geometry
-    class: ms, plain ms and bound of one call, averaged over the class's
-    blocks, and its worst error."""
+    weights, one random cotangent; a second kernel run (forward and
+    backward) must give the same bits. Prints each block's and each
+    class's device ms and device operations (kernel and plain, one
+    backward, _device_launches). Returns one JSON row per geometry class:
+    ms, plain ms and bound of one call, averaged over the class's blocks,
+    and its worst error."""
     from sam2_video_tpu_torch.ops import common as nn
     from sam2_video_tpu_torch.ops import hiera_block_bwd as hbb
 
@@ -1018,6 +963,7 @@ def phase_hiera_bwd_kernels(params, cfg, seed: int, frames: int):
     trunk = params["image_encoder"]["trunk"]
     failures = []
     k_ms = p_ms = b_ms = 0.0
+    k_dev, p_dev = [0, 0, 0.0], [0, 0, 0.0]
     classes: dict = {}
     for i, spec, H, geom in _trunk_blocks(cfg):
         bp = trunk["blocks"][str(i)]
@@ -1029,7 +975,7 @@ def phase_hiera_bwd_kernels(params, cfg, seed: int, frames: int):
         runs = [("kernel", hbb.fused_block_trainable),
                 ("plain", hbb.fused_block_trainable_plain)]
         if spec["q_pool"]:
-            runs.append(("kernel_walk", _plain_kernel_walk))
+            runs.append(("kernel_walk", hbb.fused_block_trainable_walk))
         for kind, fn in runs:
             w = _leaves(w0)
             xl = x.detach().clone().requires_grad_(True)
@@ -1039,12 +985,22 @@ def phase_hiera_bwd_kernels(params, cfg, seed: int, frames: int):
                 cot = torch.randn(out.shape, generator=gen).to(
                     dev, torch.bfloat16)
             grads = torch.autograd.grad(out, [xl] + w, cot, retain_graph=True)
-            t_b = (_time_backward(out, [xl] + w, cot)
-                   if kind != "kernel_walk" else 0.0)
-            res[kind] = (out, grads, t_b)
+            t_b = ops = None
+            if kind != "kernel_walk":
+                t_b = _time_backward(out, [xl] + w, cot)
+                ops = _device_launches(lambda: torch.autograd.grad(
+                    out, [xl] + w, cot, retain_graph=True))
+            if kind == "kernel":
+                o2 = fn(hbb.block_params(w, spec), xl, spec, tcfg.q_stride,
+                        tcfg.mlp_ratio)
+                _twice_same(f"block {i}", [out], grads,
+                            ([o2], torch.autograd.grad(o2, [xl] + w, cot)),
+                            failures)
+                del o2
+            res[kind] = (out, grads, t_b, ops)
             del out
         torch.cuda.synchronize()
-        (ko, kg, kb), (po, pg, pb) = res["kernel"], res["plain"]
+        (ko, kg, kb, kops), (po, pg, pb, pops) = res["kernel"], res["plain"]
         labels = ["dx"] + ["d" + n for n in names]
         rel_checked = set(POOL_ROUTED) if spec["q_pool"] else set()
         each, errs = [], []
@@ -1104,21 +1060,26 @@ def phase_hiera_bwd_kernels(params, cfg, seed: int, frames: int):
                                       [x, ko, cot, kg[0]])
         b, by = bound_ms(fl, nb)
         k_ms, p_ms, b_ms = k_ms + kb, p_ms + pb, b_ms + b
+        k_dev = [u + v for u, v in zip(k_dev, kops)]
+        p_dev = [u + v for u, v in zip(p_dev, pops)]
         c = classes.setdefault(geom, dict(ms=[], plain=[], bound=[], err=0.0,
-                                          by=by, blocks=[]))
+                                          by=by, blocks=[], ops=[], pops=[]))
         c["ms"].append(kb)
         c["plain"].append(pb)
+        c["ops"].append(kops)
+        c["pops"].append(pops)
         c["bound"].append(b)
         c["err"] = max([c["err"]] + errs)
         c["blocks"].append(i)
         print(f"fused_block_trainable_bwd[{i:2d}] {geom:32s} "
               f"x{tuple(x.shape)} kernel_ms={kb:.4f} plain_ms={pb:.4f} "
-              f"bound_ms={b:.4f}({by}){flips}", flush=True)
+              f"bound_ms={b:.4f}({by}) {_ops_text(kops, pops)}{flips}",
+              flush=True)
         print("  err/scale " + ", ".join(each), flush=True)
         del res, ko, kg, po, pg
     print(f"fused_block_trainable_bwd trunk total (12 blocks, {frames} "
           f"frames): kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-          f"bound_ms={b_ms:.4f}", flush=True)
+          f"bound_ms={b_ms:.4f} {_ops_text(k_dev, p_dev)}", flush=True)
     if failures:
         raise SystemExit(f"{len(failures)} kernel #6 gradients disagree "
                          "with the plain version:\n" + "\n".join(failures))
@@ -1132,9 +1093,12 @@ def phase_hiera_bwd_kernels(params, cfg, seed: int, frames: int):
             plain_ms=float(np.mean(c["plain"])),
             bound_ms=float(np.mean(c["bound"])), bound_by=c["by"],
             library_ms=None))
+        ko_, po_ = (np.mean(c["ops"], axis=0), np.mean(c["pops"], axis=0))
         print(f"{rows[-1]['name']} blocks {c['blocks']}: kernel_ms "
               f"{rows[-1]['ms']:.4f} plain_ms {rows[-1]['plain_ms']:.4f} "
-              f"bound_ms {rows[-1]['bound_ms']:.4f}", flush=True)
+              f"bound_ms {rows[-1]['bound_ms']:.4f} device_ms "
+              f"{ko_[2]:.4f} (plain {po_[2]:.4f}) device_ops {ko_[0]:g} "
+              f"(plain {po_[0]:g})", flush=True)
     return rows
 
 

@@ -461,9 +461,8 @@ static void ln_bwd(const bf16* x, const float* w, const float* dy,
 // wrappers). With Klast > 0 the last batch sums only its first Klast
 // values of k (Klast % 8 == 0 where an operand is read row-major): a
 // reduction over M rows cut into batches of K rows, the last one ragged.
-// That and the epilogue's pre / gelu / dgelu / res32 (kernel #6's) are
-// compiled in only where a call uses them (EXT), so the other callers run
-// the plain kernel.
+// That and the epilogue's res32 are compiled in only where a call uses
+// them (EXT), so the other callers run the plain kernel.
 // ---------------------------------------------------------------------------
 
 // With a bias and a bf16 store the epilogue walks the compute dtype as the
@@ -473,16 +472,13 @@ static void ln_bwd(const bf16* x, const float* w, const float* dy,
 struct BEpi {
   float alpha;          // acc *= alpha
   const float* bias;    // [N] or null, added after alpha
-  bf16* pre;            // bf16 store of the value after the bias, or null
-  int gelu;             // exact GELU after the bias (and the pre store)
   int relu;             // max(v, 0) after the bias
   const bf16* mask;     // v = mask(m, n) > 0 ? v : 0, or null
-  const bf16* dgelu;    // v *= GELU'(dgelu(m, n)), or null
   const bf16* res;      // v += res(m, n), or null
   const float* res32;   // v += res32(m, n), or null (last)
   bf16* out;            // bf16 store, or null
   float* out32;         // f32 store, or null
-  long sz;              // batch stride of pre/mask/dgelu/res/res32/out/out32
+  long sz;              // batch stride of mask/res/res32/out/out32
   int ld;               // their row stride
 };
 
@@ -490,11 +486,8 @@ static inline BEpi bepi(int ld, long sz = 0) {
   BEpi e;
   e.alpha = 1.f;
   e.bias = nullptr;
-  e.pre = nullptr;
-  e.gelu = 0;
   e.relu = 0;
   e.mask = nullptr;
-  e.dgelu = nullptr;
   e.res = nullptr;
   e.res32 = nullptr;
   e.out = nullptr;
@@ -643,11 +636,8 @@ bgemm_kernel(const bf16* __restrict__ A, int lda, long sAz,
             v[j] = rb(rb(v[j]) + rb(ep.bias[col + j]));
           else if (ep.bias)
             v[j] += ep.bias[col + j];
-          if (EXT && ep.pre) ep.pre[o + j] = to_bf16(v[j]);
-          if (EXT && ep.gelu) v[j] = gelu_erf(v[j]);
           if (ep.relu) v[j] = fmaxf(v[j], 0.f);
           if (ep.mask && !(to_f32(ep.mask[o + j]) > 0.f)) v[j] = 0.f;
-          if (EXT && ep.dgelu) v[j] *= gelu_erf_grad(to_f32(ep.dgelu[o + j]));
           if (ep.res) v[j] += to_f32(ep.res[o + j]);
           if (EXT && ep.res32) v[j] += ep.res32[o + j];
         }
@@ -664,7 +654,7 @@ static void bgemm(const bf16* A, int lda, long sAz, const bf16* B, int ldb,
                   long sBz, int M, int N, int K, int Z, const BEpi& ep,
                   cudaStream_t stream, int Klast = 0) {
   dim3 grid((N + GEMM_BN - 1) / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM, Z);
-  if (Klast > 0 || ep.pre || ep.gelu || ep.dgelu || ep.res32)
+  if (Klast > 0 || ep.res32)
     bgemm_kernel<TA, TB, true><<<grid, GEMM_THREADS, 0, stream>>>(
         A, lda, sAz, B, ldb, sBz, M, N, K, Klast, ep);
   else

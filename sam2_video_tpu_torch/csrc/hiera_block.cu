@@ -16,8 +16,7 @@
 // shared GEMM with bias, GELU and residual fused into its epilogue, and
 // the attention per (window, head) over key chunks in shared memory, so a
 // window needs no mask: the block-diagonal mask the TPU kernel needed for
-// its 128-wide matrix unit disappears (hiera_window.cuh, shared with the
-// block's backward). The C entry point launches the block's kernels in
+// its 128-wide matrix unit disappears (hiera_window.cuh). The C entry point launches the block's kernels in
 // order on the caller's stream; x1, the residual after attention, lands in
 // a caller-owned buffer, which the trainable block keeps for its backward.
 
@@ -69,7 +68,7 @@ extern "C" int hiera_block_fwd(
        3 * Cout, Cin, epi(fp(bqkv)), stream);
 
   window_attention(bfp(qkv), fp(bqkv), static_cast<bf16*>(attn), B, H, W,
-                   Cout, heads, wsh, wsw, q_pool, AttnStats{}, stream);
+                   Cout, heads, wsh, wsw, q_pool, stream);
 
   gemm(DenseA{bfp(attn), Cout}, bfp(wproj), static_cast<bf16*>(x1), M_out,
        Cout, Cout, epi(fp(bproj), 0, nullptr, shortcut), stream);

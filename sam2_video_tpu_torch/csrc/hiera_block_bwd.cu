@@ -4,51 +4,61 @@
 // fused_block_trainable (Pallas _mlp_bwd_kernel, B1, and _attn_bwd_kernel,
 // B2): the block's backward from its input x and the residual after
 // attention, x1, which the forward (hiera_block.cu) keeps.
-//   B1 (hiera_block_bwd_mlp): recompute LN2 -> W1 -> exact-erf GELU from
-//     x1, then dx1 = dy + LN2^T(...) and the LN2, W1, b1, W2, b2 gradients.
-//   B2 (hiera_block_bwd_attn): recompute LN1 -> qkv (-> shortcut) and the
-//     attention output with its row statistics, then dx and the LN1, qkv,
-//     proj and (dim-change blocks) shortcut gradients.
+//   B1: recompute LN2 -> W1 -> exact-erf GELU from x1, then dx1 = dy +
+//     LN2^T(...) and the LN2, W1, b1, W2, b2 gradients;
+//   B2: recompute LN1 -> qkv (-> shortcut) and the attention, then dx and
+//     the LN1, qkv, proj and (dim-change blocks) shortcut gradients.
 //
 // What bounds it on an H100 (SAM2-tiny, 384 px, 10 frames per call): about
 // three times the forward's products (the recompute, then two products per
-// forward product), ~0.78 TFLOP over the 12 blocks, against a few hundred
-// MB of activations, so the tensor cores bound it. Every product runs on
-// mma.sync (m16n8k16, f32 accumulate): the projections and MLP through the
-// shared batched GEMM of common.cuh, which reads either operand row- or
-// column-major, so no transpose is written; the attention in two kernels
-// per (window, head), flash style: the forward kernel recomputes the
-// output and keeps each query's row max, inverse row sum and
-// D = dO . O; a query-tiled kernel then recomputes the scores over key
-// chunks in shared memory and accumulates dq, and a key-tiled kernel
-// accumulates dk and dv over query chunks. No [T, T] matrix is stored, so
-// any window (global 24x24 or 32x32) fits.
+// forward product), ~0.78 TFLOP over the 12 blocks against a few hundred
+// MB of activations, so the tensor cores bound it; ~90% of the products are
+// dense (the projections and the MLP), the rest the window attention. The
+// design:
+//   - every dense product is a wgmma GEMM of sm90_gemm.cuh (cp.async ring,
+//     128 x 128 tiles, 64 x 128 for the weight gradients), grouped where
+//     the products are independent, with the element-wise work in its
+//     epilogue: b1, GELU and the stored pre-activation on the W1 product;
+//     GELU' on dh = dy W2; the bias walk of kernel #1 on qkv and the
+//     shortcut; dxn = dqkv Wqkv + ds Wsc as one sum. No f32 [rows x
+//     hidden] buffer: a, h and dh are bf16 (the reference's own rounding
+//     points), dy_ln and dxn f32 [rows x C];
+//   - weight gradients are K-split GEMMs over all rows with the bias
+//     gradients as column sums of the staged rows (sm90_gemm.cuh), the
+//     LayerNorm gradients per-block partials of the LayerNorm backward,
+//     and one ordered reduce adds every partial of both halves (no float
+//     atomics: two runs give the same bits);
+//   - the attention backward is flash style on wgmma in three kernels per
+//     (group, head, 64-row tile): forward statistics with the output O and
+//     D = rowsum(dO * O); dq over key tiles; dk and dv over query tiles,
+//     held in registers. Where a group's keys fit one tile, one kernel
+//     forms S and dP once for the statistics, O and dq (attn_onepass), then
+//     the dk / dv kernel. Hiera's windows are small (16-196 keys), so
+//     several windows share a 64-row tile (block-diagonal mask: 4 windows
+//     of 16 tokens, 16 pooled windows of 4 queries over 16 keys); the
+//     head dim (96) is zero-padded to 128 in shared memory.
+//   - attention runs on the zero-padded token grid: LN1's output is
+//     written with zero rows at the pad tokens, so qkv there is the bias
+//     (the reference pads after norm1) and pad keys are ordinary rows whose
+//     dk and dv land in dqkv; the qkv bias gradient, a column sum of dqkv
+//     over every row of the padded grid, takes them, and dWqkv, whose
+//     other operand is zero there, does not.
 //
-// The TPU kernels sum every weight gradient over all tokens into one
-// revisited VMEM block (its grid runs in order). Blocks here run in
-// parallel: weight gradients are batched GEMMs over chunks of rows that
-// write f32 partials, column sums write f32 partials per chunk of rows,
-// and one last pass adds the partials in a fixed order. No float atomics:
-// two runs give the same bits.
+// Semantics kept from the TPU kernel: pad queries and cropped pooled
+// queries get no gradient; the 2x2 max-pool backward (q-pool and the
+// dim-change shortcut) routes each cell's gradient as JAX's
+// _unpool2x2_rows_cols does: to the column whose row-pair max is larger,
+// then to the larger row of that column, the first on a tie.
 //
-// Semantics of the reference (hieradet.py, which pads after norm1), as the
-// TPU kernel keeps them: pad tokens of a padded window are keys with
-// k = bk and v = bv, so their dk and dv flow into dbk and dbv and nowhere
-// else; pad queries and cropped pooled queries get no gradient. The 2x2
-// max-pool backward (q-pool and the dim-change shortcut) routes each
-// cell's gradient as JAX's _unpool2x2_rows_cols does: to the column whose
-// row-pair max is larger, then to the larger row of that column, the
-// first on a tie.
-//
-// The C entry points launch their kernels in order on the caller's stream,
-// carve their scratch from one workspace the caller allocates (its size
-// from *_workspace_bytes) and return cudaGetLastError().
+// The C entry point launches its kernels in order on the caller's stream,
+// carves its scratch from one workspace the caller allocates (its size
+// from hiera_bwd_workspace_bytes) and returns the first CUDA error.
 
-#include "hiera_window.cuh"
+#include "common.cuh"
+#include "sm90.cuh"
+#include "sm90_gemm.cuh"
 
 constexpr float HB_EPS = 1e-6f;
-constexpr int CS_ROWS = 256;        // rows per column-sum partial
-constexpr float NOT_KEPT = 1e30f;   // row max of a query with no gradient
 
 // ---------------------------------------------------------------------------
 // 2x2 max-pool backward (JAX's rule, see the header). Cell values v00 v01
@@ -63,859 +73,1289 @@ __device__ __forceinline__ int unpool_pick(float v00, float v01, float v10,
   return (top >= bot ? 0 : 2) + col;
 }
 
-// shortcut: ds [B, H, W, C] from the pooled gradient g [B, H/2, W/2, C] and
-// the pre-pool values v [B, H, W, C]; ds is zeroed by the caller (rows and
-// columns outside every cell of an odd grid keep their zeros)
-__global__ void unpool2x2_kernel(const bf16* __restrict__ g,
-                                 const bf16* __restrict__ v,
-                                 bf16* __restrict__ ds, int B, int H, int W,
-                                 int C) {
-  const int Ho = H / 2, Wo = W / 2;
-  const size_t total = (size_t)B * Ho * Wo * C;
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const int c = e % C;
-    size_t t = e / C;
-    const int ox = t % Wo;
-    t /= Wo;
-    const int oy = t % Ho;
-    const int b = t / Ho;
-    const size_t p = (((size_t)b * H + 2 * oy) * W + 2 * ox) * C + c;
-    const size_t rs = (size_t)W * C;
-    const int pick = unpool_pick(to_f32(v[p]), to_f32(v[p + C]),
-                                 to_f32(v[p + rs]), to_f32(v[p + rs + C]));
-    const size_t at = p + (pick >> 1) * rs + (pick & 1) * C;
-    ds[at] = g[e];
-  }
+// elementwise max of bf16 vectors (exact: bf16 widens to f32 exactly)
+__device__ __forceinline__ uint32_t bmax2(uint32_t a, uint32_t b) {
+  const float lo = fmaxf(__uint_as_float(a << 16), __uint_as_float(b << 16));
+  const float hi = fmaxf(__uint_as_float(a & 0xffff0000u),
+                         __uint_as_float(b & 0xffff0000u));
+  return (__float_as_uint(hi) & 0xffff0000u) | (__float_as_uint(lo) >> 16);
+}
+
+__device__ __forceinline__ uint4 bmax8(uint4 a, uint4 b) {
+  return make_uint4(bmax2(a.x, b.x), bmax2(a.y, b.y), bmax2(a.z, b.z),
+                    bmax2(a.w, b.w));
+}
+
+__device__ __forceinline__ uint32_t bf2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // ---------------------------------------------------------------------------
-// Attention backward, flash style, per (window, head). Geometry as in
-// window_attention_kernel: a window is wsh x wsw tokens of the zero-padded
-// grid (pad tokens carry the rounded biases as q, k and v); with q_pool
-// its queries are the 2x2 maxima of q inside the window, and the output
-// grid is (H/2, W/2), pooled positions beyond it cropped. A query is
-// "kept" where it lands on the output grid; others get no gradient.
-// Both kernels: 4 warps, 16 rows (queries or keys) each; HDP is the head
-// dim padded to 16 (zero columns add nothing).
+// Geometry. The input grid H x W is padded to Hp x Wp, whole windows of
+// wsh x wsw (global attention: one window of H x W); a row of xn, qkv and
+// dqkv is a token of the padded grid, (b Hp + y) Wp + x. With q_pool a
+// window's queries are the 2x2 maxima of its q ((wsh/2) x (wsw/2)), and the
+// output grid is (H/2, W/2), pooled positions past it cropped. A query is
+// kept where it lands on the output grid (a pad query does not); others
+// get no gradient. Windows are packed G to a group: a group's queries are
+// its windows' queries in order (GQ = G Tq rows), its keys their keys in
+// order (GK = G T), and query r sees key c where both belong to the same
+// window.
 // ---------------------------------------------------------------------------
 
-constexpr int AB_TILE = 64;     // rows per block (4 warps x 16)
-constexpr int AB_CHUNK = 64;    // rows per shared-memory chunk
-constexpr int AB_THREADS = 128;
+constexpr int AT_ROWS = 64;        // rows of every attention tile
+constexpr int AT_COLS = 128;       // head dim padded to 128 (zero columns)
+constexpr int AT_TILE = AT_ROWS * AT_COLS * 2;   // bytes of a tile
+constexpr int AT_THREADS = 128;    // one warpgroup
+constexpr int AT_MAX_GK = 256;     // keys of a packed group
 
-struct AttnGeom {
-  int H, W, C, hd, heads, wsh, wsw, nWh, nWw, q_pool;
+struct HGeo {
+  int B, H, W, Hp, Wp, C, heads, hd;
+  int wsh, wsw, nWh, nWw, q_pool;
   int T, qh, qw, Tq, Ho, Wo;
+  int G, nwin, ngroups, GQ, GK, qtiles, ktiles;
+  float scale, sl;                 // 1 / sqrt(hd), and times log2(e)
 };
 
-static AttnGeom attn_geom(int H, int W, int C, int heads, int wsh, int wsw,
-                          int q_pool) {
-  AttnGeom g;
-  g.H = H, g.W = W, g.C = C, g.heads = heads, g.hd = C / heads;
+static HGeo hgeo(int B, int H, int W, int C, int heads, int wsh, int wsw,
+                 int q_pool) {
+  HGeo g{};
+  g.B = B, g.H = H, g.W = W, g.C = C, g.heads = heads, g.hd = C / heads;
   g.wsh = wsh, g.wsw = wsw, g.q_pool = q_pool;
   g.nWh = (H + wsh - 1) / wsh, g.nWw = (W + wsw - 1) / wsw;
+  g.Hp = g.nWh * wsh, g.Wp = g.nWw * wsw;
   g.T = wsh * wsw;
   g.qh = q_pool ? wsh / 2 : wsh, g.qw = q_pool ? wsw / 2 : wsw;
   g.Tq = g.qh * g.qw;
   g.Ho = q_pool ? H / 2 : H, g.Wo = q_pool ? W / 2 : W;
+  g.nwin = B * g.nWh * g.nWw;
+  int G = g.Tq < AT_ROWS ? AT_ROWS / g.Tq : 1;
+  if (G > 1 && G * g.T > AT_MAX_GK) G = AT_MAX_GK / g.T > 1 ? AT_MAX_GK / g.T : 1;
+  g.G = G;
+  g.ngroups = (g.nwin + G - 1) / G;
+  g.GQ = G * g.Tq, g.GK = G * g.T;
+  g.qtiles = (g.GQ + AT_ROWS - 1) / AT_ROWS;
+  g.ktiles = (g.GK + AT_ROWS - 1) / AT_ROWS;
+  g.scale = 1.f / sqrtf((float)g.hd);
+  g.sl = g.scale * 1.4426950408889634f;
   return g;
 }
 
-// 8 consecutive bf16 of query qi of window (b, wy, wx), head h (2x2-pooled
-// inside the window when q_pool)
-__device__ __forceinline__ uint4 query8(const bf16* qkv, const bf16* Bq,
-                                        const AttnGeom& G, int b, int wy,
-                                        int wx, int h, int qi, int d0) {
-  const int qy = qi / G.qw, qx = qi % G.qw, C3 = 3 * G.C, off = h * G.hd;
-  if (G.q_pool) {
-    const int y = wy * G.wsh + 2 * qy, x = wx * G.wsw + 2 * qx;
-    return bmax8(
-        bmax8(row8(qkv, Bq, b, y, x, G.H, G.W, C3, off, d0, G.hd),
-              row8(qkv, Bq, b, y, x + 1, G.H, G.W, C3, off, d0, G.hd)),
-        bmax8(row8(qkv, Bq, b, y + 1, x, G.H, G.W, C3, off, d0, G.hd),
-              row8(qkv, Bq, b, y + 1, x + 1, G.H, G.W, C3, off, d0, G.hd)));
-  }
-  return row8(qkv, Bq, b, wy * G.wsh + qy, wx * G.wsw + qx, G.H, G.W, C3,
-              off, d0, G.hd);
+// the group-local window of query r (-1: none) and of key c (-2: none)
+__device__ __forceinline__ int qwin(const HGeo& g, int grp, int r) {
+  if (r >= g.GQ) return -1;
+  const int w = r / g.Tq;
+  return grp * g.G + w < g.nwin ? w : -1;
 }
 
-// output-grid token of query qi, or -1 when the query is not kept
-__device__ __forceinline__ long kept_token(const AttnGeom& G, int b, int wy,
-                                           int wx, int qi) {
-  if (qi >= G.Tq) return -1;
-  const int oy = wy * G.qh + qi / G.qw, ox = wx * G.qw + qi % G.qw;
-  if (oy >= G.Ho || ox >= G.Wo) return -1;
-  return ((long)b * G.Ho + oy) * G.Wo + ox;
+__device__ __forceinline__ int kwin(const HGeo& g, int grp, int c) {
+  if (c >= g.GK) return -2;
+  const int w = c / g.T;
+  return grp * g.G + w < g.nwin ? w : -2;
 }
 
-// 8 consecutive bf16 of dO for query qi (zeros when not kept)
-__device__ __forceinline__ uint4 dout8(const bf16* dout, const AttnGeom& G,
-                                       long tok, int h, int d0) {
-  if (tok < 0 || d0 >= G.hd) return make_uint4(0, 0, 0, 0);
-  return *reinterpret_cast<const uint4*>(dout + tok * G.C + h * G.hd + d0);
+// padded-grid row of token (y, x) of window w of the grid
+__device__ __forceinline__ long grid_row(const HGeo& g, int w, int y, int x) {
+  const int wx = w % g.nWw, t = w / g.nWw, wy = t % g.nWh, b = t / g.nWh;
+  return ((long)b * g.Hp + wy * g.wsh + y) * g.Wp + wx * g.wsw + x;
 }
 
-// store the 8 bf16 of v into column r of a [HDP][ld] transposed tile
-__device__ __forceinline__ void store_t8(bf16* t, int ld, int d0, int r,
-                                         uint4 v) {
-  unsigned short* t16 = reinterpret_cast<unsigned short*>(t);
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    t16[(d0 + 2 * j) * ld + r] = (unsigned short)(w[j] & 0xffffu);
-    t16[(d0 + 2 * j + 1) * ld + r] = (unsigned short)(w[j] >> 16);
-  }
+// padded-grid row of key c of group grp, or -1
+__device__ __forceinline__ long key_row(const HGeo& g, int grp, int c) {
+  const int w = kwin(g, grp, c);
+  if (w < 0) return -1;
+  const int i = c - w * g.T;
+  return grid_row(g, grp * g.G + w, i / g.wsw, i % g.wsw);
 }
 
-__device__ __forceinline__ void load_biases(const float* bqkv, bf16* Bq,
-                                            bf16* Bk, bf16* Bv, int C, int h,
-                                            int hd, int hdp) {
-  for (int d = threadIdx.x; d < hdp; d += blockDim.x) {
-    const bool in = d < hd;
-    Bq[d] = to_bf16(in ? bqkv[h * hd + d] : 0.f);
-    Bk[d] = to_bf16(in ? bqkv[C + h * hd + d] : 0.f);
-    Bv[d] = to_bf16(in ? bqkv[2 * C + h * hd + d] : 0.f);
-  }
+// padded-grid row of query r of group grp (the top-left token of its 2x2
+// cell with q_pool), or -1
+__device__ __forceinline__ long query_row(const HGeo& g, int grp, int r) {
+  const int w = qwin(g, grp, r);
+  if (w < 0) return -1;
+  const int i = r - w * g.Tq, f = g.q_pool ? 2 : 1;
+  return grid_row(g, grp * g.G + w, f * (i / g.qw), f * (i % g.qw));
 }
 
-template <int HDP>
-static size_t dq_smem_bytes() {
-  return sizeof(bf16) * ((size_t)(2 * AB_TILE + 2 * AB_CHUNK) *
-                             (HDP + ATT_PAD) +
-                         (size_t)HDP * (AB_CHUNK + ATT_PAD) + 3 * HDP);
+// output-grid token of query r of group grp, or -1 when not kept
+__device__ __forceinline__ long kept_row(const HGeo& g, int grp, int r) {
+  const int w = qwin(g, grp, r);
+  if (w < 0) return -1;
+  const int wi = grp * g.G + w, i = r - w * g.Tq;
+  const int wx = wi % g.nWw, t = wi / g.nWw, wy = t % g.nWh, b = t / g.nWh;
+  const int oy = wy * g.qh + i / g.qw, ox = wx * g.qw + i % g.qw;
+  if (oy >= g.Ho || ox >= g.Wo) return -1;
+  return ((long)b * g.Ho + oy) * g.Wo + ox;
 }
 
-// dq: one block per (64-query tile, head, window). For each key chunk:
-// S = Q K^T, P = exp(S - m) * inv, dP = dO V^T, dS = P (dP - D) scale
-// (rounded to bf16, the TPU kernel's walk), dq += dS K. Writes dq into
-// columns [h*hd, (h+1)*hd) of dqkv at every real token the tile's queries
-// cover (routed through the 2x2 cell when q_pool).
-template <int HDP>
-__global__ void __launch_bounds__(AB_THREADS)
-attn_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bqkv,
-               const bf16* __restrict__ dout, AttnStats st,
-               bf16* __restrict__ dqkv, AttnGeom G) {
-  extern __shared__ __align__(16) unsigned char ab_smem[];
-  constexpr int LD = HDP + ATT_PAD, LDT = AB_CHUNK + ATT_PAD, CPR = HDP / 8;
-  bf16* Qs = reinterpret_cast<bf16*>(ab_smem);   // [AB_TILE][LD]
-  bf16* dOs = Qs + AB_TILE * LD;                  // [AB_TILE][LD]
-  bf16* Ks = dOs + AB_TILE * LD;                  // [AB_CHUNK][LD]
-  bf16* Vs = Ks + AB_CHUNK * LD;                  // [AB_CHUNK][LD]
-  bf16* Kt = Vs + AB_CHUNK * LD;                  // [HDP][LDT]
-  bf16* Bq = Kt + HDP * LDT;
-  bf16* Bk = Bq + HDP;
-  bf16* Bv = Bk + HDP;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int h = blockIdx.y;
-  int win = blockIdx.z;
-  const int wx = win % G.nWw;
-  win /= G.nWw;
-  const int wy = win % G.nWh;
-  const int b = win / G.nWh;
-  const int q0 = blockIdx.x * AB_TILE;
-  const int C3 = 3 * G.C, hd = G.hd;
-  const float scale = rsqrtf((float)hd);
-
-  load_biases(bqkv, Bq, Bk, Bv, G.C, h, hd, HDP);
-  __syncthreads();
-  for (int e = tid; e < AB_TILE * CPR; e += AB_THREADS) {
-    const int r = e / CPR, d0 = (e % CPR) * 8, qi = q0 + r;
-    uint4 qv = make_uint4(0, 0, 0, 0), dv = qv;
-    if (qi < G.Tq) {
-      qv = query8(qkv, Bq, G, b, wy, wx, h, qi, d0);
-      dv = dout8(dout, G, kept_token(G, b, wy, wx, qi), h, d0);
-    }
-    *reinterpret_cast<uint4*>(&Qs[r * LD + d0]) = qv;
-    *reinterpret_cast<uint4*>(&dOs[r * LD + d0]) = dv;
-  }
-  __syncthreads();
-
-  const int r0 = warp * 16;
-  const bool active = q0 + r0 < G.Tq;
-  uint32_t qf[HDP / 16][4], df[HDP / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < HDP / 16; ++ks) {
-    const int ra = (r0 + g) * LD + ks * 16 + 2 * t4, rb8 = ra + 8 * LD;
-    qf[ks][0] = *reinterpret_cast<const uint32_t*>(&Qs[ra]);
-    qf[ks][1] = *reinterpret_cast<const uint32_t*>(&Qs[rb8]);
-    qf[ks][2] = *reinterpret_cast<const uint32_t*>(&Qs[ra + 8]);
-    qf[ks][3] = *reinterpret_cast<const uint32_t*>(&Qs[rb8 + 8]);
-    df[ks][0] = *reinterpret_cast<const uint32_t*>(&dOs[ra]);
-    df[ks][1] = *reinterpret_cast<const uint32_t*>(&dOs[rb8]);
-    df[ks][2] = *reinterpret_cast<const uint32_t*>(&dOs[ra + 8]);
-    df[ks][3] = *reinterpret_cast<const uint32_t*>(&dOs[rb8 + 8]);
-  }
-  float mrow[2], irow[2], drow[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const long tok = kept_token(G, b, wy, wx, q0 + r0 + g + 8 * r);
-    const size_t si = (size_t)tok * G.heads + h;
-    mrow[r] = tok >= 0 ? st.m[si] : NOT_KEPT;
-    irow[r] = tok >= 0 ? st.inv[si] : 0.f;
-    drow[r] = tok >= 0 ? st.D[si] : 0.f;
-  }
-
-  float dq[HDP / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < HDP / 8; ++dn)
-    dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
-
-  for (int k0 = 0; k0 < G.T; k0 += AB_CHUNK) {
-    __syncthreads();
-    for (int e = tid; e < AB_CHUNK * CPR; e += AB_THREADS) {
-      const int kk = e / CPR, d0 = (e % CPR) * 8, ki = k0 + kk;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-      if (ki < G.T) {
-        const int y = wy * G.wsh + ki / G.wsw, x = wx * G.wsw + ki % G.wsw;
-        kv = row8(qkv, Bk, b, y, x, G.H, G.W, C3, G.C + h * hd, d0, hd);
-        vv = row8(qkv, Bv, b, y, x, G.H, G.W, C3, 2 * G.C + h * hd, d0, hd);
-      }
-      *reinterpret_cast<uint4*>(&Ks[kk * LD + d0]) = kv;
-      *reinterpret_cast<uint4*>(&Vs[kk * LD + d0]) = vv;
-      store_t8(Kt, LDT, d0, kk, kv);
-    }
-    __syncthreads();
-    if (!active) continue;
-
-    float s[AB_CHUNK / 8][4], dp[AB_CHUNK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < AB_CHUNK / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[nt][j] = dp[nt][j] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < HDP / 16; ++ks) {
-        const int c = (nt * 8 + g) * LD + ks * 16 + 2 * t4;
-        const uint32_t bk[2] = {*reinterpret_cast<const uint32_t*>(&Ks[c]),
-                                *reinterpret_cast<const uint32_t*>(&Ks[c + 8])};
-        const uint32_t bv[2] = {*reinterpret_cast<const uint32_t*>(&Vs[c]),
-                                *reinterpret_cast<const uint32_t*>(&Vs[c + 8])};
-        mma_16816(s[nt], qf[ks], bk);
-        mma_16816(dp[nt], df[ks], bv);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + nt * 8 + 2 * t4 + (j & 1), r = j >> 1;
-        const float p =
-            key < G.T ? expf(s[nt][j] * scale - mrow[r]) * irow[r] : 0.f;
-        s[nt][j] = p * (dp[nt][j] - drow[r]) * scale;      // dS
-      }
-    }
-#pragma unroll
-    for (int kb = 0; kb < AB_CHUNK / 16; ++kb) {
-      const float* s0 = s[2 * kb];
-      const float* s1 = s[2 * kb + 1];
-      const uint32_t af[4] = {pack_bf16x2(s0[0], s0[1]),
-                              pack_bf16x2(s0[2], s0[3]),
-                              pack_bf16x2(s1[0], s1[1]),
-                              pack_bf16x2(s1[2], s1[3])};
-#pragma unroll
-      for (int dn = 0; dn < HDP / 8; ++dn) {
-        const bf16* kr = &Kt[(dn * 8 + g) * LDT + kb * 16 + 2 * t4];
-        const uint32_t bfr[2] = {*reinterpret_cast<const uint32_t*>(kr),
-                                 *reinterpret_cast<const uint32_t*>(kr + 8)};
-        mma_16816(dq[dn], af, bfr);
-      }
-    }
-  }
-  if (!active) return;
-
-  const int ndn = hd / 8;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + r0 + g + 8 * r;
-    if (qi >= G.Tq) continue;
-    const int qy = qi / G.qw, qx = qi % G.qw;
-    if (!G.q_pool) {
-      const int y = wy * G.wsh + qy, x = wx * G.wsw + qx;
-      if (y >= G.H || x >= G.W) continue;
-      bf16* dst = dqkv + (((size_t)b * G.H + y) * G.W + x) * C3 + h * hd;
-#pragma unroll
-      for (int dn = 0; dn < HDP / 8; ++dn)
-        if (dn < ndn)
-          *reinterpret_cast<__nv_bfloat162*>(dst + dn * 8 + 2 * t4) =
-              __floats2bfloat162_rn(dq[dn][2 * r], dq[dn][2 * r + 1]);
-      continue;
-    }
-    const int y0 = wy * G.wsh + 2 * qy, x0 = wx * G.wsw + 2 * qx;
-#pragma unroll
-    for (int dn = 0; dn < HDP / 8; ++dn) {
-      if (dn >= ndn) continue;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int d = dn * 8 + 2 * t4 + j;
-        float v[4];
-        size_t at[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int y = y0 + (c >> 1), x = x0 + (c & 1);
-          const bool real = y < G.H && x < G.W;
-          at[c] = real ? (((size_t)b * G.H + y) * G.W + x) * C3 + h * hd + d
-                       : (size_t)-1;
-          v[c] = real ? to_f32(qkv[at[c]]) : to_f32(Bq[d]);
-        }
-        const int pick = unpool_pick(v[0], v[1], v[2], v[3]);
-        const bf16 val = to_bf16(dq[dn][2 * r + j]);
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (at[c] != (size_t)-1) dqkv[at[c]] = c == pick ? val : to_bf16(0.f);
-      }
-    }
-  }
+// the keys [x, y) query r of group grp sees (its window's; empty when it
+// has none), and the queries [x, y) that see key c
+__device__ __forceinline__ int2 key_range(const HGeo& g, int grp, int r) {
+  const int w = qwin(g, grp, r);
+  return w < 0 ? make_int2(0, 0) : make_int2(w * g.T, (w + 1) * g.T);
 }
 
-template <int HDP>
-static size_t dkv_smem_bytes() {
-  return sizeof(bf16) * ((size_t)(2 * AB_TILE + 2 * AB_CHUNK) *
-                             (HDP + ATT_PAD) +
-                         2 * (size_t)HDP * (AB_CHUNK + ATT_PAD) + 3 * HDP) +
-         sizeof(float) * (3 * AB_CHUNK + 4 * 2 * HDP);
-}
-
-// dk, dv: one block per (64-key tile, head, window). For each query chunk:
-// S^T = K Q^T, P^T = exp(S^T - m) * inv, dP^T = V dO^T,
-// dS^T = P^T (dP^T - D) scale, dv += bf16(P^T) dO, dk += bf16(dS^T) Q.
-// Real keys write columns C + h*hd and 2C + h*hd of dqkv; pad keys' dk, dv
-// are summed over the tile into padpart[slot * 3C + C + h*hd + d] and
-// [... + 2C + ...] (slot = window * tiles + tile), when padpart is given.
-template <int HDP>
-__global__ void __launch_bounds__(AB_THREADS)
-attn_dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bqkv,
-                const bf16* __restrict__ dout, AttnStats st,
-                bf16* __restrict__ dqkv, float* __restrict__ padpart,
-                AttnGeom G) {
-  extern __shared__ __align__(16) unsigned char ab_smem[];
-  constexpr int LD = HDP + ATT_PAD, LDT = AB_CHUNK + ATT_PAD, CPR = HDP / 8;
-  bf16* Ks = reinterpret_cast<bf16*>(ab_smem);   // [AB_TILE][LD]
-  bf16* Vs = Ks + AB_TILE * LD;                   // [AB_TILE][LD]
-  bf16* Qs = Vs + AB_TILE * LD;                   // [AB_CHUNK][LD]
-  bf16* dOs = Qs + AB_CHUNK * LD;                 // [AB_CHUNK][LD]
-  bf16* Qt = dOs + AB_CHUNK * LD;                 // [HDP][LDT]
-  bf16* dOt = Qt + HDP * LDT;                     // [HDP][LDT]
-  bf16* Bq = dOt + HDP * LDT;
-  bf16* Bk = Bq + HDP;
-  bf16* Bv = Bk + HDP;
-  float* sm = reinterpret_cast<float*>(Bv + HDP);  // [AB_CHUNK] x 3
-  float* si = sm + AB_CHUNK;
-  float* sD = si + AB_CHUNK;
-  float* red = sD + AB_CHUNK;                      // [4][2 * HDP]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int h = blockIdx.y;
-  int win = blockIdx.z;
-  const int wx = win % G.nWw;
-  win /= G.nWw;
-  const int wy = win % G.nWh;
-  const int b = win / G.nWh;
-  const int k0 = blockIdx.x * AB_TILE;
-  const int C3 = 3 * G.C, hd = G.hd;
-  const float scale = rsqrtf((float)hd);
-
-  load_biases(bqkv, Bq, Bk, Bv, G.C, h, hd, HDP);
-  __syncthreads();
-  for (int e = tid; e < AB_TILE * CPR; e += AB_THREADS) {
-    const int kk = e / CPR, d0 = (e % CPR) * 8, ki = k0 + kk;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-    if (ki < G.T) {
-      const int y = wy * G.wsh + ki / G.wsw, x = wx * G.wsw + ki % G.wsw;
-      kv = row8(qkv, Bk, b, y, x, G.H, G.W, C3, G.C + h * hd, d0, hd);
-      vv = row8(qkv, Bv, b, y, x, G.H, G.W, C3, 2 * G.C + h * hd, d0, hd);
-    }
-    *reinterpret_cast<uint4*>(&Ks[kk * LD + d0]) = kv;
-    *reinterpret_cast<uint4*>(&Vs[kk * LD + d0]) = vv;
-  }
-
-  const int r0 = warp * 16;
-  const bool active = k0 + r0 < G.T;
-  float dk[HDP / 8][4], dv[HDP / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < HDP / 8; ++dn)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk[dn][j] = dv[dn][j] = 0.f;
-
-  for (int q0 = 0; q0 < G.Tq; q0 += AB_CHUNK) {
-    __syncthreads();
-    for (int e = tid; e < AB_CHUNK * CPR; e += AB_THREADS) {
-      const int r = e / CPR, d0 = (e % CPR) * 8, qi = q0 + r;
-      uint4 qv = make_uint4(0, 0, 0, 0), ov = qv;
-      if (qi < G.Tq) {
-        qv = query8(qkv, Bq, G, b, wy, wx, h, qi, d0);
-        ov = dout8(dout, G, kept_token(G, b, wy, wx, qi), h, d0);
-      }
-      *reinterpret_cast<uint4*>(&Qs[r * LD + d0]) = qv;
-      *reinterpret_cast<uint4*>(&dOs[r * LD + d0]) = ov;
-      store_t8(Qt, LDT, d0, r, qv);
-      store_t8(dOt, LDT, d0, r, ov);
-    }
-    for (int r = tid; r < AB_CHUNK; r += AB_THREADS) {
-      const long tok = kept_token(G, b, wy, wx, q0 + r);
-      const size_t i = (size_t)tok * G.heads + h;
-      sm[r] = tok >= 0 ? st.m[i] : NOT_KEPT;
-      si[r] = tok >= 0 ? st.inv[i] : 0.f;
-      sD[r] = tok >= 0 ? st.D[i] : 0.f;
-    }
-    __syncthreads();
-    if (!active) continue;
-
-    float s[AB_CHUNK / 8][4], dp[AB_CHUNK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < AB_CHUNK / 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[nt][j] = dp[nt][j] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < HDP / 16; ++ks) {
-      const int c = ks * 16 + 2 * t4;
-      uint32_t ka[4], va[4];
-      const int ra = (r0 + g) * LD + c, rb8 = (r0 + g + 8) * LD + c;
-      ka[0] = *reinterpret_cast<const uint32_t*>(&Ks[ra]);
-      ka[1] = *reinterpret_cast<const uint32_t*>(&Ks[rb8]);
-      ka[2] = *reinterpret_cast<const uint32_t*>(&Ks[ra + 8]);
-      ka[3] = *reinterpret_cast<const uint32_t*>(&Ks[rb8 + 8]);
-      va[0] = *reinterpret_cast<const uint32_t*>(&Vs[ra]);
-      va[1] = *reinterpret_cast<const uint32_t*>(&Vs[rb8]);
-      va[2] = *reinterpret_cast<const uint32_t*>(&Vs[ra + 8]);
-      va[3] = *reinterpret_cast<const uint32_t*>(&Vs[rb8 + 8]);
-#pragma unroll
-      for (int nt = 0; nt < AB_CHUNK / 8; ++nt) {
-        const int o = (nt * 8 + g) * LD + c;
-        const uint32_t bq[2] = {*reinterpret_cast<const uint32_t*>(&Qs[o]),
-                                *reinterpret_cast<const uint32_t*>(&Qs[o + 8])};
-        const uint32_t bo[2] = {*reinterpret_cast<const uint32_t*>(&dOs[o]),
-                                *reinterpret_cast<const uint32_t*>(&dOs[o + 8])};
-        mma_16816(s[nt], ka, bq);
-        mma_16816(dp[nt], va, bo);
-      }
-    }
-    // s becomes P^T, dp becomes dS^T
-#pragma unroll
-    for (int nt = 0; nt < AB_CHUNK / 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int q = nt * 8 + 2 * t4 + (j & 1);
-        const float p = si[q] > 0.f ? expf(s[nt][j] * scale - sm[q]) * si[q]
-                                    : 0.f;
-        s[nt][j] = p;
-        dp[nt][j] = p * (dp[nt][j] - sD[q]) * scale;
-      }
-#pragma unroll
-    for (int kb = 0; kb < AB_CHUNK / 16; ++kb) {
-      const uint32_t pf[4] = {
-          pack_bf16x2(s[2 * kb][0], s[2 * kb][1]),
-          pack_bf16x2(s[2 * kb][2], s[2 * kb][3]),
-          pack_bf16x2(s[2 * kb + 1][0], s[2 * kb + 1][1]),
-          pack_bf16x2(s[2 * kb + 1][2], s[2 * kb + 1][3])};
-      const uint32_t sf[4] = {
-          pack_bf16x2(dp[2 * kb][0], dp[2 * kb][1]),
-          pack_bf16x2(dp[2 * kb][2], dp[2 * kb][3]),
-          pack_bf16x2(dp[2 * kb + 1][0], dp[2 * kb + 1][1]),
-          pack_bf16x2(dp[2 * kb + 1][2], dp[2 * kb + 1][3])};
-#pragma unroll
-      for (int dn = 0; dn < HDP / 8; ++dn) {
-        const int o = (dn * 8 + g) * LDT + kb * 16 + 2 * t4;
-        const uint32_t bo[2] = {*reinterpret_cast<const uint32_t*>(&dOt[o]),
-                                *reinterpret_cast<const uint32_t*>(&dOt[o + 8])};
-        const uint32_t bq[2] = {*reinterpret_cast<const uint32_t*>(&Qt[o]),
-                                *reinterpret_cast<const uint32_t*>(&Qt[o + 8])};
-        mma_16816(dv[dn], pf, bo);
-        mma_16816(dk[dn], sf, bq);
-      }
-    }
-  }
-
-  // real keys: dk, dv into dqkv; pad keys: this warp's sums
-  const int ndn = hd / 8;
-  float pk[HDP / 8][2], pv[HDP / 8][2];
-#pragma unroll
-  for (int dn = 0; dn < HDP / 8; ++dn)
-    pk[dn][0] = pk[dn][1] = pv[dn][0] = pv[dn][1] = 0.f;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int ki = k0 + r0 + g + 8 * r;
-    if (ki >= G.T) continue;
-    const int y = wy * G.wsh + ki / G.wsw, x = wx * G.wsw + ki % G.wsw;
-    if (y < G.H && x < G.W) {
-      bf16* dst = dqkv + (((size_t)b * G.H + y) * G.W + x) * C3 + h * hd;
-#pragma unroll
-      for (int dn = 0; dn < HDP / 8; ++dn)
-        if (dn < ndn) {
-          *reinterpret_cast<__nv_bfloat162*>(dst + G.C + dn * 8 + 2 * t4) =
-              __floats2bfloat162_rn(dk[dn][2 * r], dk[dn][2 * r + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(dst + 2 * G.C + dn * 8 +
-                                             2 * t4) =
-              __floats2bfloat162_rn(dv[dn][2 * r], dv[dn][2 * r + 1]);
-        }
-    } else {
-#pragma unroll
-      for (int dn = 0; dn < HDP / 8; ++dn) {
-        pk[dn][0] += dk[dn][2 * r];
-        pk[dn][1] += dk[dn][2 * r + 1];
-        pv[dn][0] += dv[dn][2 * r];
-        pv[dn][1] += dv[dn][2 * r + 1];
-      }
-    }
-  }
-  if (!padpart) return;
-  // pad sums: over the 8 lanes of one column pair, then the 4 warps in order
-#pragma unroll
-  for (int dn = 0; dn < HDP / 8; ++dn)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) {
-        pk[dn][j] += __shfl_xor_sync(0xffffffff, pk[dn][j], o);
-        pv[dn][j] += __shfl_xor_sync(0xffffffff, pv[dn][j], o);
-      }
-  if (g == 0) {
-#pragma unroll
-    for (int dn = 0; dn < HDP / 8; ++dn)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        red[warp * 2 * HDP + dn * 8 + 2 * t4 + j] = pk[dn][j];
-        red[warp * 2 * HDP + HDP + dn * 8 + 2 * t4 + j] = pv[dn][j];
-      }
-  }
-  __syncthreads();
-  const size_t slot = (size_t)blockIdx.z * gridDim.x + blockIdx.x;
-  for (int d = tid; d < hd; d += AB_THREADS) {
-    float sk = 0.f, sv = 0.f;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      sk += red[w * 2 * HDP + d];
-      sv += red[w * 2 * HDP + HDP + d];
-    }
-    padpart[slot * C3 + G.C + h * hd + d] = sk;
-    padpart[slot * C3 + 2 * G.C + h * hd + d] = sv;
-  }
-}
-
-template <int HDP>
-static void attn_bwd_at(const bf16* qkv, const float* bqkv, const bf16* dout,
-                        const AttnStats& st, bf16* dqkv, float* padpart,
-                        const AttnGeom& G, int B, cudaStream_t stream) {
-  const size_t s_dq = dq_smem_bytes<HDP>(), s_dkv = dkv_smem_bytes<HDP>();
-  static bool opted = false;
-  if (!opted) {
-    cudaFuncSetAttribute(attn_dq_kernel<HDP>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)s_dq);
-    cudaFuncSetAttribute(attn_dkv_kernel<HDP>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)s_dkv);
-    opted = true;
-  }
-  const int wins = B * G.nWh * G.nWw;
-  dim3 gq((G.Tq + AB_TILE - 1) / AB_TILE, G.heads, wins);
-  attn_dq_kernel<HDP><<<gq, AB_THREADS, s_dq, stream>>>(qkv, bqkv, dout, st,
-                                                        dqkv, G);
-  dim3 gk((G.T + AB_TILE - 1) / AB_TILE, G.heads, wins);
-  attn_dkv_kernel<HDP><<<gk, AB_THREADS, s_dkv, stream>>>(
-      qkv, bqkv, dout, st, dqkv, padpart, G);
-}
-
-static void attn_bwd(const bf16* qkv, const float* bqkv, const bf16* dout,
-                     const AttnStats& st, bf16* dqkv, float* padpart,
-                     const AttnGeom& G, int B, cudaStream_t stream) {
-  const int hdp = (G.hd + 15) & ~15;
-  if (hdp <= 64)
-    attn_bwd_at<64>(qkv, bqkv, dout, st, dqkv, padpart, G, B, stream);
-  else if (hdp <= 96)
-    attn_bwd_at<96>(qkv, bqkv, dout, st, dqkv, padpart, G, B, stream);
-  else
-    attn_bwd_at<128>(qkv, bqkv, dout, st, dqkv, padpart, G, B, stream);
+__device__ __forceinline__ int2 query_range(const HGeo& g, int grp, int c) {
+  const int w = kwin(g, grp, c);
+  return w < 0 ? make_int2(0, 0) : make_int2(w * g.Tq, (w + 1) * g.Tq);
 }
 
 // ---------------------------------------------------------------------------
-// Weight gradients over many rows: dW[Nout, Nin] = sum_r A(r, :)^T B(r, :)
-// as batched-GEMM partials over chunks of rows (about 512 blocks in all,
-// chunks of at least 256 rows, a multiple of 32, the last one ragged).
+// Attention tiles: 64 rows x 128 columns in the 128-byte-swizzled layout
+// (sm90.cuh), columns at and past hd zero. Each block first writes the
+// rows of its keys and queries (and the queries' output tokens) into
+// tables in shared memory, so no load or mask divides. Rows by cp.async
+// from the rows tab[r] of a row-major matrix (stride ld, -1: zeros);
+// pooled queries (the 2x2 max of q) by plain loads and shared stores.
 // ---------------------------------------------------------------------------
 
-struct Chunks {
-  int Z;
-  long rows, last;
+// padded-grid rows of keys c0 .. c0 + n - 1 of group grp
+__device__ __forceinline__ void fill_keys(int* tab, const HGeo& g, int grp,
+                                          int c0, int n) {
+  for (int i = threadIdx.x; i < n; i += AT_THREADS)
+    tab[i] = (int)key_row(g, grp, c0 + i);
+}
+
+// rows (qtab) and output tokens (ttab) of queries r0 .. r0 + n - 1
+__device__ __forceinline__ void fill_queries(int* qtab, int* ttab,
+                                             const HGeo& g, int grp, int r0,
+                                             int n) {
+  for (int i = threadIdx.x; i < n; i += AT_THREADS) {
+    qtab[i] = (int)query_row(g, grp, r0 + i);
+    ttab[i] = (int)kept_row(g, grp, r0 + i);
+  }
+}
+
+__device__ __forceinline__ void stage_rows(uint32_t dst, const bf16* base,
+                                           long ld, int hd, const int* tab) {
+#pragma unroll
+  for (int i = 0; i < AT_ROWS * 16 / AT_THREADS; ++i) {
+    const int r = i * (AT_THREADS / 16) + (threadIdx.x >> 4);
+    const int j = threadIdx.x & 15;
+    const long row = tab[r];
+    const bool ok = row >= 0 && 8 * j < hd;
+    cp_async16(dst + sw128_off(r, 8 * j), base + (ok ? row * ld + 8 * j : 0),
+               ok);
+  }
+}
+
+// the queries of the rows tab[0 .. 63], head base qb (qkv + h hd)
+__device__ __forceinline__ void stage_queries(uint32_t dst, unsigned char* gdst,
+                                              const bf16* qb, const HGeo& g,
+                                              const int* tab) {
+  const long C3 = 3L * g.C;
+  if (!g.q_pool) {
+    stage_rows(dst, qb, C3, g.hd, tab);
+    return;
+  }
+#pragma unroll 2
+  for (int i = 0; i < AT_ROWS * 16 / AT_THREADS; ++i) {
+    const int r = i * (AT_THREADS / 16) + (threadIdx.x >> 4);
+    const int j = threadIdx.x & 15;
+    const long row = tab[r];
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (row >= 0 && 8 * j < g.hd) {
+      const bf16* p = qb + row * C3 + 8 * j;
+      const long dn = (long)g.Wp * C3;
+      v = bmax8(bmax8(__ldg(reinterpret_cast<const uint4*>(p)),
+                      __ldg(reinterpret_cast<const uint4*>(p + C3))),
+                bmax8(__ldg(reinterpret_cast<const uint4*>(p + dn)),
+                      __ldg(reinterpret_cast<const uint4*>(p + dn + C3))));
+    }
+    *reinterpret_cast<uint4*>(gdst + sw128_off(r, 8 * j)) = v;
+  }
+}
+
+// s[64 x 64] = A B^T over the 128 (padded) columns, both tiles K-major
+__device__ __forceinline__ void issue_scores(float (&s)[32], uint32_t A,
+                                             uint32_t B) {
+#pragma unroll
+  for (int kk = 0; kk < AT_COLS / 16; ++kk)
+    wgmma_ss_n64(s, desc_k(A, kk * 16), desc_k(B, kk * 16), kk > 0);
+}
+
+// this thread's first accumulator row in the tile (the second is + 8)
+__device__ __forceinline__ int acc_row() {
+  return (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+}
+
+// bf16 A operands of k16 slice kk of a 64 x 64 f32 accumulator
+__device__ __forceinline__ void a_bf16(const float (&x)[32], int kk,
+                                       uint32_t (&a)[4]) {
+  const int j = 8 * kk;
+  a[0] = bf2(x[j], x[j + 1]);
+  a[1] = bf2(x[j + 2], x[j + 3]);
+  a[2] = bf2(x[j + 4], x[j + 5]);
+  a[3] = bf2(x[j + 6], x[j + 7]);
+}
+
+// per (group, head, query row): (row max of s sl, 1 / row sum, D, 0);
+// rows without a key: (0, 0, 0, 0)
+__device__ __forceinline__ long stat_base(const HGeo& g, int grp, int h,
+                                          int qt) {
+  return (((long)grp * g.heads + h) * g.qtiles + qt) * AT_ROWS;
+}
+
+// s <- s sl at the keys [kr.x, kr.y) of each row (columns c0 + ..), -inf
+// elsewhere
+__device__ __forceinline__ void mask_rows(float (&s)[32], int c0,
+                                          const int2 (&kr)[2], float sl) {
+  const int q4 = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int c = c0 + (i >> 2) * 8 + 2 * q4 + (i & 1), hh = (i >> 1) & 1;
+    s[i] = c >= kr[hh].x && c < kr[hh].y ? s[i] * sl : -INFINITY;
+  }
+}
+
+// O (bf16) into the kept rows' columns h hd .. of o
+__device__ __forceinline__ void store_o(const float (&oacc)[64], bf16* o,
+                                        const int* ttab, const HGeo& g,
+                                        int h) {
+  const int lr = acc_row(), q4 = threadIdx.x & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const long tok = ttab[lr + 8 * hh];
+    if (tok < 0) continue;
+    bf16* dst = o + tok * g.C + h * g.hd;
+#pragma unroll
+    for (int n = 0; n < AT_COLS / 8; ++n) {
+      const int col = 8 * n + 2 * q4;
+      if (col < g.hd)
+        *reinterpret_cast<uint32_t*>(dst + col) =
+            bf2(oacc[4 * n + 2 * hh], oacc[4 * n + 2 * hh + 1]);
+    }
+  }
+}
+
+// dq (bf16) into columns h hd .. of dqkv at the rows qtab (through the 2x2
+// cell with q_pool: the element unpool_pick chooses, zeros elsewhere)
+__device__ __forceinline__ void store_dq(const float (&dq)[64], bf16* dqkv,
+                                         const bf16* qb, const int* qtab,
+                                         const HGeo& g, int h) {
+  const int lr = acc_row(), q4 = threadIdx.x & 3;
+  const long C3 = 3L * g.C;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const long row = qtab[lr + 8 * hh];
+    if (row < 0) continue;
+    bf16* dst = dqkv + row * C3 + h * g.hd;
+#pragma unroll
+    for (int n = 0; n < AT_COLS / 8; ++n) {
+      const int col = 8 * n + 2 * q4;
+      if (col >= g.hd) continue;
+      const float d0 = dq[4 * n + 2 * hh], d1 = dq[4 * n + 2 * hh + 1];
+      if (!g.q_pool) {
+        *reinterpret_cast<uint32_t*>(dst + col) = bf2(d0, d1);
+        continue;
+      }
+      const long off[4] = {0, C3, (long)g.Wp * C3, (long)g.Wp * C3 + C3};
+      float2 v[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        v[c] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            qb + row * C3 + off[c] + col));
+      const int p0 = unpool_pick(v[0].x, v[1].x, v[2].x, v[3].x);
+      const int p1 = unpool_pick(v[0].y, v[1].y, v[2].y, v[3].y);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        *reinterpret_cast<uint32_t*>(dst + off[c] + col) =
+            bf2(p0 == c ? d0 : 0.f, p1 == c ? d1 : 0.f);
+    }
+  }
+}
+
+template <class Kernel>
+static cudaError_t set_smem(Kernel* fn, int bytes) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  // the largest carve-out, so that two blocks share an SM
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
+// ---------------------------------------------------------------------------
+// One pass where a group's keys fit one tile (GK <= 64: windows of 64, 49
+// or 16 tokens): grid (qtiles, heads, ngroups). s = Q K^T and dp = dO V^T
+// once; the exact softmax over the whole row, p rounded to bf16 (the
+// reference's walk), O += p V; D = rowsum(p dp) (the reference's formula);
+// ds = p (dp - D) scale rounded to bf16, dq = ds K. Writes the statistics
+// (for the dk / dv pass), O (bf16) at the kept queries and dq.
+// ---------------------------------------------------------------------------
+
+struct A1Smem {
+  static constexpr int Q = 0, DO = AT_TILE, K = 2 * AT_TILE, V = 3 * AT_TILE;
+  static constexpr int TAB = 4 * AT_TILE;         // keys, queries, tokens
+  static constexpr int BYTES = TAB + 3 * AT_ROWS * 4 + 1024;
 };
 
-static Chunks row_chunks(long M, int Nout, int Nin) {
-  const int tiles = ((Nout + GEMM_BM - 1) / GEMM_BM) *
-                    ((Nin + GEMM_BN - 1) / GEMM_BN);
-  long Z = (512 + tiles - 1) / tiles;
-  const long maxZ = (M + 255) / 256;
-  if (Z > maxZ) Z = maxZ;
-  if (Z < 1) Z = 1;
-  long rows = (M + Z - 1) / Z;
-  rows = (rows + 31) / 32 * 32;
-  Chunks c;
-  c.Z = (int)((M + rows - 1) / rows);
-  c.rows = rows;
-  c.last = M - (long)(c.Z - 1) * rows;
-  return c;
-}
+__global__ void __launch_bounds__(AT_THREADS, 2)
+attn_onepass_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                    bf16* __restrict__ o, float4* __restrict__ stats,
+                    bf16* __restrict__ dqkv, const HGeo g) {
+  using SM = A1Smem;
+  extern __shared__ unsigned char at_smem[];
+  unsigned char* gen;
+  const uint32_t sm = aligned_smem(at_smem, &gen);
+  const int qt = blockIdx.x, h = blockIdx.y, grp = blockIdx.z;
+  const int q4 = threadIdx.x & 3;
+  const long C3 = 3L * g.C;
+  const bf16* qb = qkv + h * g.hd;
+  const int q0 = qt * AT_ROWS;
+  int* ktab = reinterpret_cast<int*>(gen + SM::TAB);
+  int* qtab = ktab + AT_ROWS;
+  int* ttab = qtab + AT_ROWS;
+  fill_keys(ktab, g, grp, 0, AT_ROWS);
+  fill_queries(qtab, ttab, g, grp, q0, AT_ROWS);
+  __syncthreads();
+  stage_queries(sm + SM::Q, gen + SM::Q, qb, g, qtab);
+  stage_rows(sm + SM::DO, dout + h * g.hd, g.C, g.hd, ttab);
+  stage_rows(sm + SM::K, qb + g.C, C3, g.hd, ktab);
+  stage_rows(sm + SM::V, qb + 2 * g.C, C3, g.hd, ktab);
+  cp_async_commit();
+  const int lr = acc_row();
+  const int2 kr[2] = {key_range(g, grp, q0 + lr), key_range(g, grp, q0 + lr + 8)};
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
 
-static void wgrad(const bf16* A, int lda, const bf16* B, int ldb, long M,
-                  int Nout, int Nin, float* part, cudaStream_t st) {
-  const Chunks c = row_chunks(M, Nout, Nin);
-  BEpi e = bepi(Nin, (long)Nout * Nin);
-  e.out32 = part;
-  bgemm<true, true>(A, lda, c.rows * lda, B, ldb, c.rows * ldb, Nout, Nin,
-                    (int)c.rows, c.Z, e, st, (int)c.last);
+  float s[32], dp[32];
+  wgmma_fence();
+  issue_scores(s, sm + SM::Q, sm + SM::K);
+  wgmma_commit();
+  issue_scores(dp, sm + SM::DO, sm + SM::V);
+  wgmma_commit();
+  wgmma_wait<1>();
+  fence_regs(s);
+  mask_rows(s, 0, kr, g.sl);
+  float mb[2], inv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float m = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      m = fmaxf(m, fmaxf(s[4 * n + 2 * hh], s[4 * n + 2 * hh + 1]));
+    m = quad_max(m);
+    mb[hh] = m == -INFINITY ? 0.f : m;
+    float l = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      l += exp2f(s[4 * n + 2 * hh] - mb[hh]) +
+           exp2f(s[4 * n + 2 * hh + 1] - mb[hh]);
+    l = quad_sum(l);
+    inv[hh] = l > 0.f ? 1.f / l : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int hh = (i >> 1) & 1;
+    s[i] = exp2f(s[i] - mb[hh]) * inv[hh];          // p
+  }
+  float oacc[64];
+  {
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_bf16(s, kk, pa[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n128(oacc, pa[kk], desc_mn(sm + SM::V, kk * 16, 0), kk > 0);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(dp);
+  fence_regs(oacc);
+  store_o(oacc, o, ttab, g, h);
+  float D[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) D[(i >> 1) & 1] += s[i] * dp[i];
+  const long sb = stat_base(g, grp, h, qt);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    D[hh] = quad_sum(D[hh]);
+    if (q4 == 0)
+      stats[sb + lr + 8 * hh] = make_float4(mb[hh], inv[hh], D[hh], 0.f);
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int hh = (i >> 1) & 1;
+    dp[i] = s[i] * (dp[i] - D[hh]) * g.scale;      // ds
+  }
+  float dq[64];
+  {
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_bf16(dp, kk, da[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n128(dq, da[kk], desc_mn(sm + SM::K, kk * 16, 0), kk > 0);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(dq);
+  store_dq(dq, dqkv, qb, qtab, g, h);
 }
-
-static int cs_chunks(long M) { return (int)((M + CS_ROWS - 1) / CS_ROWS); }
 
 // ---------------------------------------------------------------------------
-// B1: LN2 + MLP backward. Weight table (the forward's, ops/hiera_block_
-// kernel.py pack): ln1w ln1b Wqkv bqkv Wproj bproj ln2w ln2b W1 b1 W2 b2
-// Wsc bsc. Gradients (f32): dln2w[C] dln2b[C] dW1[Hd, C] db1[Hd]
-// dW2[C, Hd] db2[C].
+// Forward statistics over several key tiles: grid (qtiles, heads,
+// ngroups). Pass 1 over the key tiles: the row max and sum of the exact
+// softmax; pass 2: p = exp(s - m) / sum rounded to bf16, O += p V. Then D =
+// rowsum(dO * O) over the f32 O, the statistics, and O (bf16) at the kept
+// queries, the operand of dWproj.
+// ---------------------------------------------------------------------------
+
+struct AfSmem {                      // forward statistics and dq
+  static constexpr int Q = 0, DO = AT_TILE, K = 2 * AT_TILE;
+  static constexpr int V = 4 * AT_TILE;          // K, V: two stages each
+  static constexpr int TAB = 6 * AT_TILE;        // keys, queries, tokens
+  static int bytes(int ktiles) {
+    return TAB + (ktiles + 2) * AT_ROWS * 4 + 1024;
+  }
+};
+
+__global__ void __launch_bounds__(AT_THREADS, 2)
+attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                bf16* __restrict__ o, float4* __restrict__ stats,
+                const HGeo g) {
+  using SM = AfSmem;
+  extern __shared__ unsigned char at_smem[];
+  unsigned char* gen;
+  const uint32_t sm = aligned_smem(at_smem, &gen);
+  const int qt = blockIdx.x, h = blockIdx.y, grp = blockIdx.z;
+  const int q4 = threadIdx.x & 3;
+  const long C3 = 3L * g.C;
+  const bf16* qb = qkv + h * g.hd;
+  const bf16* kb = qb + g.C;
+  const bf16* vb = kb + g.C;
+  const int q0 = qt * AT_ROWS;
+  int* ktab = reinterpret_cast<int*>(gen + SM::TAB);
+  int* qtab = ktab + g.ktiles * AT_ROWS;
+  int* ttab = qtab + AT_ROWS;
+  fill_keys(ktab, g, grp, 0, g.ktiles * AT_ROWS);
+  fill_queries(qtab, ttab, g, grp, q0, AT_ROWS);
+  __syncthreads();
+
+  stage_queries(sm + SM::Q, gen + SM::Q, qb, g, qtab);
+  stage_rows(sm + SM::DO, dout + h * g.hd, g.C, g.hd, ttab);
+  auto load = [&](int kt, bool with_v) {
+    const int st = kt & 1;
+    stage_rows(sm + SM::K + st * AT_TILE, kb, C3, g.hd, ktab + kt * AT_ROWS);
+    if (with_v)
+      stage_rows(sm + SM::V + st * AT_TILE, vb, C3, g.hd, ktab + kt * AT_ROWS);
+  };
+  load(0, false);
+  cp_async_commit();
+
+  const int lr = acc_row();
+  const int2 kr[2] = {key_range(g, grp, q0 + lr), key_range(g, grp, q0 + lr + 8)};
+  float s[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int kt = 0; kt < g.ktiles; ++kt) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    if (kt + 1 < g.ktiles) load(kt + 1, false);
+    cp_async_commit();
+    wgmma_fence();
+    issue_scores(s, sm + SM::Q, sm + SM::K + (kt & 1) * AT_TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    mask_rows(s, kt * AT_ROWS, kr, g.sl);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float cm = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        cm = fmaxf(cm, fmaxf(s[4 * n + 2 * hh], s[4 * n + 2 * hh + 1]));
+      const float mn = fmaxf(m[hh], quad_max(cm));
+      const float base = mn == -INFINITY ? 0.f : mn;
+      float acc = l[hh] * exp2f(m[hh] - base);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        acc += exp2f(s[4 * n + 2 * hh] - base) +
+               exp2f(s[4 * n + 2 * hh + 1] - base);
+      l[hh] = acc;
+      m[hh] = mn;
+    }
+  }
+  float inv[2], mb[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float tot = quad_sum(l[hh]);
+    inv[hh] = tot > 0.f ? 1.f / tot : 0.f;
+    mb[hh] = m[hh] == -INFINITY ? 0.f : m[hh];
+  }
+
+  __syncthreads();                   // every warp is done with the K ring
+  load(0, true);
+  cp_async_commit();
+  float oacc[64];
+  zero(oacc);
+  for (int kt = 0; kt < g.ktiles; ++kt) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    if (kt + 1 < g.ktiles) load(kt + 1, true);
+    cp_async_commit();
+    const int st = kt & 1;
+    wgmma_fence();
+    issue_scores(s, sm + SM::Q, sm + SM::K + st * AT_TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    mask_rows(s, kt * AT_ROWS, kr, g.sl);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      s[i] = exp2f(s[i] - mb[hh]) * inv[hh];
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_bf16(s, kk, pa[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n128(oacc, pa[kk], desc_mn(sm + SM::V + st * AT_TILE, kk * 16, 0),
+                    1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(oacc);
+  }
+
+  float D[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < AT_COLS / 8; ++n)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float2 d = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          gen + SM::DO + sw128_off(lr + 8 * hh, 8 * n + 2 * q4)));
+      D[hh] += d.x * oacc[4 * n + 2 * hh] + d.y * oacc[4 * n + 2 * hh + 1];
+    }
+  const long sb = stat_base(g, grp, h, qt);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    D[hh] = quad_sum(D[hh]);
+    if (q4 == 0)
+      stats[sb + lr + 8 * hh] = make_float4(mb[hh], inv[hh], D[hh], 0.f);
+  }
+  store_o(oacc, o, ttab, g, h);
+}
+
+// ---------------------------------------------------------------------------
+// dq over several key tiles: grid (qtiles, heads, ngroups). Per key tile:
+// s = Q K^T and dp = dO V^T (two product groups), p from the statistics,
+// ds = p (dp - D) scale rounded to bf16 (the reference's walk), dq += ds K.
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(AT_THREADS, 2)
+attn_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+               const float4* __restrict__ stats, bf16* __restrict__ dqkv,
+               const HGeo g) {
+  using SM = AfSmem;
+  extern __shared__ unsigned char at_smem[];
+  unsigned char* gen;
+  const uint32_t sm = aligned_smem(at_smem, &gen);
+  const int qt = blockIdx.x, h = blockIdx.y, grp = blockIdx.z;
+  const long C3 = 3L * g.C;
+  const bf16* qb = qkv + h * g.hd;
+  const bf16* kb = qb + g.C;
+  const bf16* vb = kb + g.C;
+  const int q0 = qt * AT_ROWS;
+  int* ktab = reinterpret_cast<int*>(gen + SM::TAB);
+  int* qtab = ktab + g.ktiles * AT_ROWS;
+  int* ttab = qtab + AT_ROWS;
+  fill_keys(ktab, g, grp, 0, g.ktiles * AT_ROWS);
+  fill_queries(qtab, ttab, g, grp, q0, AT_ROWS);
+  __syncthreads();
+
+  stage_queries(sm + SM::Q, gen + SM::Q, qb, g, qtab);
+  stage_rows(sm + SM::DO, dout + h * g.hd, g.C, g.hd, ttab);
+  auto load = [&](int kt) {
+    const int st = kt & 1;
+    stage_rows(sm + SM::K + st * AT_TILE, kb, C3, g.hd, ktab + kt * AT_ROWS);
+    stage_rows(sm + SM::V + st * AT_TILE, vb, C3, g.hd, ktab + kt * AT_ROWS);
+  };
+  load(0);
+  cp_async_commit();
+
+  const int lr = acc_row();
+  const int2 kr[2] = {key_range(g, grp, q0 + lr), key_range(g, grp, q0 + lr + 8)};
+  const long sb = stat_base(g, grp, h, qt);
+  const float4 sr[2] = {__ldg(stats + sb + lr), __ldg(stats + sb + lr + 8)};
+
+  float dq[64];
+  zero(dq);
+  for (int kt = 0; kt < g.ktiles; ++kt) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    if (kt + 1 < g.ktiles) load(kt + 1);
+    cp_async_commit();
+    const int st = kt & 1;
+    const uint32_t Ks = sm + SM::K + st * AT_TILE;
+    float s[32], dp[32];
+    wgmma_fence();
+    issue_scores(s, sm + SM::Q, Ks);
+    wgmma_commit();
+    issue_scores(dp, sm + SM::DO, sm + SM::V + st * AT_TILE);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+    mask_rows(s, kt * AT_ROWS, kr, g.sl);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      s[i] = exp2f(s[i] - sr[hh].x) * sr[hh].y;     // p
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      s[i] = s[i] * (dp[i] - sr[hh].z) * g.scale;  // ds
+    }
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_bf16(s, kk, da[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n128(dq, da[kk], desc_mn(Ks, kk * 16, 0), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+  }
+  store_dq(dq, dqkv, qb, qtab, g, h);
+}
+
+// ---------------------------------------------------------------------------
+// dk, dv: grid (ktiles, heads, ngroups). K and V of the tile stay in shared
+// memory; per query tile (a two-stage ring of Q, dO and the statistics):
+// s^T = K Q^T, dp^T = V dO^T, p^T from the statistics, dv += bf16(p^T) dO,
+// ds^T = p^T (dp^T - D) scale, dk += bf16(ds^T) Q; dk and dv in registers.
+// They go into columns C + h hd .. and 2C + h hd .. of dqkv at each key's
+// token of the padded grid (pad keys included).
+// ---------------------------------------------------------------------------
+
+struct AkSmem {
+  static constexpr int K = 0, V = AT_TILE, Q = 2 * AT_TILE;   // Q, dO:
+  static constexpr int DO = 4 * AT_TILE;                        // two stages
+  static constexpr int ST = 6 * AT_TILE;                        // stats ring
+  static constexpr int TAB = ST + 2 * AT_ROWS * 16;   // keys, queries, tokens
+  static int bytes(int qtiles) {
+    return TAB + (1 + 2 * qtiles) * AT_ROWS * 4 + 1024;
+  }
+};
+
+__global__ void __launch_bounds__(AT_THREADS, 2)
+attn_dkv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                const float4* __restrict__ stats, bf16* __restrict__ dqkv,
+                const HGeo g) {
+  using SM = AkSmem;
+  extern __shared__ unsigned char at_smem[];
+  unsigned char* gen;
+  const uint32_t sm = aligned_smem(at_smem, &gen);
+  const int kt = blockIdx.x, h = blockIdx.y, grp = blockIdx.z;
+  const int tid = threadIdx.x, q4 = tid & 3;
+  const long C3 = 3L * g.C;
+  const bf16* qb = qkv + h * g.hd;
+  const int c0 = kt * AT_ROWS;
+  int* ktab = reinterpret_cast<int*>(gen + SM::TAB);
+  int* qtab = ktab + AT_ROWS;
+  int* ttab = qtab + g.qtiles * AT_ROWS;
+  fill_keys(ktab, g, grp, c0, AT_ROWS);
+  fill_queries(qtab, ttab, g, grp, 0, g.qtiles * AT_ROWS);
+  __syncthreads();
+
+  stage_rows(sm + SM::K, qb + g.C, C3, g.hd, ktab);
+  stage_rows(sm + SM::V, qb + 2 * g.C, C3, g.hd, ktab);
+  auto load = [&](int qt) {
+    const int st = qt & 1;
+    stage_queries(sm + SM::Q + st * AT_TILE, gen + SM::Q + st * AT_TILE, qb, g,
+                  qtab + qt * AT_ROWS);
+    stage_rows(sm + SM::DO + st * AT_TILE, dout + h * g.hd, g.C, g.hd,
+               ttab + qt * AT_ROWS);
+    if (tid < AT_ROWS)
+      cp_async16(sm + SM::ST + st * AT_ROWS * 16 + 16 * tid,
+                 stats + stat_base(g, grp, h, qt) + tid, true);
+  };
+  load(0);
+  cp_async_commit();
+
+  const int lr = acc_row();
+  const int2 qr[2] = {query_range(g, grp, c0 + lr),
+                      query_range(g, grp, c0 + lr + 8)};
+  float dk[64], dv[64];
+  zero(dk);
+  zero(dv);
+  for (int qt = 0; qt < g.qtiles; ++qt) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    if (qt + 1 < g.qtiles) load(qt + 1);
+    cp_async_commit();
+    const int st = qt & 1;
+    const uint32_t Qs = sm + SM::Q + st * AT_TILE;
+    const uint32_t dOs = sm + SM::DO + st * AT_TILE;
+    const float4* ss =
+        reinterpret_cast<const float4*>(gen + SM::ST + st * AT_ROWS * 16);
+    float s[32], dp[32];
+    wgmma_fence();
+    issue_scores(s, sm + SM::K, Qs);
+    wgmma_commit();
+    issue_scores(dp, sm + SM::V, dOs);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = acc_col(i), r = qt * AT_ROWS + col, hh = (i >> 1) & 1;
+      const float4 sv = ss[col];
+      s[i] = r >= qr[hh].x && r < qr[hh].y
+                 ? exp2f(s[i] * g.sl - sv.x) * sv.y : 0.f;   // p^T
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_bf16(s, kk, pa[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n128(dv, pa[kk], desc_mn(dOs, kk * 16, 0), 1);
+    wgmma_commit();
+    wgmma_wait<1>();                 // dp^T landed
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      dp[i] = s[i] * (dp[i] - ss[acc_col(i)].z) * g.scale;   // ds^T
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) a_bf16(dp, kk, da[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n128(dk, da[kk], desc_mn(Qs, kk * 16, 0), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const long row = ktab[lr + 8 * hh];
+    if (row < 0) continue;
+    bf16* dst = dqkv + row * C3 + g.C + h * g.hd;
+#pragma unroll
+    for (int n = 0; n < AT_COLS / 8; ++n) {
+      const int col = 8 * n + 2 * q4;
+      if (col >= g.hd) continue;
+      *reinterpret_cast<uint32_t*>(dst + col) =
+          bf2(dk[4 * n + 2 * hh], dk[4 * n + 2 * hh + 1]);
+      *reinterpret_cast<uint32_t*>(dst + g.C + col) =
+          bf2(dv[4 * n + 2 * hh], dv[4 * n + 2 * hh + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// LayerNorm forward and backward over rows of C <= 1024 channels, a warp
+// per row (PER values per lane), rows mapped between a grid (B, H, W) and
+// its padding (Hp, Wp) >= (H, W).
+// ---------------------------------------------------------------------------
+
+struct RowMap {
+  int H, W, Hp, Wp;
+  // padded row of grid row r
+  __device__ __forceinline__ long padded(long r) const {
+    const long b = r / ((long)H * W), t = r % ((long)H * W);
+    return (b * Hp + t / W) * Wp + t % W;
+  }
+};
+
+// y [rows of the padded grid, C] = LN(x) at grid tokens, zeros at pad
+template <int PER>
+__global__ void __launch_bounds__(128)
+ln_fwd_kernel(const bf16* __restrict__ x, bf16* __restrict__ y,
+              const float* __restrict__ w, const float* __restrict__ b,
+              RowMap map, long rows, int C) {
+  const long p = (long)blockIdx.x * 4 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (p >= rows) return;
+  const long bi = p / ((long)map.Hp * map.Wp), t = p % ((long)map.Hp * map.Wp);
+  const int yy = (int)(t / map.Wp), xx = (int)(t % map.Wp);
+  bf16* yr = y + p * C;
+  if (yy >= map.H || xx >= map.W) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i)
+      if (lane + 32 * i < C) yr[lane + 32 * i] = to_bf16(0.f);
+    return;
+  }
+  const bf16* xr = x + ((bi * map.H + yy) * map.W + xx) * C;
+  float v[PER], s = 0.f;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int c = lane + 32 * i;
+    v[i] = c < C ? to_f32(xr[c]) : 0.f;
+    s += v[i];
+  }
+  const float mu = warp_sum(s) / C;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int c = lane + 32 * i;
+    const float d = c < C ? v[i] - mu : 0.f;
+    q += d * d;
+  }
+  const float rs = rsqrtf(warp_sum(q) / C + HB_EPS);
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int c = lane + 32 * i;
+    if (c < C) yr[c] = to_bf16((v[i] - mu) * rs * w[c] + b[c]);
+  }
+}
+
+constexpr int LB_WARPS = 4;          // warps per block, a row each in turn
+constexpr int LB_BLOCKS = 1056;      // at most (8 an SM), so the partials stay few
+
+// rows per block of the LayerNorm backward: a multiple of LB_WARPS, at
+// most LB_BLOCKS blocks
+static long ln_rpb(long rows) {
+  long r = (rows + LB_BLOCKS - 1) / LB_BLOCKS;
+  return (r + LB_WARPS - 1) / LB_WARPS * LB_WARPS;
+}
+
+static long ln_blocks(long rows) {
+  return (rows + ln_rpb(rows) - 1) / ln_rpb(rows);
+}
+
+// dx [rows, C] (grid rows) = LN'(dyl at the padded row) + res, bf16, dyl
+// the sum of np f32 partials pstride apart (added in order); block
+// b takes rows b rpb .. (b + 1) rpb - 1, warp w every LB_WARPS-th from w;
+// part[b][2C]: the column sums over them of dyl xhat (the LN weight's
+// gradient) and of dyl (its bias'), each in a fixed order. Every load of
+// a row is issued before its first store (a load after a store waits for
+// it: one memory round trip per row, not one per value).
+template <int PER>
+__global__ void __launch_bounds__(LB_WARPS * 32)
+ln_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+              const float* __restrict__ dyl, int np, long pstride,
+              RowMap map,
+              const bf16* __restrict__ res, bf16* __restrict__ dx,
+              float* __restrict__ part, long rows, long rpb, int C) {
+  __shared__ float red[LB_WARPS][2 * PER * 32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float pw[PER], pb[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) pw[i] = pb[i] = 0.f;
+  const long r_end = (blockIdx.x + 1) * rpb < rows ? (blockIdx.x + 1) * rpb
+                                                   : rows;
+  for (long r = (long)blockIdx.x * rpb + warp; r < r_end; r += LB_WARPS) {
+    const long pr = map.padded(r);
+    float xv[PER], dv[PER], rv[PER], s = 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int c = lane + 32 * i;
+      xv[i] = c < C ? to_f32(x[r * C + c]) : 0.f;
+      dv[i] = c < C ? dyl[pr * C + c] : 0.f;
+      rv[i] = c < C && res ? to_f32(res[r * C + c]) : 0.f;
+      s += xv[i];
+    }
+    for (int p = 1; p < np; ++p)       // the other partials, in order
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int c = lane + 32 * i;
+        if (c < C) dv[i] += dyl[p * pstride + pr * C + c];
+      }
+    const float mu = warp_sum(s) / C;
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int c = lane + 32 * i;
+      const float d = c < C ? xv[i] - mu : 0.f;
+      q += d * d;
+    }
+    const float rinv = rsqrtf(warp_sum(q) / C + HB_EPS);
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int c = lane + 32 * i;
+      xv[i] = (xv[i] - mu) * rinv;                   // xhat
+      pw[i] += dv[i] * xv[i];
+      pb[i] += dv[i];
+      dv[i] *= c < C ? __ldg(w + c) : 0.f;          // dxh
+      s1 += dv[i];
+      s2 += dv[i] * xv[i];
+    }
+    const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int c = lane + 32 * i;
+      if (c < C)
+        dx[r * C + c] = to_bf16(rinv * (dv[i] - m1 - xv[i] * m2) + rv[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    red[warp][lane + 32 * i] = pw[i];
+    red[warp][PER * 32 + lane + 32 * i] = pb[i];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 2 * C; e += LB_WARPS * 32) {
+    const int src = e < C ? e : PER * 32 + e - C;
+    float t = 0.f;
+#pragma unroll
+    for (int v = 0; v < LB_WARPS; ++v) t += red[v][src];
+    part[(size_t)blockIdx.x * 2 * C + e] = t;
+  }
+}
+
+static void ln_fwd(const bf16* x, bf16* y, const float* w, const float* b,
+                   RowMap map, long rows, int C, cudaStream_t st) {
+  const unsigned blocks = (unsigned)((rows + 3) / 4);
+  if (C <= 128)
+    ln_fwd_kernel<4><<<blocks, 128, 0, st>>>(x, y, w, b, map, rows, C);
+  else if (C <= 256)
+    ln_fwd_kernel<8><<<blocks, 128, 0, st>>>(x, y, w, b, map, rows, C);
+  else if (C <= 512)
+    ln_fwd_kernel<16><<<blocks, 128, 0, st>>>(x, y, w, b, map, rows, C);
+  else
+    ln_fwd_kernel<32><<<blocks, 128, 0, st>>>(x, y, w, b, map, rows, C);
+}
+
+static void ln_bwd(const bf16* x, const float* w, const float* dyl, int np,
+                   long pstride, RowMap map, const bf16* res, bf16* dx,
+                   float* part, long rows, int C, cudaStream_t st) {
+  const unsigned blocks = (unsigned)ln_blocks(rows);
+  const long rpb = ln_rpb(rows);
+  if (C <= 128)
+    ln_bwd_kernel<4><<<blocks, LB_WARPS * 32, 0, st>>>(
+        x, w, dyl, np, pstride, map, res, dx, part, rows, rpb, C);
+  else if (C <= 256)
+    ln_bwd_kernel<8><<<blocks, LB_WARPS * 32, 0, st>>>(
+        x, w, dyl, np, pstride, map, res, dx, part, rows, rpb, C);
+  else if (C <= 512)
+    ln_bwd_kernel<16><<<blocks, LB_WARPS * 32, 0, st>>>(
+        x, w, dyl, np, pstride, map, res, dx, part, rows, rpb, C);
+  else
+    ln_bwd_kernel<32><<<blocks, LB_WARPS * 32, 0, st>>>(
+        x, w, dyl, np, pstride, map, res, dx, part, rows, rpb, C);
+}
+
+// ---------------------------------------------------------------------------
+// The shortcut's gradient on the padded grid: ds [Hp x Wp rows, C] from
+// the output-grid gradient g [B, Ho, Wo, C]: with q_pool, each 2x2 cell's
+// g goes to the element unpool_pick chooses among the pre-pool values sp
+// [padded rows, C], zeros elsewhere; without, ds = g at grid tokens. Pad
+// tokens and tokens outside every cell get zeros: every element is written.
+// ---------------------------------------------------------------------------
+
+__global__ void shortcut_bwd_kernel(const bf16* __restrict__ gz,
+                                    const bf16* __restrict__ sp,
+                                    bf16* __restrict__ ds, HGeo g) {
+  const int C8 = g.C / 8;                         // 8 channels a thread
+  const long total = (long)g.B * g.Hp * g.Wp * C8;
+  for (long e = blockIdx.x * (long)blockDim.x + threadIdx.x; e < total;
+       e += (long)gridDim.x * blockDim.x) {
+    const int c = (int)(e % C8) * 8;
+    const long p = e / C8;
+    const int x = (int)(p % g.Wp), y = (int)(p / g.Wp % g.Hp);
+    const long b = p / ((long)g.Wp * g.Hp);
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (!g.q_pool) {
+      if (y < g.H && x < g.W)
+        v = __ldg(reinterpret_cast<const uint4*>(
+            gz + ((b * g.H + y) * g.W + x) * g.C + c));
+    } else if (y / 2 < g.Ho && x / 2 < g.Wo) {
+      const long tl = p - (y & 1) * (long)g.Wp - (x & 1);   // cell's top left
+      const int me = 2 * (y & 1) + (x & 1);
+      uint4 cv[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        cv[k] = __ldg(reinterpret_cast<const uint4*>(
+            sp + (tl + (k >> 1) * (long)g.Wp + (k & 1)) * g.C + c));
+      const uint4 gv = __ldg(reinterpret_cast<const uint4*>(
+          gz + ((b * g.Ho + y / 2) * g.Wo + x / 2) * g.C + c));
+      const bf16* c0 = reinterpret_cast<const bf16*>(&cv[0]);
+      const bf16* c1 = reinterpret_cast<const bf16*>(&cv[1]);
+      const bf16* c2 = reinterpret_cast<const bf16*>(&cv[2]);
+      const bf16* c3 = reinterpret_cast<const bf16*>(&cv[3]);
+      const bf16* gg = reinterpret_cast<const bf16*>(&gv);
+      bf16* vv = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        vv[j] = unpool_pick(to_f32(c0[j]), to_f32(c1[j]), to_f32(c2[j]),
+                            to_f32(c3[j])) == me ? gg[j] : to_bf16(0.f);
+    }
+    *reinterpret_cast<uint4*>(ds + p * g.C + c) = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Workspace and the C entry point. Weight table (the forward's, ops/
+// hiera_block_kernel.py pack): ln1w ln1b Wqkv bqkv Wproj bproj ln2w ln2b W1
+// b1 W2 b2 Wsc bsc (the last two null without a dim change). Gradients
+// (f32) in the same order.
 // ---------------------------------------------------------------------------
 
 enum { W_LN1W, W_LN1B, W_QKV, W_BQKV, W_PROJ, W_BPROJ, W_LN2W, W_LN2B, W_1,
        W_B1, W_2, W_B2, W_SC, W_BSC };
 
-struct MlpBufs {
-  bf16 *y, *a, *h, *dac;
-  float *da32, *dyln, *pw1, *pw2, *pb1, *pb2, *pl2w, *pl2b;
-  float2* st;
+// #6's K-split products (the two weight-gradient groups) run in blocks of
+// one warpgroup, 64 rows, three to an SM, where the 128-row blocks of two
+// were slower (not so for the epilogue-heavy products, which keep them),
+// and aim at HB_SPLIT_BLOCKS blocks
+constexpr int HB_SPLIT_BM = 64;
+constexpr int HB_SPLIT_BLOCKS = 264;
+
+// K chunks of a product [M, N] summed over K
+static int ksplits(int M, int N, long K) {
+  int tps;
+  return gm_k_splits(gm_cdiv(M, HB_SPLIT_BM) * gm_cdiv(N, GM_BN), (int)K,
+                     &tps, HB_SPLIT_BLOCKS);
+}
+
+extern "C" int hiera_bwd_k_splits(int M, int N, long K) {
+  return ksplits(M, N, K);
+}
+
+struct Dims {
+  int B, H, W, Cin, C, heads, hid, wsh, wsw, q_pool, sc;
+  HGeo g;
+  long Mo, Mp, Mi;
 };
 
-static MlpBufs carve_mlp(Arena& ar, long M, int C, int Hd) {
-  MlpBufs b{};
-  b.y = ar.take<bf16>(M * C);
-  b.a = ar.take<bf16>(M * Hd);
-  b.h = ar.take<bf16>(M * Hd);
-  b.dac = ar.take<bf16>(M * Hd);
-  b.da32 = ar.take<float>(M * Hd);
-  b.dyln = ar.take<float>(M * C);
-  b.st = ar.take<float2>(M);
-  b.pw1 = ar.take<float>((size_t)row_chunks(M, Hd, C).Z * Hd * C);
-  b.pw2 = ar.take<float>((size_t)row_chunks(M, C, Hd).Z * C * Hd);
-  const size_t zc = cs_chunks(M);
-  b.pb1 = ar.take<float>(zc * Hd);
-  b.pb2 = ar.take<float>(zc * C);
-  b.pl2w = ar.take<float>(zc * C);
-  b.pl2b = ar.take<float>(zc * C);
-  return b;
+static Dims dims(int B, int H, int W, int Cin, int C, int heads, int hid,
+                 int wsh, int wsw, int q_pool, int sc) {
+  Dims d{B, H, W, Cin, C, heads, hid, wsh, wsw, q_pool, sc};
+  d.g = hgeo(B, H, W, C, heads, wsh, wsw, q_pool);
+  d.Mo = (long)B * d.g.Ho * d.g.Wo;
+  d.Mp = (long)B * d.g.Hp * d.g.Wp;
+  d.Mi = (long)B * H * W;
+  return d;
 }
 
-extern "C" long hiera_bwd_mlp_workspace_bytes(long M, int C, int Hd) {
-  Arena ar{nullptr, 0};
-  carve_mlp(ar, M, C, Hd);
-  return (long)ar.off;
-}
-
-extern "C" int hiera_block_bwd_mlp(const void* x1_, const void* dy_,
-                                   void* dx1, const void* const* w,
-                                   void* grads, void* ws, long M, int C,
-                                   int Hd, void* stream_ptr) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
-  Arena ar{static_cast<char*>(ws), 0};
-  MlpBufs b = carve_mlp(ar, M, C, Hd);
-  auto Wt = [&](int i) { return static_cast<const bf16*>(w[i]); };
-  auto F = [&](int i) { return static_cast<const float*>(w[i]); };
-  const bf16* x1 = static_cast<const bf16*>(x1_);
-  const bf16* dy = static_cast<const bf16*>(dy_);
-  float* G = static_cast<float*>(grads);
-  const long g_ln2b = C, g_w1 = 2 * C, g_b1 = g_w1 + (long)Hd * C,
-             g_w2 = g_b1 + Hd, g_b2 = g_w2 + (long)C * Hd;
-  const int zc = cs_chunks(M);
-
-  // recompute: y = LN2(x1), a = y W1^T + b1 (bf16 walk), h = GELU(a)
-  layer_norm<bf16>(x1, b.y, F(W_LN2W), F(W_LN2B), (int)M, C, 1, HB_EPS, 0,
-                   st);
-  BEpi e = bepi(Hd);
-  e.bias = F(W_B1);
-  e.pre = b.a;
-  e.gelu = 1;
-  e.out = b.h;
-  bgemm<false, false>(b.y, C, 0, Wt(W_1), C, 0, (int)M, Hd, C, 1, e, st);
-
-  // da = (dy W2) GELU'(a), f32 and rounded
-  e = bepi(Hd);
-  e.dgelu = b.a;
-  e.out = b.dac;
-  e.out32 = b.da32;
-  bgemm<false, true>(dy, C, 0, Wt(W_2), Hd, 0, (int)M, Hd, C, 1, e, st);
-  colsum(b.da32, nullptr, Hd, nullptr, nullptr, CS_ROWS, M, Hd, b.pb1, Hd,
-         st);
-  wgrad(b.dac, Hd, b.y, C, M, Hd, C, b.pw1, st);       // dW1 = da^T y
-  wgrad(dy, C, b.h, Hd, M, C, Hd, b.pw2, st);          // dW2 = dy^T h
-  colsum(nullptr, dy, C, nullptr, nullptr, CS_ROWS, M, C, b.pb2, C, st);
-  e = bepi(C);
-  e.out32 = b.dyln;                                    // dy_ln = da W1
-  bgemm<false, true>(b.dac, Hd, 0, Wt(W_1), C, 0, (int)M, C, Hd, 1, e, st);
-
-  // LN2 backward + residual: dx1 = dy + LN2'(dy_ln)
-  ln_bwd(x1, F(W_LN2W), b.dyln, nullptr, dy, nullptr, static_cast<bf16*>(dx1),
-         b.st, (int)M, C, HB_EPS, st);
-  colsum(b.dyln, nullptr, C, x1, b.st, CS_ROWS, M, C, b.pl2w, C, st);
-  colsum(b.dyln, nullptr, C, nullptr, nullptr, CS_ROWS, M, C, b.pl2b, C,
-         st);
-
-  reduce_cols(b.pl2w, zc, C, G, st);
-  reduce_cols(b.pl2b, zc, C, G + g_ln2b, st);
-  reduce_cols(b.pw1, row_chunks(M, Hd, C).Z, (long)Hd * C, G + g_w1, st);
-  reduce_cols(b.pb1, zc, Hd, G + g_b1, st);
-  reduce_cols(b.pw2, row_chunks(M, C, Hd).Z, (long)C * Hd, G + g_w2, st);
-  reduce_cols(b.pb2, zc, C, G + g_b2, st);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// B2: LN1 + attention + shortcut backward. Gradients (f32): dln1w[Cin]
-// dln1b[Cin] dWqkv[3C, Cin] dbqkv[3C] dWproj[C, C] dbproj[C], then, on
-// dim-change blocks, dWsc[C, Cin] dbsc[C].
-// ---------------------------------------------------------------------------
-
-struct AttnBufs {
-  bf16 *xn, *qkv, *scf, *dob, *o, *dqkv, *dsp;
-  float *sm, *sinv, *sD, *dxn, *pwp, *pbp, *pwqkv, *pbqkv, *pwsc, *pbsc,
-      *pl1w, *pl1b;
-  float2* st;
-  int nslots;
+struct Bufs {
+  // B1
+  bf16 *y, *a, *h, *dh, *dx1;
+  float *dyl, *pw1, *c1, *pw2, *c2, *pl2;
+  // B2
+  bf16 *xn, *qkv, *sp, *dob, *o, *dqkv, *ds;
+  float4* stats;
+  float *dxn, *pwp, *cp, *pwq, *cq, *pws, *cs, *pl1;
+  int s1, s2, sp_, sq, ss, sy, sx;
 };
 
-static AttnBufs carve_attn(Arena& ar, int B, int H, int W, int Cin, int C,
-                           int heads, int wsh, int wsw, int q_pool) {
-  const AttnGeom G = attn_geom(H, W, C, heads, wsh, wsw, q_pool);
-  const long Mi = (long)B * H * W, Mo = (long)B * G.Ho * G.Wo;
-  const bool sc = Cin != C;
-  AttnBufs b{};
-  b.nslots = (H % wsh || W % wsw)
-                 ? B * G.nWh * G.nWw * ((G.T + AB_TILE - 1) / AB_TILE)
-                 : 0;
-  b.xn = ar.take<bf16>(Mi * Cin);
-  b.qkv = ar.take<bf16>(Mi * 3 * C);
-  b.scf = sc && q_pool ? ar.take<bf16>(Mi * C) : nullptr;
-  b.dob = ar.take<bf16>(Mo * C);
-  b.o = ar.take<bf16>(Mo * C);
-  b.sm = ar.take<float>(Mo * heads);
-  b.sinv = ar.take<float>(Mo * heads);
-  b.sD = ar.take<float>(Mo * heads);
-  b.dqkv = ar.take<bf16>(Mi * 3 * C);
-  b.dsp = sc && q_pool ? ar.take<bf16>(Mi * C) : nullptr;
-  b.dxn = ar.take<float>(Mi * Cin);
-  b.st = ar.take<float2>(Mi);
-  const size_t zi = cs_chunks(Mi), zo = cs_chunks(Mo);
-  b.pwp = ar.take<float>((size_t)row_chunks(Mo, C, C).Z * C * C);
-  b.pbp = ar.take<float>(zo * C);
-  b.pwqkv = ar.take<float>((size_t)row_chunks(Mi, 3 * C, Cin).Z * 3 * C *
-                           Cin);
-  b.pbqkv = ar.take<float>((zi + b.nslots) * 3 * C);
-  if (sc) {
-    b.pwsc = ar.take<float>((size_t)row_chunks(Mi, C, Cin).Z * C * Cin);
-    b.pbsc = ar.take<float>(zi * C);
+static Bufs carve(Arena& ar, const Dims& d) {
+  const HGeo& g = d.g;
+  const int C = d.C, C3 = 3 * C;
+  Bufs b{};
+  b.s1 = ksplits(d.hid, C, d.Mo);
+  b.s2 = ksplits(C, d.hid, d.Mo);
+  b.sp_ = ksplits(C, C, d.Mo);
+  b.sq = ksplits(C3, d.Cin, d.Mp);
+  b.ss = d.sc ? ksplits(C, d.Cin, d.Mp) : 0;
+  b.sy = ksplits((int)d.Mo, C, d.hid);
+  b.sx = ksplits((int)d.Mp, d.Cin, (gm_cdiv(C3, GM_BK) +
+                                    (d.sc ? gm_cdiv(C, GM_BK) : 0)) * GM_BK);
+  b.y = ar.take<bf16>(d.Mo * C);
+  b.a = ar.take<bf16>(d.Mo * d.hid);
+  b.h = ar.take<bf16>(d.Mo * d.hid);
+  b.dh = ar.take<bf16>(d.Mo * d.hid);
+  b.dx1 = ar.take<bf16>(d.Mo * C);
+  b.dyl = ar.take<float>(b.sy * d.Mo * C);
+  b.pw1 = ar.take<float>((size_t)b.s1 * d.hid * C);
+  b.c1 = ar.take<float>((size_t)b.s1 * d.hid);
+  b.pw2 = ar.take<float>((size_t)b.s2 * C * d.hid);
+  b.c2 = ar.take<float>((size_t)b.s2 * C);
+  b.pl2 = ar.take<float>((size_t)ln_blocks(d.Mo) * 2 * C);
+  b.xn = ar.take<bf16>(d.Mp * d.Cin);
+  b.qkv = ar.take<bf16>(d.Mp * C3);
+  b.sp = d.sc && d.q_pool ? ar.take<bf16>(d.Mp * C) : nullptr;
+  b.dob = ar.take<bf16>(d.Mo * C);
+  b.o = ar.take<bf16>(d.Mo * C);
+  b.stats = ar.take<float4>((size_t)g.ngroups * g.heads * g.qtiles * AT_ROWS);
+  b.dqkv = ar.take<bf16>(d.Mp * C3);
+  b.ds = d.sc ? ar.take<bf16>(d.Mp * C) : nullptr;
+  b.dxn = ar.take<float>(b.sx * d.Mp * d.Cin);
+  b.pwp = ar.take<float>((size_t)b.sp_ * C * C);
+  b.cp = ar.take<float>((size_t)b.sp_ * C);
+  b.pwq = ar.take<float>((size_t)b.sq * C3 * d.Cin);
+  b.cq = ar.take<float>((size_t)b.sq * C3);
+  if (d.sc) {
+    b.pws = ar.take<float>((size_t)b.ss * C * d.Cin);
+    b.cs = ar.take<float>((size_t)b.ss * C);
   }
-  b.pl1w = ar.take<float>(zi * Cin);
-  b.pl1b = ar.take<float>(zi * Cin);
+  b.pl1 = ar.take<float>((size_t)ln_blocks(d.Mi) * 2 * d.Cin);
   return b;
 }
 
-extern "C" long hiera_bwd_attn_workspace_bytes(int B, int H, int W, int Cin,
-                                               int C, int heads, int wsh,
-                                               int wsw, int q_pool) {
+extern "C" long hiera_bwd_workspace_bytes(int B, int H, int W, int Cin, int C,
+                                          int heads, int hid, int wsh, int wsw,
+                                          int q_pool, int sc) {
   Arena ar{nullptr, 0};
-  carve_attn(ar, B, H, W, Cin, C, heads, wsh, wsw, q_pool);
+  carve(ar, dims(B, H, W, Cin, C, heads, hid, wsh, wsw, q_pool, sc));
   return (long)ar.off;
 }
 
-extern "C" int hiera_block_bwd_attn(const void* x_, const void* dx1_,
-                                    void* dx, const void* const* w,
-                                    void* grads, void* ws, int B, int H,
-                                    int W, int Cin, int C, int heads,
-                                    int wsh, int wsw, int q_pool,
-                                    void* stream_ptr) {
+static GemmOp wgrad_op(const bf16* dy, long lda, const bf16* x, long ldb,
+                       int M, int N, long K, float* part, float* colsum) {
+  GemmOp o = gemm_op(dy, lda, 1, x, ldb, 1, M, N, (int)K);
+  o.part = part;
+  o.colsum = colsum;
+  o.target = HB_SPLIT_BLOCKS;
+  return o;
+}
+
+// x [B, H, W, Cin], x1 / dy [B, Ho, Wo, C] bf16 -> dx [B, H, W, Cin] bf16
+// and every leaf's gradient (f32, the weight table's order)
+extern "C" int hiera_block_bwd(const void* x_, const void* x1_,
+                               const void* dy_, void* dx_,
+                               const void* const* w, void* grads, void* ws,
+                               int B, int H, int W, int Cin, int C, int heads,
+                               int hid, int wsh, int wsw, int q_pool,
+                               void* stream_ptr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+  const int sc = w[W_SC] != nullptr;
+  const Dims d = dims(B, H, W, Cin, C, heads, hid, wsh, wsw, q_pool, sc);
+  const HGeo& g = d.g;
+  if (g.hd > AT_COLS || g.hd % 8 || C % 32 || Cin % 32 || hid % 32 ||
+      Cin > LN_MAX_C || C > LN_MAX_C || (q_pool && (wsh % 2 || wsw % 2)))
+    return (int)cudaErrorInvalidValue;
   Arena ar{static_cast<char*>(ws), 0};
-  AttnBufs b = carve_attn(ar, B, H, W, Cin, C, heads, wsh, wsw, q_pool);
-  const AttnGeom G = attn_geom(H, W, C, heads, wsh, wsw, q_pool);
+  const Bufs b = carve(ar, d);
   auto Wt = [&](int i) { return static_cast<const bf16*>(w[i]); };
   auto F = [&](int i) { return static_cast<const float*>(w[i]); };
   const bf16* x = static_cast<const bf16*>(x_);
-  const bf16* gz = static_cast<const bf16*>(dx1_);
-  float* Gr = static_cast<float*>(grads);
-  const long Mi = (long)B * H * W, Mo = (long)B * G.Ho * G.Wo;
-  const int C3 = 3 * C, zi = cs_chunks(Mi), zo = cs_chunks(Mo);
-  const bool sc = w[W_SC] != nullptr;
-  const long g_ln1b = Cin, g_wqkv = 2 * Cin, g_bqkv = g_wqkv + (long)C3 * Cin,
-             g_wp = g_bqkv + C3, g_bp = g_wp + (long)C * C, g_wsc = g_bp + C,
-             g_bsc = g_wsc + (long)C * Cin;
+  const bf16* x1 = static_cast<const bf16*>(x1_);
+  const bf16* dy = static_cast<const bf16*>(dy_);
+  const int C3 = 3 * C;
+  const RowMap out_map{g.Ho, g.Wo, g.Ho, g.Wo};
+  const RowMap in_map{H, W, g.Hp, g.Wp};
+  int err;
 
-  // recompute: xn = LN1(x), qkv, the shortcut's pre-pool values
-  layer_norm<bf16>(x, b.xn, F(W_LN1W), F(W_LN1B), (int)Mi, Cin, 1, HB_EPS, 0,
-                   st);
-  gemm(DenseA{b.xn, Cin}, Wt(W_QKV), b.qkv, (int)Mi, C3, Cin,
-       epi(F(W_BQKV)), st);
-  if (sc && q_pool)
-    gemm(DenseA{b.xn, Cin}, Wt(W_SC), b.scf, (int)Mi, C, Cin, epi(F(W_BSC)),
-         st);
+  // ---- B1: y = LN2(x1); a = y W1^T + b1, h = GELU(a); dh = (dy W2)
+  // GELU'(a); dy_ln = dh W1, dW1 = dh^T y (+ db1), dW2 = dy^T h (+ db2);
+  // dx1 = dy + LN2'(dy_ln)
+  ln_fwd(x1, b.y, F(W_LN2W), F(W_LN2B), out_map, d.Mo, C, st);
+  GemmGroup G{};
+  G.n = 1;
+  G.op[0] = gemm_op(b.y, C, 0, Wt(W_1), C, 0, (int)d.Mo, hid, C);
+  G.op[0].bias = F(W_B1);
+  G.op[0].pre = b.a;
+  G.op[0].gelu = 1;
+  G.op[0].out = b.h;
+  if ((err = gemm_group(G, st))) return err;
+  G = GemmGroup{};
+  G.n = 1;
+  G.op[0] = gemm_op(dy, C, 0, Wt(W_2), hid, 1, (int)d.Mo, hid, C);
+  G.op[0].dgelu = b.a;
+  G.op[0].out = b.dh;
+  if ((err = gemm_group(G, st))) return err;
+  G = GemmGroup{};
+  G.n = 3;
+  G.op[0] = gemm_op(b.dh, hid, 0, Wt(W_1), C, 1, (int)d.Mo, C, hid);
+  G.op[0].part = b.dyl;                 // dy_ln in K chunks
+  G.op[0].target = HB_SPLIT_BLOCKS;
+  G.op[1] = wgrad_op(b.dh, hid, b.y, C, hid, C, d.Mo, b.pw1, b.c1);
+  G.op[2] = wgrad_op(dy, C, b.h, hid, C, hid, d.Mo, b.pw2, b.c2);
+  if ((err = gemm_group<HB_SPLIT_BM>(G, st))) return err;
+  ln_bwd(x1, F(W_LN2W), b.dyl, b.sy, d.Mo * C, out_map, dy, b.dx1, b.pl2,
+         d.Mo, C, st);
 
-  // dO = dx1 Wproj (bf16), then the attention output and its statistics
-  BEpi e = bepi(C);
-  e.out = b.dob;
-  bgemm<false, true>(gz, C, 0, Wt(W_PROJ), C, 0, (int)Mo, C, C, 1, e, st);
-  const AttnStats as{b.sm, b.sinv, b.sD, b.dob, heads};
-  window_attention(b.qkv, F(W_BQKV), b.o, B, H, W, C, heads, wsh, wsw, q_pool,
-                   as, st);
-  wgrad(gz, C, b.o, C, Mo, C, C, b.pwp, st);            // dWproj = dx1^T o
-  colsum(nullptr, gz, C, nullptr, nullptr, CS_ROWS, Mo, C, b.pbp, C, st);
+  // ---- B2: xn = LN1(x) on the padded grid; qkv (and the shortcut's
+  // pre-pool values) with kernel #1's bias walk; dO = dx1 Wproj
+  ln_fwd(x, b.xn, F(W_LN1W), F(W_LN1B), in_map, d.Mp, Cin, st);
+  G = GemmGroup{};
+  G.op[G.n] = gemm_op(b.xn, Cin, 0, Wt(W_QKV), Cin, 0, (int)d.Mp, C3, Cin);
+  G.op[G.n].bias = F(W_BQKV);
+  G.op[G.n].bias_once = 1;
+  G.op[G.n++].out = b.qkv;
+  if (b.sp) {
+    G.op[G.n] = gemm_op(b.xn, Cin, 0, Wt(W_SC), Cin, 0, (int)d.Mp, C, Cin);
+    G.op[G.n].bias = F(W_BSC);
+    G.op[G.n].bias_once = 1;
+    G.op[G.n++].out = b.sp;
+  }
+  G.op[G.n] = gemm_op(b.dx1, C, 0, Wt(W_PROJ), C, 1, (int)d.Mo, C, C);
+  G.op[G.n++].out = b.dob;
+  if ((err = gemm_group(G, st))) return err;
 
-  // attention: dq into dqkv[:, :C], dk and dv into dqkv[:, C:], pad keys'
-  // dk and dv into the slots after the bias partials
-  float* padpart = b.nslots ? b.pbqkv + (size_t)zi * C3 : nullptr;
-  if (padpart)
-    cudaMemsetAsync(padpart, 0, sizeof(float) * (size_t)b.nslots * C3, st);
-  attn_bwd(b.qkv, F(W_BQKV), b.dob, as, b.dqkv, padpart, G, B, st);
+  // ---- attention: statistics and O, dq (one pass where a group's keys
+  // fit a tile), dk and dv
+  const dim3 gq(g.qtiles, heads, g.ngroups), gk(g.ktiles, heads, g.ngroups);
+  if (g.ktiles == 1) {
+    if ((err = (int)set_smem(attn_onepass_kernel, A1Smem::BYTES))) return err;
+    attn_onepass_kernel<<<gq, AT_THREADS, A1Smem::BYTES, st>>>(
+        b.qkv, b.dob, b.o, b.stats, b.dqkv, g);
+  } else {
+    const int bytes = AfSmem::bytes(g.ktiles);
+    if ((err = (int)set_smem(attn_fwd_kernel, bytes))) return err;
+    if ((err = (int)set_smem(attn_dq_kernel, bytes))) return err;
+    attn_fwd_kernel<<<gq, AT_THREADS, bytes, st>>>(b.qkv, b.dob, b.o, b.stats,
+                                                   g);
+    attn_dq_kernel<<<gq, AT_THREADS, bytes, st>>>(b.qkv, b.dob, b.stats,
+                                                  b.dqkv, g);
+  }
+  const int kbytes = AkSmem::bytes(g.qtiles);
+  if ((err = (int)set_smem(attn_dkv_kernel, kbytes))) return err;
+  attn_dkv_kernel<<<gk, AT_THREADS, kbytes, st>>>(b.qkv, b.dob, b.stats,
+                                                  b.dqkv, g);
 
-  // qkv projection
-  wgrad(b.dqkv, C3, b.xn, Cin, Mi, C3, Cin, b.pwqkv, st);
-  colsum(nullptr, b.dqkv, C3, nullptr, nullptr, CS_ROWS, Mi, C3, b.pbqkv,
-         C3, st);
-  e = bepi(Cin);
-  e.out32 = b.dxn;                                      // dxn = dqkv Wqkv
-  bgemm<false, true>(b.dqkv, C3, 0, Wt(W_QKV), Cin, 0, (int)Mi, Cin, C3, 1, e,
-                     st);
-
-  // shortcut projection (dim-change blocks), through the 2x2 max-pool
+  // ---- shortcut (dim-change blocks): ds on the padded grid
   if (sc) {
-    const bf16* dsp = gz;
-    if (q_pool) {
-      cudaMemsetAsync(b.dsp, 0, sizeof(bf16) * (size_t)Mi * C, st);
-      const size_t total = (size_t)Mo * C;
-      const int blocks =
-          (int)((total + 255) / 256 < 65535 ? (total + 255) / 256 : 65535);
-      unpool2x2_kernel<<<blocks, 256, 0, st>>>(gz, b.scf, b.dsp, B, H, W, C);
-      dsp = b.dsp;
-    }
-    wgrad(dsp, C, b.xn, Cin, Mi, C, Cin, b.pwsc, st);   // dWsc = ds^T xn
-    colsum(nullptr, dsp, C, nullptr, nullptr, CS_ROWS, Mi, C, b.pbsc, C, st);
-    e = bepi(Cin);
-    e.res32 = b.dxn;
-    e.out32 = b.dxn;                                    // dxn += ds Wsc
-    bgemm<false, true>(dsp, C, 0, Wt(W_SC), Cin, 0, (int)Mi, Cin, C, 1, e,
-                       st);
+    const long n = d.Mp * C / 8;
+    const unsigned blocks = (unsigned)((n + 255) / 256 < 8192 ? (n + 255) / 256
+                                                              : 8192);
+    shortcut_bwd_kernel<<<blocks, 256, 0, st>>>(b.dx1, b.sp, b.ds, g);
   }
 
-  // LN1 backward (+ the identity shortcut's gradient)
-  ln_bwd(x, F(W_LN1W), b.dxn, nullptr, sc ? nullptr : gz, nullptr,
-         static_cast<bf16*>(dx), b.st, (int)Mi, Cin, HB_EPS, st);
-  colsum(b.dxn, nullptr, Cin, x, b.st, CS_ROWS, Mi, Cin, b.pl1w, Cin, st);
-  colsum(b.dxn, nullptr, Cin, nullptr, nullptr, CS_ROWS, Mi, Cin, b.pl1b,
+  // ---- dWproj = dx1^T o (+ dbproj), dWqkv = dqkv^T xn (+ dbqkv, pad keys
+  // included), dWsc = ds^T xn (+ dbsc), dxn = dqkv Wqkv (+ ds Wsc)
+  G = GemmGroup{};
+  G.op[G.n++] = wgrad_op(b.dx1, C, b.o, C, C, C, d.Mo, b.pwp, b.cp);
+  G.op[G.n++] = wgrad_op(b.dqkv, C3, b.xn, Cin, C3, Cin, d.Mp, b.pwq, b.cq);
+  if (sc)
+    G.op[G.n++] = wgrad_op(b.ds, C, b.xn, Cin, C, Cin, d.Mp, b.pws, b.cs);
+  G.op[G.n] = gemm_op(b.dqkv, C3, 0, Wt(W_QKV), Cin, 1, (int)d.Mp, Cin, C3);
+  if (sc) {
+    G.op[G.n].a2 = b.ds;
+    G.op[G.n].lda2 = C;
+    G.op[G.n].b2 = Wt(W_SC);
+    G.op[G.n].ldb2 = Cin;
+    G.op[G.n].K2 = C;
+  }
+  G.op[G.n].target = HB_SPLIT_BLOCKS;
+  G.op[G.n++].part = b.dxn;             // dxn in K chunks
+  if ((err = gemm_group<HB_SPLIT_BM>(G, st))) return err;
+
+  // ---- LN1 backward (+ the identity shortcut's gradient)
+  bf16* dx = static_cast<bf16*>(dx_);
+  ln_bwd(x, F(W_LN1W), b.dxn, b.sx, d.Mp * Cin, in_map, sc ? nullptr : b.dx1,
+         dx, b.pl1, d.Mi,
          Cin, st);
 
-  reduce_cols(b.pl1w, zi, Cin, Gr, st);
-  reduce_cols(b.pl1b, zi, Cin, Gr + g_ln1b, st);
-  reduce_cols(b.pwqkv, row_chunks(Mi, C3, Cin).Z, (long)C3 * Cin,
-              Gr + g_wqkv, st);
-  reduce_cols(b.pbqkv, zi + b.nslots, C3, Gr + g_bqkv, st);
-  reduce_cols(b.pwp, row_chunks(Mo, C, C).Z, (long)C * C, Gr + g_wp, st);
-  reduce_cols(b.pbp, zo, C, Gr + g_bp, st);
+  // ---- every partial, added in order (the leaves' order)
+  const int n1 = (int)ln_blocks(d.Mi), n2 = (int)ln_blocks(d.Mo);
+  RedPlan R{};
+  reduce_add(R, b.pl1, 2L * Cin, n1, Cin);                      // ln1w
+  reduce_add(R, b.pl1 + Cin, 2L * Cin, n1, Cin);                // ln1b
+  reduce_add(R, b.pwq, (long)C3 * Cin, b.sq, (long)C3 * Cin);   // Wqkv
+  reduce_add(R, b.cq, C3, b.sq, C3);                            // bqkv
+  reduce_add(R, b.pwp, (long)C * C, b.sp_, (long)C * C);        // Wproj
+  reduce_add(R, b.cp, C, b.sp_, C);                             // bproj
+  reduce_add(R, b.pl2, 2L * C, n2, C);                          // ln2w
+  reduce_add(R, b.pl2 + C, 2L * C, n2, C);                      // ln2b
+  reduce_add(R, b.pw1, (long)hid * C, b.s1, (long)hid * C);     // W1
+  reduce_add(R, b.c1, hid, b.s1, hid);                          // b1
+  reduce_add(R, b.pw2, (long)C * hid, b.s2, (long)C * hid);     // W2
+  reduce_add(R, b.c2, C, b.s2, C);                              // b2
   if (sc) {
-    reduce_cols(b.pwsc, row_chunks(Mi, C, Cin).Z, (long)C * Cin, Gr + g_wsc,
-                st);
-    reduce_cols(b.pbsc, zi, C, Gr + g_bsc, st);
+    reduce_add(R, b.pws, (long)C * Cin, b.ss, (long)C * Cin);   // Wsc
+    reduce_add(R, b.cs, C, b.ss, C);                            // bsc
   }
+  reduce_launch(R, static_cast<float*>(grads), st);
   return (int)cudaGetLastError();
 }

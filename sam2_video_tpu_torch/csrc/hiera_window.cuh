@@ -1,8 +1,7 @@
-// Hiera attention on the tensor cores, shared by the block's forward
-// (hiera_block.cu, kernel #1) and its backward (hiera_block_bwd.cu, kernel
-// #6, which recomputes the forward's attention output and keeps its row
-// statistics): the 2x2 max-pool of the shortcut, and windowed / global
-// attention with pad tokens as keys and 2x2 q-pooling inside each window.
+// Hiera attention on the tensor cores, for the block's forward
+// (hiera_block.cu, kernel #1): the 2x2 max-pool of the shortcut, and
+// windowed / global attention with pad tokens as keys and 2x2 q-pooling
+// inside each window.
 #pragma once
 
 #include "common.cuh"
@@ -95,24 +94,11 @@ static size_t attention_smem_bytes(int hd) {
                          (size_t)hdp * (ATT_KC + ATT_PAD) + 3 * (size_t)hdp);
 }
 
-// Row statistics of the attention for its backward (all null in the
-// forward): per kept query token tok (on the output grid) and head h, at
-// tok * heads + h, the row max m, the inverse row sum inv of the exact
-// softmax, and D = sum_d dout[tok, h*hd + d] * o[tok, h*hd + d] over the
-// f32 output before rounding.
-struct AttnStats {
-  float* m;
-  float* inv;
-  float* D;
-  const bf16* dout;
-  int heads;
-};
-
 __global__ void __launch_bounds__(ATT_THREADS)
 window_attention_kernel(const bf16* __restrict__ qkv,
                         const float* __restrict__ bqkv, bf16* __restrict__ out,
                         int H, int W, int C, int hd, int wsh, int wsw,
-                        int nWh, int nWw, int q_pool, AttnStats st) {
+                        int nWh, int nWw, int q_pool) {
   extern __shared__ __align__(16) unsigned char att_smem[];
   const int hdp = (hd + 15) & ~15;               // k-dim of Q K^T, padded
   const int LDQ = hdp + ATT_PAD, LDV = ATT_KC + ATT_PAD;
@@ -329,29 +315,6 @@ window_attention_kernel(const bf16* __restrict__ qkv,
     const int oy = wy * qh + qi / qw, ox = wx * qw + qi % qw;
     const bool kept = qi < Tq && oy < Ho && ox < Wo;
     const size_t tok = ((size_t)b * Ho + oy) * Wo + ox;
-    if (st.m) {
-      // the backward's row statistics; D = dO . O over the f32 output
-      float dsum = 0.f;
-      if (kept) {
-        const bf16* dr = st.dout + tok * C + h * hd;
-#pragma unroll
-        for (int dn = 0; dn < ATT_MAX_HD / 8; ++dn)
-          if (dn < ndn) {
-            const __nv_bfloat162 d2 =
-                *reinterpret_cast<const __nv_bfloat162*>(dr + dn * 8 + 2 * t4);
-            dsum += __low2float(d2) * o[dn][2 * r] +
-                    __high2float(d2) * o[dn][2 * r + 1];
-          }
-      }
-      dsum += __shfl_xor_sync(0xffffffff, dsum, 1);
-      dsum += __shfl_xor_sync(0xffffffff, dsum, 2);
-      if (kept && t4 == 0) {
-        const size_t si = tok * st.heads + h;
-        st.m[si] = m[r];
-        st.inv[si] = inv[r];
-        st.D[si] = dsum;
-      }
-    }
     if (!kept) continue;
     bf16* dst = out + tok * C + h * hd;
 #pragma unroll
@@ -366,8 +329,7 @@ window_attention_kernel(const bf16* __restrict__ qkv,
 // above 48 KB is opted into once per size)
 static void window_attention(const bf16* qkv, const float* bqkv, bf16* out,
                              int B, int H, int W, int C, int heads, int wsh,
-                             int wsw, int q_pool, const AttnStats& st,
-                             cudaStream_t stream) {
+                             int wsw, int q_pool, cudaStream_t stream) {
   const int hd = C / heads;
   const int nWh = (H + wsh - 1) / wsh, nWw = (W + wsw - 1) / wsw;
   const int Tq = q_pool ? (wsh / 2) * (wsw / 2) : wsh * wsw;
@@ -381,7 +343,7 @@ static void window_attention(const bf16* qkv, const float* bqkv, bf16* out,
   }
   dim3 grid((Tq + ATT_Q - 1) / ATT_Q, heads, B * nWh * nWw);
   window_attention_kernel<<<grid, ATT_THREADS, smem, stream>>>(
-      qkv, bqkv, out, H, W, C, hd, wsh, wsw, nWh, nWw, q_pool, st);
+      qkv, bqkv, out, H, W, C, hd, wsh, wsw, nWh, nWw, q_pool);
 }
 
 

@@ -1185,81 +1185,6 @@ static void ln_bwd_part(const bf16* x, const float* w, const float* dy,
       x, w, dy, dy_parts, g32, gb, dx32, dxb, part, rows);
 }
 
-constexpr int MAX_RED = 12;
-constexpr int RD_COLS = 32, RD_LANES = 8;   // float4 columns x lanes
-
-// out[dst + j] = the sum over i < count of src[i stride + j] in a fixed
-// order (lane l of RD_LANES adds i = l, l + 8, .. in turn, then the lane
-// sums are added in lane order), for each segment (segments in order of
-// dst, each a multiple of 4 long, together covering the output); a thread
-// takes 4 outputs at a time
-struct RedSeg {
-  const float* src;
-  long stride, len, dst;
-  int count;
-};
-
-struct RedPlan {
-  RedSeg seg[MAX_RED];
-  int n;
-  long total;
-};
-
-__global__ void __launch_bounds__(RD_COLS * RD_LANES)
-reduce_kernel(const __grid_constant__ RedPlan P, float* __restrict__ out) {
-  __shared__ float4 red[RD_LANES][RD_COLS];
-  const int ly = threadIdx.y;
-  for (long c4 = (long)blockIdx.x * RD_COLS; c4 * 4 < P.total;
-       c4 += (long)gridDim.x * RD_COLS) {
-    const long i = (c4 + threadIdx.x) * 4;
-    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (i < P.total) {
-      int s = 0;
-      while (i >= P.seg[s].dst + P.seg[s].len) ++s;
-      const float* src = P.seg[s].src + (i - P.seg[s].dst);
-      const long stride = P.seg[s].stride;
-      const int count = P.seg[s].count;
-  #pragma unroll 4
-    for (int k = ly; k < count; k += RD_LANES) {
-        const float4 v = __ldg(reinterpret_cast<const float4*>(
-            src + (size_t)k * stride));
-        t.x += v.x;
-        t.y += v.y;
-        t.z += v.z;
-        t.w += v.w;
-      }
-    }
-    red[ly][threadIdx.x] = t;
-    __syncthreads();
-    if (ly == 0 && i < P.total) {
-      float4 r = red[0][threadIdx.x];
-#pragma unroll
-      for (int l = 1; l < RD_LANES; ++l) {
-        const float4 v = red[l][threadIdx.x];
-        r.x += v.x;
-        r.y += v.y;
-        r.z += v.z;
-        r.w += v.w;
-      }
-      *reinterpret_cast<float4*>(out + i) = r;
-    }
-    __syncthreads();
-  }
-}
-
-static void reduce_add(RedPlan& P, const float* src, long stride, int count,
-                       long len) {
-  P.seg[P.n] = RedSeg{src, stride, len, P.total, count};
-  P.total += len;
-  ++P.n;
-}
-
-static void reduce_launch(const RedPlan& P, float* out, cudaStream_t st) {
-  const int chunks = cdiv(P.total, 4 * RD_COLS);
-  reduce_kernel<<<chunks < 1056 ? chunks : 1056, dim3(RD_COLS, RD_LANES), 0,
-                  st>>>(P, out);
-}
-
 // K chunks of a weight gradient [M, N] summed over K rows
 static int wsplits(int M, int N, int K) {
   int tps;

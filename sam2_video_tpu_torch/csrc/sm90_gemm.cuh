@@ -1,5 +1,6 @@
 // A pipelined batched GEMM for Hopper (sm_90a) on wgmma, for the port's
-// row-wise products (the memory-attention layer blocks, #4 and #5):
+// row-wise products (the memory-attention layer blocks, #4 and #5, and the
+// Hiera block backward, #6):
 //   C(m, n) = epilogue(sum_k A(m, k) B(n, k)),
 // with A(m, k) read from a row-major matrix as a[m lda + k] (K-major) or
 // a[k lda + m] (MN-major), B(n, k) as b[n ldb + k] or b[k ldb + n]:
@@ -8,9 +9,10 @@
 //   - dW = dy^T x (both MN-major: the sum runs over the rows of dy and x).
 // Every operand tile is staged by cp.async into the 128-byte-swizzled layout
 // that wgmma reads (a transposed operand is read by its descriptor, never
-// scattered), through a ring of GM_STAGES stages; a block of two
-// warpgroups owns 128 rows x 128 columns of C, each warpgroup 64 rows with
-// m64n128k16 products into f32 registers.
+// scattered), through a ring of GM_STAGES stages; a block of one or two
+// warpgroups (gemm_group<BM>: 64 or 128 rows) owns BM rows x 128 columns
+// of C, each warpgroup 64 rows with m64n128k16 products into f32
+// registers.
 //
 // A weight gradient sums over all rows of all objects in one K loop, cut
 // into a fixed number of K chunks (gm_k_splits: from the output tiles and
@@ -24,16 +26,22 @@
 // (GemmGroup: up to GM_MAX_OPS, blocks laid out op after op).
 //
 // The bf16 epilogue walks the compute dtype as the JAX kernels do
-// (ops/common.py linear): round(acc), + round(bias), round, ReLU, the ReLU
-// backward's mask (from the rounded pre-activation), + residual, round.
+// (ops/common.py linear): round(acc), + round(bias), round; or, with
+// bias_once, acc + bias in f32 and one rounding (kernel #1's walk, which
+// #6 recomputes). #6 also takes exact-erf GELU after the bias (the value
+// before it stored as `pre`), GELU's derivative at a stored pre-activation
+// as a factor, and a second (A, B, K) pair that continues the same sum
+// (dxn = dqkv Wqkv + ds Wsc).
+//
+// Beside it, the ordered reduce of the K-split partials (reduce_kernel).
 #pragma once
 
 #include "common.cuh"
 #include "sm90.cuh"
 
-constexpr int GM_BM = 128;           // rows of C per block (two warpgroups)
+constexpr int GM_BM = 128;           // rows of C per block (two warpgroups;
+                                     // 64: one, three blocks an SM)
 constexpr int GM_BN = 128;           // columns of C per block
-constexpr int GM_THREADS = 256;
 constexpr int GM_BK = 64;            // K per stage
 constexpr int GM_STAGES = 3;         // depth of the cp.async ring
 constexpr int GM_MAX_OPS = 4;        // products per grouped launch
@@ -149,19 +157,29 @@ struct GemmOp {
   long lda, ldb;
   int M, N, K;
   int ta, tb;            // A / B read MN-major
-  // epilogue (ignored with part): bias [N] f32, ReLU, mask [M, ldo] bf16
-  // (v = mask > 0 ? v : 0), residual [M, ldo] bf16, stores bf16 / f32
+  // a second product summed into the same accumulator (A K-major, no
+  // K split): K2 more values of k from a2 / b2 (K2 = 0: none)
+  const bf16* a2;
+  const bf16* b2;
+  long lda2, ldb2;
+  int K2;
+  // epilogue: an f32 store (out32) of the sum, or a bf16 store (out) of
+  // the sum after bias [N] f32 (bias_once: no rounding before the bias),
+  // exact GELU and a factor GELU'(dgelu) (dgelu [M, ldo] bf16), with the
+  // value after the bias stored as `pre` [M, ldo] bf16
   const float* bias;
-  int relu;
-  const bf16* mask;
-  const bf16* res;
+  int bias_once, gelu;
+  bf16* pre;
+  const bf16* dgelu;
   bf16* out;
   float* out32;
   long ldo;
-  // K-split weight gradient: f32 partials [splits][M][N], and with ta the
-  // column sums of A [splits][M] (or null)
+  // K split: f32 partials [splits][M][N] (about `target` blocks, 0:
+  // GM_TARGET_BLOCKS), and with ta the column sums of A [splits][M] (or
+  // null)
   float* part;
   float* colsum;
+  int target;
   // filled by gemm_group
   int splits, tiles_per_split, mt, nt, first_block;
 };
@@ -191,12 +209,18 @@ __host__ __device__ inline int gm_cdiv(long a, long b) {
   return (int)((a + b - 1) / b);
 }
 
-// K chunks of a weight gradient with `tiles` output tiles summed over K
-// rows: about GM_TARGET_BLOCKS blocks, chunks of at least GM_MIN_CHUNK
-// 64-row tiles, none empty. Depends on the shapes only.
-static inline int gm_k_splits(int tiles, int K, int* tiles_per_split) {
+// K of an op in whole 64-deep tiles of each of its products
+static inline int gm_k_depth(const GemmOp& o) {
+  return (gm_cdiv(o.K, GM_BK) + gm_cdiv(o.K2, GM_BK)) * GM_BK;
+}
+
+// K chunks of a product with `tiles` output tiles summed over K: about
+// `target` blocks, chunks of at least GM_MIN_CHUNK 64-deep tiles, none
+// empty. Depends on the shapes only.
+static inline int gm_k_splits(int tiles, int K, int* tiles_per_split,
+                              int target = GM_TARGET_BLOCKS) {
   const int kt = gm_cdiv(K, GM_BK);
-  int s = gm_cdiv(GM_TARGET_BLOCKS, tiles);
+  int s = gm_cdiv(target, tiles);
   const int cap = kt / GM_MIN_CHUNK > 1 ? kt / GM_MIN_CHUNK : 1;
   s = s < cap ? s : cap;
   const int tps = gm_cdiv(kt, s);
@@ -204,19 +228,22 @@ static inline int gm_k_splits(int tiles, int K, int* tiles_per_split) {
   return gm_cdiv(kt, tps);
 }
 
+template <int BM>
 struct GmSmem {
-  static constexpr int A_BYTES = GM_BM * GM_BK * 2;
+  static constexpr int A_BYTES = BM * GM_BK * 2;
   static constexpr int B_BYTES = GM_BN * GM_BK * 2;
   static constexpr int STAGE = A_BYTES + B_BYTES;
   static constexpr int RED = GM_STAGES * STAGE;
-  static_assert(GM_BM * (GM_BN + 4) * 4 <= RED, "epilogue tile fits");
-  static constexpr int BYTES = RED + GM_THREADS * 4 + 1024;
+  static_assert(BM * (GM_BN + 4) * 4 <= RED, "epilogue tile fits");
+  static constexpr int BYTES = RED + 2 * BM * 4 + 1024;
 };
 
-__global__ void __launch_bounds__(GM_THREADS)
+// BM rows of C per block, a warpgroup per 64 rows (2 BM threads)
+template <int BM>
+__global__ void __launch_bounds__(2 * BM, BM == GM_BM ? 2 : 3)
 gemm_group_kernel(const __grid_constant__ GemmGroup G) {
-  using SM = GmSmem;
-  constexpr int NT = GM_THREADS, BM = GM_BM;
+  using SM = GmSmem<BM>;
+  constexpr int NT = 2 * BM;
   extern __shared__ unsigned char gm_smem[];
   unsigned char* gen;
   const uint32_t sm = aligned_smem(gm_smem, &gen);
@@ -229,7 +256,8 @@ gemm_group_kernel(const __grid_constant__ GemmGroup G) {
   const int local = blockIdx.x - o.first_block;
   const int split = local / (o.mt * o.nt), rem = local % (o.mt * o.nt);
   const int m0 = (rem / o.nt) * BM, n0 = (rem % o.nt) * GM_BN;
-  const int kt_all = gm_cdiv(o.K, GM_BK);
+  const int kt1 = gm_cdiv(o.K, GM_BK);
+  const int kt_all = kt1 + gm_cdiv(o.K2, GM_BK);
   const int kt0 = split * o.tiles_per_split;
   const int nk = min(kt_all, kt0 + o.tiles_per_split) - kt0;
   const int ta = o.ta, tb = o.tb;
@@ -238,15 +266,22 @@ gemm_group_kernel(const __grid_constant__ GemmGroup G) {
   const int tid = threadIdx.x, wg = tid >> 7;
   auto load = [&](int kt, int st) {
     const uint32_t As = sm + st * SM::STAGE, Bs = As + SM::A_BYTES;
+    const bf16 *a = o.a, *b = o.b;
+    long lda = o.lda, ldb = o.ldb;
+    int K = o.K;
+    if (kt >= kt1) {                   // the second product
+      a = o.a2, b = o.b2, lda = o.lda2, ldb = o.ldb2, K = o.K2;
+      kt -= kt1;
+    }
     const int k0 = kt * GM_BK;
     if (!ta)
-      stage_block<BM, GM_BK, NT>(As, o.a, o.lda, m0, o.M, k0, o.K);
+      stage_block<BM, GM_BK, NT>(As, a, lda, m0, o.M, k0, K);
     else
-      stage_block<GM_BK, BM, NT>(As, o.a, o.lda, k0, o.K, m0, o.M);
+      stage_block<GM_BK, BM, NT>(As, a, lda, k0, K, m0, o.M);
     if (!tb)
-      stage_block<GM_BN, GM_BK, NT>(Bs, o.b, o.ldb, n0, o.N, k0, o.K);
+      stage_block<GM_BN, GM_BK, NT>(Bs, b, ldb, n0, o.N, k0, K);
     else
-      stage_block<GM_BK, GM_BN, NT>(Bs, o.b, o.ldb, k0, o.K, n0, o.N);
+      stage_block<GM_BK, GM_BN, NT>(Bs, b, ldb, k0, K, n0, o.N);
   };
 #pragma unroll
   for (int s = 0; s < GM_STAGES - 1; ++s) {
@@ -303,90 +338,87 @@ gemm_group_kernel(const __grid_constant__ GemmGroup G) {
       o.colsum[(size_t)split * o.M + m0 + tid] = red[tid] + red[tid + BM];
   }
 
-  // epilogue through shared memory: each warpgroup's 64 x 128 f32 tile is
-  // staged, then every thread takes runs of 4 columns of a row, so the
-  // residual / mask loads and the stores are whole rows per warp
+  // epilogue through shared memory: the f32 tile staged, then each
+  // thread takes 4 (f32) or 8 (bf16) columns of a row at a time, so every
+  // global load and store is 16 bytes and whole rows per warp (scattered
+  // 8-byte stores of the fragments cost several times more). The bf16
+  // loop is not unrolled: the GELU code of 64 unrolled elements was slow
+  // even where it did not run.
   __syncthreads();                     // the ring is free
   constexpr int LDS = GM_BN + 4;
-  float* tile = reinterpret_cast<float*>(gen) + wg * 64 * LDS;
+  float* tile = reinterpret_cast<float*>(gen);
   {
     const int warp = (tid >> 5) & 3, g = (tid & 31) >> 2, q = tid & 3;
+    const int rl = wg * 64 + warp * 16 + g;
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int n = 0; n < GM_BN / 8; ++n)
-        *reinterpret_cast<float2*>(tile + (warp * 16 + g + 8 * h) * LDS +
-                                   8 * n + 2 * q) =
+        *reinterpret_cast<float2*>(tile + (rl + 8 * h) * LDS + 8 * n + 2 * q) =
             make_float2(acc[4 * n + 2 * h], acc[4 * n + 2 * h + 1]);
   }
   __syncthreads();
-  // thread wt takes columns c .. c + 3 of rows rb, rb + 4, ..; every
-  // global load is issued before the first store (a load after a store
-  // waits for it, and 16 such round trips cost microseconds)
-  constexpr int IT = 64 * GM_BN / 4 / 128, CH = GM_BN / 4;
-  const int wt = tid & 127, c = (wt % CH) * 4, rb0 = wt / CH;
-  const int col = n0 + c, row0 = m0 + wg * 64 + rb0;
-  const bool cok = col < o.N;
-  if (o.part) {
-#pragma unroll
-    for (int it = 0; it < IT; ++it) {
-      const int row = row0 + 4 * it;
-      if (cok && row < o.M)
-        *reinterpret_cast<float4*>(o.part + ((size_t)split * o.M + row) * o.N +
-                                   col) =
-            *reinterpret_cast<const float4*>(tile + (rb0 + 4 * it) * LDS + c);
+  if (o.part || o.out32) {
+    float* dst = o.part ? o.part + (size_t)split * o.M * o.N : o.out32;
+    const long ld = o.part ? o.N : o.ldo;
+#pragma unroll 4
+    for (int it = 0; it < BM * GM_BN / 4 / NT; ++it) {
+      const int e = it * NT + tid, r = e / (GM_BN / 4), c = (e % (GM_BN / 4)) * 4;
+      if (m0 + r < o.M && n0 + c < o.N)
+        *reinterpret_cast<float4*>(dst + (size_t)(m0 + r) * ld + n0 + c) =
+            *reinterpret_cast<const float4*>(tile + r * LDS + c);
     }
     return;
   }
-  const int colc = cok ? col : 0;
-  float4 bias = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (o.bias) bias = __ldg(reinterpret_cast<const float4*>(o.bias + colc));
-  uint2 res[IT], msk[IT];
+#pragma unroll 1
+  for (int it = 0; it < BM * GM_BN / 8 / NT; ++it) {
+    const int e = it * NT + tid, r = e / (GM_BN / 8), c = (e % (GM_BN / 8)) * 8;
+    if (m0 + r >= o.M || n0 + c >= o.N) continue;
+    const size_t at = (size_t)(m0 + r) * o.ldo + n0 + c;
+    float v[8], b[8];
+    *reinterpret_cast<float4*>(v) = *reinterpret_cast<const float4*>(tile + r * LDS + c);
+    *reinterpret_cast<float4*>(v + 4) =
+        *reinterpret_cast<const float4*>(tile + r * LDS + c + 4);
+    if (o.bias) {
+      *reinterpret_cast<float4*>(b) =
+          __ldg(reinterpret_cast<const float4*>(o.bias + n0 + c));
+      *reinterpret_cast<float4*>(b + 4) =
+          __ldg(reinterpret_cast<const float4*>(o.bias + n0 + c + 4));
+      if (o.bias_once) {
 #pragma unroll
-  for (int it = 0; it < IT; ++it) {
-    const int row = min(row0 + 4 * it, o.M - 1);
-    const size_t at = (size_t)row * o.ldo + colc;
-    res[it] = o.res ? __ldg(reinterpret_cast<const uint2*>(o.res + at))
-                    : make_uint2(0, 0);
-    msk[it] = o.mask ? __ldg(reinterpret_cast<const uint2*>(o.mask + at))
-                     : make_uint2(0x3f803f80u, 0x3f803f80u);   // ones
-  }
-  const float bb[4] = {bias.x, bias.y, bias.z, bias.w};
+        for (int j = 0; j < 8; ++j) v[j] += b[j];
+      } else {
 #pragma unroll
-  for (int it = 0; it < IT; ++it) {
-    const int row = row0 + 4 * it;
-    float v[4];
-    *reinterpret_cast<float4*>(v) =
-        *reinterpret_cast<const float4*>(tile + (rb0 + 4 * it) * LDS + c);
-    const bf16* rr = reinterpret_cast<const bf16*>(&res[it]);
-    const bf16* mm = reinterpret_cast<const bf16*>(&msk[it]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (o.bias && o.out)
-        v[j] = rb(rb(v[j]) + rb(bb[j]));
-      else
-        v[j] += bb[j];
-      if (o.relu) v[j] = fmaxf(v[j], 0.f);
-      if (!(to_f32(mm[j]) > 0.f)) v[j] = 0.f;
-      v[j] += to_f32(rr[j]);
+        for (int j = 0; j < 8; ++j) v[j] = rb(rb(v[j]) + rb(b[j]));
+      }
     }
-    if (!cok || row >= o.M) continue;
-    const size_t at = (size_t)row * o.ldo + col;
-    if (o.out) {
-      const __nv_bfloat162 a0 = __floats2bfloat162_rn(v[0], v[1]);
-      const __nv_bfloat162 a1 = __floats2bfloat162_rn(v[2], v[3]);
-      uint2 u;
-      u.x = *reinterpret_cast<const uint32_t*>(&a0);
-      u.y = *reinterpret_cast<const uint32_t*>(&a1);
-      *reinterpret_cast<uint2*>(o.out + at) = u;
+    uint4 u;
+    bf16* ub = reinterpret_cast<bf16*>(&u);
+    if (o.pre) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) ub[j] = to_bf16(v[j]);
+      *reinterpret_cast<uint4*>(o.pre + at) = u;
     }
-    if (o.out32)
-      *reinterpret_cast<float4*>(o.out32 + at) = *reinterpret_cast<float4*>(v);
+    if (o.gelu) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = gelu_erf(v[j]);
+    }
+    if (o.dgelu) {
+      const uint4 d = __ldg(reinterpret_cast<const uint4*>(o.dgelu + at));
+      const bf16* db = reinterpret_cast<const bf16*>(&d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] *= gelu_erf_grad(to_f32(db[j]));
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ub[j] = to_bf16(v[j]);
+    *reinterpret_cast<uint4*>(o.out + at) = u;
   }
 }
 
-// one launch of the group's products; fills each op's tiling and K chunks
-// (an op with part gets gm_k_splits chunks)
+// one launch of the group's products in blocks of BM rows (the caller's
+// K-split rule must count tiles of the same BM); fills each op's tiling
+// and K chunks (an op with part gets gm_k_splits chunks)
+template <int BM = GM_BM>
 static int gemm_group(GemmGroup& G, cudaStream_t st) {
   int blocks = 0;
   for (int i = 0; i < G.n; ++i) {
@@ -396,29 +428,121 @@ static int gemm_group(GemmGroup& G, cudaStream_t st) {
     // (an A read MN-major takes a B read MN-major: a weight gradient)
     if (o.N % 8 || o.lda % 8 || o.ldb % 8 || o.ldo % 4 || (o.ta && o.M % 8) ||
         ((!o.ta || !o.tb) && o.K % 8) || (o.colsum && !o.ta) ||
-        (o.ta && !o.tb))
+        (o.ta && !o.tb) ||
+        (o.K2 && (o.ta || o.K2 % 8 || o.lda2 % 8 || o.ldb2 % 8)) ||
+        (!o.part && !o.out32 && !o.out) || (o.out && o.out32) ||
+        (o.bias && o.N % 8))
       return (int)cudaErrorInvalidValue;
-    o.mt = gm_cdiv(o.M, GM_BM);
+    o.mt = gm_cdiv(o.M, BM);
     o.nt = gm_cdiv(o.N, GM_BN);
     if (o.part) {
-      o.splits = gm_k_splits(o.mt * o.nt, o.K, &o.tiles_per_split);
+      o.splits = gm_k_splits(o.mt * o.nt, gm_k_depth(o), &o.tiles_per_split,
+                             o.target ? o.target : GM_TARGET_BLOCKS);
     } else {
       o.splits = 1;
-      o.tiles_per_split = gm_cdiv(o.K, GM_BK);
+      o.tiles_per_split = gm_cdiv(o.K, GM_BK) + gm_cdiv(o.K2, GM_BK);
     }
     o.first_block = blocks;
     blocks += o.mt * o.nt * o.splits;
   }
-  const int smem = GmSmem::BYTES;
+  const int smem = GmSmem<BM>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(
-      gemm_group_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  // the largest shared-memory carve-out, so that two blocks share an SM;
-  // by default CUDA may choose a carve-out that fits only one
+      gemm_group_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  // the largest shared-memory carve-out, so that two (three) blocks share
+  // an SM; by default CUDA may choose a carve-out that fits only one
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(gemm_group_kernel,
+    e = cudaFuncSetAttribute(gemm_group_kernel<BM>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return (int)e;
-  gemm_group_kernel<<<blocks, GM_THREADS, smem, st>>>(G);
+  gemm_group_kernel<BM><<<blocks, 2 * BM, smem, st>>>(G);
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Ordered reduce of partials (K-split weight gradients, column sums,
+// LayerNorm partials) into the gradient buffer
+// ---------------------------------------------------------------------------
+
+constexpr int MAX_RED = 16;
+constexpr int RD_THREADS = 256;
+constexpr int RD_NARROW = 32, RD_WIDE = 256;   // count bounds of the modes
+
+// out[dst + j] = the sum over i < count of src[i stride + j] in a fixed
+// order, for each segment (segments in order of dst, each a multiple of 4
+// long, together covering the output); a thread takes 4 outputs at a
+// time. A segment runs in items of RD_THREADS / L float4 columns, L lanes
+// to a column (L = 1 up to RD_NARROW partials, 8 up to RD_WIDE, 256
+// above): lane l adds i = l, l + L, .. in turn, then lane 0 the lane sums
+// in lane order.
+struct RedSeg {
+  const float* src;
+  long stride, len, dst;
+  int count;
+  long item0;                        // the segment's first item
+};
+
+struct RedPlan {
+  RedSeg seg[MAX_RED];
+  int n;
+  long total, items;
+};
+
+__host__ __device__ inline int rd_lanes(int count) {
+  return count <= RD_NARROW ? 1 : count <= RD_WIDE ? 8 : RD_THREADS;
+}
+
+__global__ void __launch_bounds__(RD_THREADS)
+reduce_kernel(const __grid_constant__ RedPlan P, float* __restrict__ out) {
+  __shared__ float4 red[RD_THREADS];
+  const int tid = threadIdx.x;
+  for (long item = blockIdx.x; item < P.items; item += gridDim.x) {
+    int s = 0;
+    while (s + 1 < P.n && item >= P.seg[s + 1].item0) ++s;
+    const RedSeg& G = P.seg[s];
+    const int L = rd_lanes(G.count), cols = RD_THREADS / L;
+    const int tx = tid % cols, ly = tid / cols;
+    const long j = ((item - G.item0) * cols + tx) * 4;
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (j < G.len) {
+      const float* src = G.src + j;
+#pragma unroll 4
+      for (int k = ly; k < G.count; k += L) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(
+            src + (size_t)k * G.stride));
+        t.x += v.x;
+        t.y += v.y;
+        t.z += v.z;
+        t.w += v.w;
+      }
+    }
+    if (L > 1) {                     // uniform over the block
+      red[tid] = t;
+      __syncthreads();
+      if (ly == 0)
+        for (int l = 1; l < L; ++l) {
+          const float4 v = red[l * cols + tx];
+          t.x += v.x;
+          t.y += v.y;
+          t.z += v.z;
+          t.w += v.w;
+        }
+      __syncthreads();
+    }
+    if (ly == 0 && j < G.len) *reinterpret_cast<float4*>(out + G.dst + j) = t;
+  }
+}
+
+static void reduce_add(RedPlan& P, const float* src, long stride, int count,
+                       long len) {
+  P.seg[P.n] = RedSeg{src, stride, len, P.total, count, P.items};
+  P.total += len;
+  P.items += gm_cdiv(len / 4, RD_THREADS / rd_lanes(count));
+  ++P.n;
+}
+
+static void reduce_launch(const RedPlan& P, float* out, cudaStream_t st) {
+  const long blocks = P.items < 2048 ? P.items : 2048;
+  reduce_kernel<<<(unsigned)blocks, RD_THREADS, 0, st>>>(P, out);
 }

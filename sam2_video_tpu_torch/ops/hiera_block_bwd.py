@@ -3,18 +3,19 @@ hand-written CUDA kernel for Hopper.
 
 Replaces the TPU kernel ``sam2_video_tpu/ops/hiera_block_bwd.py``
 ``fused_block_trainable`` (Pallas ``_mlp_bwd_kernel`` and
-``_attn_bwd_kernel``). Source: ``csrc/hiera_block_bwd.cu`` (the attention
-it recomputes is shared with the forward in ``csrc/hiera_window.cuh``).
+``_attn_bwd_kernel``). Source: ``csrc/hiera_block_bwd.cu`` on the wgmma
+GEMM of ``csrc/sm90_gemm.cuh`` and the tiles of ``csrc/sm90.cuh``.
 
 - The forward is kernel #1 (``ops/hiera_block_kernel.py``) with
   ``save_residual``: it keeps x1, the residual after attention, the one
   cut point from which both halves of the block can be recomputed.
 - B1 recomputes LN2 -> W1 -> exact-erf GELU from x1 and gives dx1 and the
   LN2 / MLP gradients; B2 recomputes LN1, qkv, the shortcut and the
-  attention (flash style: row statistics kept by the forward recompute,
-  then a query-tiled dq pass and a key-tiled dk / dv pass over chunks in
-  shared memory) and gives dx and the LN1 / qkv / proj / shortcut
-  gradients. On H100 the products bound it: every one runs on mma.sync.
+  attention (flash style: the forward's row statistics, then a
+  query-tiled dq pass and a key-tiled dk / dv pass, small windows packed
+  several to a 64-row tile) and gives dx and the LN1 / qkv / proj /
+  shortcut gradients. On H100 the products bound it: every one runs on
+  wgmma. One C entry point runs both halves, 12-14 device operations.
 - Pad tokens of a padded window are keys (k = bk, v = bv: the reference
   pads after norm1), so their dk and dv flow into dbk and dbv. The 2x2
   max-pool backward (q-pool, dim-change shortcut) routes to the first
@@ -66,6 +67,61 @@ def fused_block_trainable_plain(p, x, spec, q_stride,
     """The plain PyTorch block (``models/hiera.py`` ``_block``), whose
     gradient autograd gives."""
     return hiera._block(p, x, spec, q_stride)
+
+
+class _MaxPoolJaxRule(torch.autograd.Function):
+    """2x2 max-pool of [N, H, W, C] whose backward routes as JAX's
+    _unpool2x2_rows_cols and the kernel do: to the column whose row-pair max
+    is larger, then to the larger row, the first on a tie."""
+
+    @staticmethod
+    def forward(ctx, x, window, stride):
+        ctx.save_for_backward(x)
+        return torch.nn.functional.max_pool2d(
+            x.permute(0, 3, 1, 2), window, stride).permute(0, 2, 3, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        N, H, W, C = x.shape
+        Ho, Wo = H // 2, W // 2
+        c = x[:, :2 * Ho, :2 * Wo].float().reshape(N, Ho, 2, Wo, 2, C)
+        v00, v01 = c[:, :, 0, :, 0], c[:, :, 0, :, 1]
+        v10, v11 = c[:, :, 1, :, 0], c[:, :, 1, :, 1]
+        col = torch.maximum(v00, v10) < torch.maximum(v01, v11)
+        row = torch.where(col, v01 < v11, v00 < v10)
+        dx = torch.zeros((N, Ho, 2, Wo, 2, C), dtype=g.dtype,
+                         device=g.device)
+        for r in (0, 1):
+            for cc in (0, 1):
+                hit = (row == bool(r)) & (col == bool(cc))
+                dx[:, :, r, :, cc] = torch.where(hit, g, torch.zeros_like(g))
+        out = torch.zeros_like(x)
+        out[:, :2 * Ho, :2 * Wo] = dx.reshape(N, 2 * Ho, 2 * Wo, C)
+        return out, None, None
+
+
+def fused_block_trainable_walk(p, x, spec, q_stride, mlp_ratio: float = 4.0):
+    """The plain block with the kernel's walk, a yardstick for the q-pool
+    blocks' routed gradients: JAX's max-pool backward rule and the
+    kernel's rounding points in its products (bf16 weights, acc + float32
+    bias, one bf16 rounding), so that its pre-pool values are the
+    kernel's up to float32 summation order, and so are the tie cells."""
+    import torch.nn.functional as F
+
+    from . import common as nn
+
+    def linear(pp, v):
+        b = pp.get("bias")
+        return F.linear(v.float(), pp["weight"].to(v.dtype).float(),
+                        None if b is None else b.float()).to(v.dtype)
+
+    saved = nn.max_pool2d, nn.linear
+    nn.max_pool2d, nn.linear = _MaxPoolJaxRule.apply, linear
+    try:
+        return fused_block_trainable_plain(p, x, spec, q_stride, mlp_ratio)
+    finally:
+        nn.max_pool2d, nn.linear = saved
 
 
 def _leaf(p, path):
@@ -129,44 +185,27 @@ class _BlockFn(torch.autograd.Function):
         hidden = int(Cout * ctx.mlp_ratio)
         wsh, wsw = hbk._window(spec, H, W)
         q_pool = int(bool(spec["q_pool"]))
-        M = x1.numel() // Cout
         dy = dy.to(x.dtype).contiguous()
         lib = _lib()
-        table = _table(ops)
-        g1 = torch.empty(2 * Cout + 2 * hidden * Cout + hidden + Cout,
-                         dtype=torch.float32, device=dev)
-        g2 = torch.empty(sum(t.numel() for t in w) - g1.numel(),
-                         dtype=torch.float32, device=dev)
-        dx1, dx = torch.empty_like(x1), torch.empty_like(x)
-        ws1 = torch.empty(lib.hiera_bwd_mlp_workspace_bytes(M, Cout, hidden),
-                          dtype=torch.uint8, device=dev)
-        ws2 = torch.empty(lib.hiera_bwd_attn_workspace_bytes(
-            B, H, W, Cin, Cout, heads, wsh, wsw, q_pool),
-            dtype=torch.uint8, device=dev)
+        geo = (B, H, W, Cin, Cout, heads, hidden, wsh, wsw, q_pool)
+        grads = torch.empty(sum(t.numel() for t in w), dtype=torch.float32,
+                            device=dev)
+        dx = torch.empty_like(x)
+        ws = torch.empty(lib.hiera_bwd_workspace_bytes(
+            *geo, int(ops[12] is not None)), dtype=torch.uint8, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            status = lib.hiera_block_bwd_mlp(
-                x1.data_ptr(), dy.data_ptr(), dx1.data_ptr(), table,
-                g1.data_ptr(), ws1.data_ptr(), M, Cout, hidden, stream)
-            kernel_build.check_launch(status, "hiera_block_bwd_mlp")
-            del ws1
-            status = lib.hiera_block_bwd_attn(
-                x.data_ptr(), dx1.data_ptr(), dx.data_ptr(), table,
-                g2.data_ptr(), ws2.data_ptr(), B, H, W, Cin, Cout, heads,
-                wsh, wsw, q_pool, stream)
-            kernel_build.check_launch(status, "hiera_block_bwd_attn")
+            status = lib.hiera_block_bwd(
+                x.data_ptr(), x1.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                _table(ops), grads.data_ptr(), ws.data_ptr(), *geo, stream)
+        kernel_build.check_launch(status, "hiera_block_bwd")
         fused_block_trainable.launches += 2
         by = fused_block_trainable.launches_by_geometry
         key = geometry(spec, H, W)
         by[key] = by.get(key, 0) + 2
-        # g1: ln2 w, b, W1, b1, W2, b2; g2: ln1 w, b, Wqkv, bqkv, Wproj,
-        # bproj[, Wsc, bsc] -- the leaves' order with g2 first
-        parts2 = torch.split(g2, [t.numel() for t in w[:6]]
-                             + [t.numel() for t in w[12:]])
-        parts1 = torch.split(g1, [t.numel() for t in w[6:12]])
-        grads = list(parts2[:6]) + list(parts1) + list(parts2[6:])
+        parts = torch.split(grads, [t.numel() for t in w])
         return (dx, None, None, None, None) + tuple(
-            gr.view(t.shape).to(t.dtype) for gr, t in zip(grads, w))
+            gr.view(t.shape).to(t.dtype) for gr, t in zip(parts, w))
 
 
 def fused_block_trainable(p, x, spec, q_stride, mlp_ratio: float = 4.0):
@@ -194,18 +233,23 @@ fused_block_trainable.launches = 0
 fused_block_trainable.launches_by_geometry = {}
 
 
+def k_splits(M: int, N: int, K: int) -> int:
+    """K chunks of a weight gradient [M, N] summed over K rows (the
+    kernel's rule, ``csrc/hiera_block_bwd.cu`` ksplits); needs the built
+    kernel."""
+    return _lib().hiera_bwd_k_splits(M, N, K)
+
+
 def _lib() -> ctypes.CDLL:
     lib = kernel_build.load("hiera_block_bwd")
     if not getattr(lib, "_sam2_typed", False):
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-        T = ctypes.POINTER(ctypes.c_void_p)
-        lib.hiera_bwd_mlp_workspace_bytes.argtypes = [L, I, I]
-        lib.hiera_bwd_mlp_workspace_bytes.restype = L
-        lib.hiera_block_bwd_mlp.argtypes = [P, P, P, T, P, P, L, I, I, P]
-        lib.hiera_block_bwd_mlp.restype = I
-        lib.hiera_bwd_attn_workspace_bytes.argtypes = [I] * 9
-        lib.hiera_bwd_attn_workspace_bytes.restype = L
-        lib.hiera_block_bwd_attn.argtypes = [P, P, P, T, P, P] + [I] * 9 + [P]
-        lib.hiera_block_bwd_attn.restype = I
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.hiera_bwd_workspace_bytes.argtypes = [I] * 11
+        lib.hiera_bwd_workspace_bytes.restype = ctypes.c_long
+        lib.hiera_block_bwd.argtypes = ([P] * 4 + [ctypes.POINTER(P), P, P]
+                                        + [I] * 10 + [P])
+        lib.hiera_block_bwd.restype = I
+        lib.hiera_bwd_k_splits.argtypes = [I, I, ctypes.c_long]
+        lib.hiera_bwd_k_splits.restype = I
         lib._sam2_typed = True
     return lib

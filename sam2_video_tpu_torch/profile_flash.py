@@ -1,13 +1,14 @@
 """Device time of the attention kernels on one NVIDIA GPU: #7 (the generic
 flash attention) by key split by default, #3 (``flash_attention_kproj``)
 with ``--kproj``, #4 and #5 (the memory-attention layer blocks) with
-``--memattn``.
+``--memattn``, #6 (the Hiera block backward) with ``--hiera-bwd``.
 
     python3 -m sam2_video_tpu_torch.profile_flash [--lk 580,1156,2308,4068]
         [--tiles 0,64,32,16,13,10,8,6]
     python3 -m sam2_video_tpu_torch.profile_flash --kproj
         [--lk 580,1156,2308,4068,4096] [--tiles 0,...]
     python3 -m sam2_video_tpu_torch.profile_flash --memattn
+    python3 -m sam2_video_tpu_torch.profile_flash --hiera-bwd
 
 ``--memattn``: ``fused_self_block`` and ``fused_tail_block`` forward and
 backward (autograd through the kernel, random cotangents) at the training
@@ -16,6 +17,18 @@ float32 weight leaves from a seed), beside their plain PyTorch versions:
 device ms per call, device operations per call and the kernels by name.
 It uses the wrappers' public functions only, so it also times an older
 tree of the package (copy this file into it).
+
+``--hiera-bwd``: one backward (B1 + B2) of each of the 12 blocks of the
+tiny trunk through ``fused_block_trainable`` (autograd through the
+kernel's Function, one random cotangent) and through the plain bf16 block,
+at the all-trainable step's shape (10 frames of 384 px, ``synthetic_params``
+weights as float32 leaves): device ms and device operations per call,
+per geometry class (the mean over its blocks) and per trunk pass (the sum
+over the 12 blocks), and the kernels by name. Also kernel #1's forward
+(``fused_block`` with the block's operand pack made beforehand, as
+``models/sam2.py`` ``prepare`` does) and the plain forward at the same
+shape, per trunk pass: the train steps' trunk forward. Public API only, so
+it also times an older tree of the package (copy this file into it).
 
 #7: at the two-head memory-attention path's shape (8 objects x 2 heads, 576
 queries, head and value width 128). #3: at the one-head path's (8 objects,
@@ -51,6 +64,7 @@ from torch.profiler import ProfilerActivity, profile
 from .ops import flash_attention as fa
 
 OBJECTS, HEADS, LQ, WIDTH, SEED, CALLS = 8, 2, 576, 128, 0, 5
+FRAMES = 10                     # #6: the all-trainable step's frames per call
 SLOT = 24                       # #3: one memory slot is 24 x 24 (384 px)
 
 
@@ -257,12 +271,80 @@ def profile_memattn(dev, gen) -> None:
                 print(f"  backward: {_kernels(by_b)}", flush=True)
 
 
+def profile_hiera_bwd(dev, gen) -> None:
+    from .data.synthetic import synthetic_params
+    from .models import sam2 as sam2_mod
+    from .ops import hiera_block_bwd as hbb
+    from .ops import hiera_block_kernel as hbk
+
+    cfg = sam2_mod.SAM2Config(image_size=384)
+    tcfg = cfg.trunk_config
+    trunk = synthetic_params(cfg, seed=SEED)["image_encoder"]["trunk"]
+    H = cfg.image_size // 4
+    total = {k: [0.0, 0.0] for k in ("kernel", "plain", "#1", "#1 plain")}
+    classes: dict = {}
+    for i, spec in enumerate(tcfg.block_specs()):
+        geom = hbb.geometry(spec, H, H)
+        w = [t.detach().to(dev).requires_grad_(True)
+             for t in hbb.leaves(trunk["blocks"][str(i)], spec)]
+        x = torch.randn((FRAMES, H, H, spec["dim"]), generator=gen).to(
+            dev, torch.bfloat16).requires_grad_(True)
+        p = hbb.block_params(w, spec)
+        with torch.no_grad():
+            p1 = dict(p, _ops=hbk.pack(p, spec))
+            for kind, fn in (("#1", hbk.fused_block),
+                             ("#1 plain", hbk.fused_block_plain)):
+                n = {}
+                t, _ = device_ms(lambda: fn(p1, x, spec, tcfg.q_stride,
+                                            tcfg.mlp_ratio), n)
+                total[kind][0] += t
+                total[kind][1] += sum(n.values())
+        cot = None
+        for kind, fn in (("kernel", hbb.fused_block_trainable),
+                         ("plain", hbb.fused_block_trainable_plain)):
+            out = fn(p, x, spec, tcfg.q_stride, tcfg.mlp_ratio)
+            if cot is None:
+                cot = torch.randn(out.shape, generator=gen).to(
+                    dev, torch.bfloat16)
+            n = {}
+            t, by = device_ms(lambda: torch.autograd.grad(
+                out, [x] + w, cot, retain_graph=True), n)
+            ops = sum(n.values())
+            total[kind][0] += t
+            total[kind][1] += ops
+            c = classes.setdefault(geom, {"kernel": [], "plain": []})
+            c[kind].append((t, ops))
+            print(f"block {i:2d} {geom} {kind}: backward {t:.4f} ms, "
+                  f"{ops:g} device ops", flush=True)
+            if kind == "kernel":
+                print(f"  {_kernels(by)}", flush=True)
+            del out
+        if spec["q_pool"]:
+            H //= 2
+    for geom, c in classes.items():
+        k = [sum(v) / len(c["kernel"]) for v in zip(*c["kernel"])]
+        p = [sum(v) / len(c["plain"]) for v in zip(*c["plain"])]
+        print(f"class {geom} ({len(c['kernel'])} blocks): kernel "
+              f"{k[0]:.4f} ms, {k[1]:g} device ops; plain {p[0]:.4f} ms, "
+              f"{p[1]:g} device ops", flush=True)
+    print(f"trunk pass ({FRAMES} frames, 12 blocks): kernel "
+          f"{total['kernel'][0]:.4f} ms, {total['kernel'][1]:g} device ops;"
+          f" plain {total['plain'][0]:.4f} ms, {total['plain'][1]:g} device"
+          " ops", flush=True)
+    print(f"trunk pass forward, kernel #1 ({FRAMES} frames, 12 blocks): "
+          f"{total['#1'][0]:.4f} ms, {total['#1'][1]:g} device ops; plain "
+          f"{total['#1 plain'][0]:.4f} ms, {total['#1 plain'][1]:g} device "
+          "ops", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kproj", action="store_true",
                     help="kernel #3 instead of #7")
     ap.add_argument("--memattn", action="store_true",
                     help="kernels #4 and #5 instead of #7")
+    ap.add_argument("--hiera-bwd", action="store_true",
+                    help="kernel #6 instead of #7")
     ap.add_argument("--lk", default=None)
     ap.add_argument("--tiles", default="0,64,32,16,13,10,8,6")
     args = ap.parse_args()
@@ -276,7 +358,9 @@ def main() -> int:
                      else "580,1156,2308,4068")
     lks = [int(x) for x in lk.split(",")]
     tiles = [int(x) for x in args.tiles.split(",")]
-    if args.memattn:
+    if args.hiera_bwd:
+        profile_hiera_bwd(dev, gen)
+    elif args.memattn:
         profile_memattn(dev, gen)
     elif args.kproj:
         profile_kproj(lks, tiles, dev, sms, gen)

@@ -211,3 +211,21 @@ def test_trunk_gradients_through_the_trainable_blocks(
     assert set(want) == set(names) == set(flatten(trunk))
     for name, gr in zip(names, grads[1:], strict=True):
         _close(gr, want[name].numpy(), f"d{name}", True)
+
+
+@pytest.mark.parametrize("H, W", [(4, 6), (8, 8)])
+def test_walk_pool_rule_matches_jax(H, W):
+    """The 2x2 max-pool backward of ``fused_block_trainable_walk`` (the
+    card checks' yardstick for kernel #6's routed gradients) against JAX's
+    ``_unpool2x2_rows_cols``, the rule kernel #6 follows, on values drawn
+    from {0, 1, 2} so that most 2x2 cells hold ties: the same element
+    takes each cell's gradient."""
+    rng = np.random.default_rng(H * W)
+    vals = rng.integers(0, 3, (3, H, W, 5)).astype(np.float32)
+    d = rng.standard_normal((3, H // 2, W // 2, 5)).astype(np.float32)
+    x = torch.from_numpy(vals).requires_grad_(True)
+    out = thbb._MaxPoolJaxRule.apply(x, 2, 2)
+    (got,) = torch.autograd.grad(out, x, torch.from_numpy(d))
+    want = np.stack([np.asarray(jhbb._unpool2x2_rows_cols(
+        jnp.asarray(v), jnp.asarray(g))) for v, g in zip(vals, d)])
+    np.testing.assert_array_equal(got.numpy(), want)
