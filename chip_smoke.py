@@ -11,8 +11,11 @@ Phases (all by default):
   kernels    each kernel against its plain PyTorch version at the shapes
              the training and serving paths give it, with error, tolerance
              and CUDA-event times: #1 fused_block (12 trunk blocks, one
-             8-frame encode chunk at 384 px), #2 fused_memory_encoder (8
-             objects), and, forward and backward (autograd through the
+             8-frame encode chunk at 384 px; device ms and device
+             operations per block beside plain's, a second run
+             bit-equal), #2 fused_memory_encoder (8 objects, the same; and
+             checked at 1, 3 and 16 objects and on a 1024 px mask, a 64 x
+             64 grid, MEMENC_SIZES), and, forward and backward (autograd through the
              plain forward, one random cotangent), #4 fused_self_block and
              #5 fused_tail_block (8 objects, 576 tokens; also 3 x 784
              tokens at 448 px and 2 x 36 at 96 px, which the wrappers pad
@@ -204,6 +207,10 @@ def memory_encoder_cost(mcfg, masks, pix, out, p):
     return flops, _nbytes(masks, pix, out) + weights
 
 
+# kernel #2's other sizes in phase_kernels: (objects, image size)
+MEMENC_SIZES = ((1, 384), (3, 384), (16, 384), (8, 1024))
+
+
 def phase_kernels(params, cfg, seed: int, chunk: int, objects: int):
     from sam2_video_tpu_torch.ops import common as nn
     from sam2_video_tpu_torch.ops import hiera_block_kernel as hbk
@@ -217,7 +224,7 @@ def phase_kernels(params, cfg, seed: int, chunk: int, objects: int):
 
     # fused_block: every block of the trunk, one encode chunk at 384 px
     H = cfg.image_size // 4
-    k_ms = p_ms = b_ms = 0.0
+    k_ms = p_ms = b_ms = dk_ms = dp_ms = 0.0
     worst_abs, worst_rel, flops_all, bytes_all = 0.0, 0.0, 0.0, 0.0
     for i, spec in enumerate(trunk_cfg.block_specs()):
         bp = trunk["blocks"][str(i)]
@@ -231,14 +238,22 @@ def phase_kernels(params, cfg, seed: int, chunk: int, objects: int):
         err = (got.float() - want.float()).abs().max().item()
         scale = max(1.0, want.float().abs().max().item())
         finite = bool(torch.isfinite(got.float()).all())
-        ok = finite and err <= KERNEL_TOL * scale
+        same = torch.equal(got, hbk.fused_block(bp, x, spec,
+                                                trunk_cfg.q_stride,
+                                                trunk_cfg.mlp_ratio))
+        ok = finite and err <= KERNEL_TOL * scale and same
         t_k = cuda_ms(lambda: hbk.fused_block(bp, x, spec, trunk_cfg.q_stride,
                                               trunk_cfg.mlp_ratio))
         t_p = cuda_ms(lambda: hbk.fused_block_plain(bp, x, spec,
                                                     trunk_cfg.q_stride))
+        l_k = _device_launches(lambda: hbk.fused_block(
+            bp, x, spec, trunk_cfg.q_stride, trunk_cfg.mlp_ratio))
+        l_p = _device_launches(lambda: hbk.fused_block_plain(
+            bp, x, spec, trunk_cfg.q_stride))
         fl, nb = block_cost(spec, chunk, H, H, trunk_cfg.mlp_ratio, bp, x, got)
         b, by = bound_ms(fl, nb)
         k_ms, p_ms, b_ms = k_ms + t_k, p_ms + t_p, b_ms + b
+        dk_ms, dp_ms = dk_ms + l_k[2], dp_ms + l_p[2]
         flops_all, bytes_all = flops_all + fl, bytes_all + nb
         worst_abs = max(worst_abs, err)
         worst_rel = max(worst_rel, err / scale)
@@ -246,10 +261,12 @@ def phase_kernels(params, cfg, seed: int, chunk: int, objects: int):
               f"x{tuple(x.shape)} max_abs_err={err:.4g} "
               f"tol={KERNEL_TOL * scale:.4g} kernel_ms={t_k:.4f} "
               f"plain_ms={t_p:.4f} bound_ms={b:.4f}({by}) "
+              f"{_ops_text(l_k, l_p)} same_bits_twice={same} "
               f"{'OK' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"fused_block block {i} disagrees with its "
-                             f"plain version: {err} > {KERNEL_TOL * scale}")
+                             f"plain version ({err} > {KERNEL_TOL * scale}) "
+                             f"or with itself on a second run")
         if spec["q_pool"]:
             H //= 2
     _, by_all = bound_ms(flops_all, bytes_all)
@@ -260,43 +277,61 @@ def phase_kernels(params, cfg, seed: int, chunk: int, objects: int):
                      bound_ms=b_ms, bound_by=by_all, library_ms=None))
     print(f"fused_block trunk total (12 blocks, {chunk} frames): "
           f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} "
+          f"device_ms={dk_ms:.4f} (plain {dp_ms:.4f}) "
           f"max_abs_err={worst_abs:.4g} max_err/scale={worst_rel:.4g}",
           flush=True)
 
-    # fused_memory_encoder at O objects, 384 px
+    # fused_memory_encoder at O objects, 384 px (the JSON row), then at
+    # other object counts and a 64 x 64 grid (1024 px)
     mcfg = cfg.memory_encoder_config
-    S, h = cfg.image_size, cfg.feat_size
     pme = params["memory_encoder"]
-    logits = 8.0 * torch.randn((objects, S, S, 1), generator=gen)
-    masks = (torch.sigmoid(logits) * 20.0 - 10.0).to(dev, torch.bfloat16)
-    pix = torch.randn((objects, h, h, 256), generator=gen).to(
-        dev, torch.bfloat16)
-    pix_proj = nn.conv2d(pme["pix_feat_proj"], pix)
-    got = mek.fused_memory_encoder(pme, mcfg, pix_proj, masks)
-    want = mek.fused_memory_encoder_plain(pme, mcfg, pix_proj, masks)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    scale = max(1.0, want.float().abs().max().item())
-    ok = bool(torch.isfinite(got.float()).all()) and err <= KERNEL_TOL * scale
-    t_k = cuda_ms(lambda: mek.fused_memory_encoder(pme, mcfg, pix_proj,
-                                                   masks))
-    t_p = cuda_ms(lambda: mek.fused_memory_encoder_plain(pme, mcfg, pix_proj,
+    for O, S in ((objects, cfg.image_size), *MEMENC_SIZES):
+        h = S // 16
+        logits = 8.0 * torch.randn((O, S, S, 1), generator=gen)
+        masks = (torch.sigmoid(logits) * 20.0 - 10.0).to(dev, torch.bfloat16)
+        pix = torch.randn((O, h, h, 256), generator=gen).to(
+            dev, torch.bfloat16)
+        pix_proj = nn.conv2d(pme["pix_feat_proj"], pix)
+        got = mek.fused_memory_encoder(pme, mcfg, pix_proj, masks)
+        want = mek.fused_memory_encoder_plain(pme, mcfg, pix_proj, masks)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        scale = max(1.0, want.float().abs().max().item())
+        same = torch.equal(got, mek.fused_memory_encoder(pme, mcfg, pix_proj,
                                                          masks))
-    fl, nb = memory_encoder_cost(mcfg, masks, pix_proj, got, pme)
-    b, by = bound_ms(fl, nb)
-    print(f"fused_memory_encoder O={objects} masks{tuple(masks.shape)} "
-          f"max_abs_err={err:.4g} tol={KERNEL_TOL * scale:.4g} "
-          f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} bound_ms={b:.4f}({by}) "
-          f"{'OK' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        raise SystemExit(f"fused_memory_encoder disagrees with its plain "
-                         f"version: {err} > {KERNEL_TOL * scale}")
-    rows.append(dict(name="fused_memory_encoder", route="cuda",
-                     source="sam2_video_tpu_torch/csrc/memory_encoder.cu",
-                     replaces=("sam2_video_tpu/ops/"
-                               "memory_encoder_kernel.py:273"),
-                     max_abs_err=err, ms=t_k, plain_ms=t_p,
-                     bound_ms=b, bound_by=by, library_ms=None))
+        ok = (bool(torch.isfinite(got.float()).all())
+              and err <= KERNEL_TOL * scale and same)
+        label = (f"fused_memory_encoder O={O} masks{tuple(masks.shape)} "
+                 f"max_abs_err={err:.4g} tol={KERNEL_TOL * scale:.4g} "
+                 f"same_bits_twice={same}")
+        if O != objects or S != cfg.image_size:
+            print(f"{label} {'OK' if ok else 'FAIL'}", flush=True)
+        else:
+            t_k = cuda_ms(lambda: mek.fused_memory_encoder(pme, mcfg,
+                                                           pix_proj, masks))
+            t_p = cuda_ms(lambda: mek.fused_memory_encoder_plain(
+                pme, mcfg, pix_proj, masks))
+            l_k = _device_launches(lambda: mek.fused_memory_encoder(
+                pme, mcfg, pix_proj, masks))
+            l_p = _device_launches(lambda: mek.fused_memory_encoder_plain(
+                pme, mcfg, pix_proj, masks))
+            fl, nb = memory_encoder_cost(mcfg, masks, pix_proj, got, pme)
+            b, by = bound_ms(fl, nb)
+            print(f"{label} kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
+                  f"bound_ms={b:.4f}({by}) {_ops_text(l_k, l_p)} "
+                  f"{'OK' if ok else 'FAIL'}", flush=True)
+            rows.append(dict(name="fused_memory_encoder", route="cuda",
+                             source="sam2_video_tpu_torch/csrc/"
+                                    "memory_encoder.cu",
+                             replaces=("sam2_video_tpu/ops/"
+                                       "memory_encoder_kernel.py:273"),
+                             max_abs_err=err, ms=t_k, plain_ms=t_p,
+                             bound_ms=b, bound_by=by, library_ms=None))
+        if not ok:
+            raise SystemExit(f"fused_memory_encoder at O={O}, {S} px "
+                             f"disagrees with its plain version ({err} > "
+                             f"{KERNEL_TOL * scale}) or with itself on a "
+                             f"second run")
     return rows
 
 

@@ -68,7 +68,9 @@ constexpr int QT = 64;               // queries per warpgroup
 constexpr int WGT = 128;             // threads per warpgroup
 constexpr int RING = 2;              // depth of the cp.async ring
 constexpr int ROPE_ROW = 256;        // bytes per RoPE row: 64 cos, 64 sin
-constexpr int MAX_ROPE_ROWS = 128;   // gw + gh (a 64 x 64 slot, 1024 px)
+constexpr int MAX_ROPE_ROWS = 128;   // gw + gh held in shared memory (a
+                                     // 64 x 64 slot, 1024 px); larger
+                                     // grids read the table in place
 constexpr int DW_PART = KD * KV + KD;   // one dWk / dbk partial
 constexpr int K_BYTES = KD * 128;    // a 64-row tile 256 wide (32 KB)
 constexpr int V_BYTES = KV * 128;    // a 64-row tile 64 wide (8 KB)
@@ -118,16 +120,32 @@ __device__ __forceinline__ int rope_row(int key, int c, int num_spatial,
   return c == 0 ? pos % gw : gw + pos / gw;
 }
 
+// the RoPE table a kernel reads: its copy in shared memory (stage_rope's
+// swizzle, sw = 7) where gw + gh <= MAX_ROPE_ROWS, else the caller's
+// [gw + gh, 128] table in device memory as it is (sw = 0: slot grids above
+// 64 x 64, whose rows do not fit beside a pass's tiles)
+struct RopeTab {
+  const unsigned char* p;
+  int sw;
+};
+
+__device__ __forceinline__ RopeTab rope_tab(unsigned char* smem_copy,
+                                            const bf16* rope, int rows) {
+  return rows <= MAX_ROPE_ROWS
+             ? RopeTab{smem_copy, 7}
+             : RopeTab{reinterpret_cast<const unsigned char*>(rope), 0};
+}
+
 // (cos, sin) of pairs 8 n + 2 t, + 1 of RoPE row a (1, 0 when a < 0)
-__device__ __forceinline__ void rope_pair(const unsigned char* rope_s, int a,
-                                          int n, float2& cs, float2& sn) {
+__device__ __forceinline__ void rope_pair(RopeTab rope_s, int a, int n,
+                                          float2& cs, float2& sn) {
   if (a < 0) {
     cs = make_float2(1.f, 1.f);
     sn = make_float2(0.f, 0.f);
     return;
   }
-  const unsigned char* p =
-      rope_s + a * ROPE_ROW + ((n ^ (a & 7)) << 4) + 4 * (threadIdx.x & 3);
+  const unsigned char* p = rope_s.p + a * ROPE_ROW +
+                           ((n ^ (a & rope_s.sw)) << 4) + 4 * (threadIdx.x & 3);
   cs = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
   sn = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + 128));
 }
@@ -139,7 +157,7 @@ __device__ __forceinline__ void rope_pair(const unsigned char* rope_s, int a,
 // the swizzled K tiles at ktg (hi, then lo K_BYTES after it)
 __device__ __forceinline__ void project_cols(
     uint32_t kin_s, uint32_t wk_s, const bf16* bk_s,
-    const unsigned char* rope_s, unsigned char* ktg, int c, int k0,
+    RopeTab rope_s, unsigned char* ktg, int c, int k0,
     int num_spatial, int HW, int gw) {
   float a1[32], a2[32];
   wgmma_fence();
@@ -269,7 +287,7 @@ kproj_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kin,
   const uint32_t sm = aligned_smem(kp_smem, &gen);
   const float* bias_s = reinterpret_cast<const float*>(gen + SM::BIAS);
   const bf16* bk_s = reinterpret_cast<const bf16*>(gen + SM::BK);
-  const unsigned char* rope_s = gen + SM::ROPE;
+  const RopeTab rope_s = rope_tab(gen + SM::ROPE, rope, rope_rows);
 
   const int tid = threadIdx.x, wg = tid / WGT;
   const int warp = (tid >> 5) & 3, g = (tid & 31) >> 2;
@@ -292,7 +310,8 @@ kproj_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kin,
                        qb0 + w * QT, Lq);
   stage_wk<NT>(sm + SM::WK, wk);
   stage_bk<NT>(sm + SM::BK, bk);
-  stage_rope<NT>(sm + SM::ROPE, rope, rope_rows);
+  if (rope_rows <= MAX_ROPE_ROWS)
+    stage_rope<NT>(sm + SM::ROPE, rope, rope_rows);
   load(t0, 0);
   cp_async_commit();
 
@@ -414,7 +433,7 @@ kproj_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kin,
   const uint32_t sm = aligned_smem(kp_smem, &gen);
   const float* bias_s = reinterpret_cast<const float*>(gen + SM::BIAS);
   const bf16* bk_s = reinterpret_cast<const bf16*>(gen + SM::BK);
-  const unsigned char* rope_s = gen + SM::ROPE;
+  const RopeTab rope_s = rope_tab(gen + SM::ROPE, rope, rope_rows);
 
   const int wg = threadIdx.x / WGT;
   const int warp = (threadIdx.x >> 5) & 3, g = (threadIdx.x & 31) >> 2;
@@ -442,7 +461,8 @@ kproj_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kin,
   }
   stage_wk<NT>(sm + SM::WK, wk);
   stage_bk<NT>(sm + SM::BK, bk);
-  stage_rope<NT>(sm + SM::ROPE, rope, rope_rows);
+  if (rope_rows <= MAX_ROPE_ROWS)
+    stage_rope<NT>(sm + SM::ROPE, rope, rope_rows);
   load(t0, 0);
   cp_async_commit();
 
@@ -586,7 +606,7 @@ kproj_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kin,
   const float* lse_s = reinterpret_cast<const float*>(gen + SM::LSE);
   const float* del_s = reinterpret_cast<const float*>(gen + SM::DEL);
   const bf16* bk_s = reinterpret_cast<const bf16*>(gen + SM::BK);
-  const unsigned char* rope_s = gen + SM::ROPE;
+  const RopeTab rope_s = rope_tab(gen + SM::ROPE, rope, rope_rows);
 
   const int tid = threadIdx.x, wg = tid / WGT, wt = tid % WGT;
   const int warp = wt >> 5, g = (wt & 31) >> 2, t4 = wt & 3;
@@ -605,7 +625,8 @@ kproj_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kin,
   };
   stage_wk<DKV_NT>(sm + SM::WK, wk);
   stage_bk<DKV_NT>(sm + SM::BK, bk);
-  stage_rope<DKV_NT>(sm + SM::ROPE, rope, rope_rows);
+  if (rope_rows <= MAX_ROPE_ROWS)
+    stage_rope<DKV_NT>(sm + SM::ROPE, rope, rope_rows);
   stage_tile<KV, DKV_NT>(sm + SM::KIN, kin + (size_t)b * Lk * KV, k0, Lk);
   stage_tile<KV, DKV_NT>(sm + SM::V, v + (size_t)b * Lk * KV, k0, Lk);
   cp_async_commit();
@@ -897,13 +918,14 @@ static int set_smem(Kernel* fn, size_t bytes) {
 static int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 constexpr size_t smem_with_rope(int carve, int rope_rows) {
-  return (size_t)carve + (size_t)rope_rows * ROPE_ROW + 1024;
+  return (size_t)carve +
+         (size_t)(rope_rows <= MAX_ROPE_ROWS ? rope_rows : 0) * ROPE_ROW + 1024;
 }
 
 // the dynamic shared memory of one block on an H100 (227 KB) holds every
-// pass's RoPE rows up to MAX_ROPE_ROWS; a dq block of two warpgroups up to
-// DQ2_MAX_ROPE_ROWS (slots of 34 x 34) only, the wrapper's
-// KPROJ_DQ_MAX_ROPE_ROWS
+// pass's RoPE rows up to MAX_ROPE_ROWS (above, the passes read the table
+// in device memory); a dq block of two warpgroups up to DQ2_MAX_ROPE_ROWS
+// (slots of 34 x 34) only, the wrapper's KPROJ_DQ_MAX_ROPE_ROWS
 constexpr size_t MAX_SMEM = 227 * 1024;
 constexpr int DQ2_MAX_ROPE_ROWS = 68;
 static_assert(smem_with_rope(FwdSmem::ROPE, MAX_ROPE_ROWS) <= MAX_SMEM);
@@ -946,8 +968,7 @@ extern "C" int kproj_fwd(const void* q, const void* kin, const void* v,
                          void* stream_ptr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   const int rope_rows = gw + gh;
-  if (tiles_per_split < 1 || rope_rows > MAX_ROPE_ROWS || gw < 1 ||
-      HW != gw * gh)
+  if (tiles_per_split < 1 || gw < 1 || HW != gw * gh)
     return (int)cudaErrorInvalidValue;
   const int S = cdiv(cdiv(Lk, KT), tiles_per_split);
   const size_t smem = smem_with_rope(FwdSmem::ROPE, rope_rows);
@@ -986,8 +1007,8 @@ extern "C" int kproj_bwd(const void* q, const void* kin, const void* v,
                          int dw_tiles, void* stream_ptr) {
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   const int rope_rows = gw + gh;
-  if (tiles_per_split < 1 || dw_tiles < 1 || rope_rows > MAX_ROPE_ROWS ||
-      gw < 1 || HW != gw * gh || (dq_nwg != 1 && dq_nwg != 2) ||
+  if (tiles_per_split < 1 || dw_tiles < 1 || gw < 1 || HW != gw * gh ||
+      (dq_nwg != 1 && dq_nwg != 2) ||
       (dq_nwg == 2 && rope_rows > DQ2_MAX_ROPE_ROWS))
     return (int)cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf((float)KD);

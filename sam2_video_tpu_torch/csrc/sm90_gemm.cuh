@@ -1,6 +1,6 @@
 // A pipelined batched GEMM for Hopper (sm_90a) on wgmma, for the port's
-// row-wise products (the memory-attention layer blocks, #4 and #5, and the
-// Hiera block backward, #6):
+// row-wise products (the Hiera block forward and backward, #1 and #6, the
+// memory encoder, #2, and the memory-attention layer blocks, #4 and #5):
 //   C(m, n) = epilogue(sum_k A(m, k) B(n, k)),
 // with A(m, k) read from a row-major matrix as a[m lda + k] (K-major) or
 // a[k lda + m] (MN-major), B(n, k) as b[n ldb + k] or b[k ldb + n]:
@@ -28,10 +28,18 @@
 // The bf16 epilogue walks the compute dtype as the JAX kernels do
 // (ops/common.py linear): round(acc), + round(bias), round; or, with
 // bias_once, acc + bias in f32 and one rounding (kernel #1's walk, which
-// #6 recomputes). #6 also takes exact-erf GELU after the bias (the value
+// #6 recomputes). It also takes exact-erf GELU after the bias (the value
 // before it stored as `pre`), GELU's derivative at a stored pre-activation
-// as a factor, and a second (A, B, K) pair that continues the same sum
-// (dxn = dqkv Wqkv + ds Wsc).
+// as a factor, a bf16 residual added in f32 before the one rounding (#1's
+// proj and W2, #2's 1x1 conv), a second (A, B, K) pair that continues the
+// same sum (#6: dxn = dqkv Wqkv + ds Wsc), and, where one column tile
+// holds the row (N <= 128), a LayerNorm over the row after the rounded
+// bias sum, with optional GELU (#2's third downsampler layer).
+//
+// A can also be the implicit im2col of a 3x3 / stride-2 / pad-1 conv over
+// an NHWC input (conv: #2's downsampler layers 3 and 4): row m = output
+// pixel, column k = tap * channels + channel; out-of-image taps are
+// cp.async's zero fill.
 //
 // Beside it, the ordered reduce of the K-split partials (reduce_kernel).
 #pragma once
@@ -47,6 +55,7 @@ constexpr int GM_STAGES = 3;         // depth of the cp.async ring
 constexpr int GM_MAX_OPS = 4;        // products per grouped launch
 constexpr int GM_TARGET_BLOCKS = 132;   // K chunks: about one block per SM
 constexpr int GM_MIN_CHUNK = 8;      // ... of at least 8 64-row tiles each
+constexpr float GM_LN_EPS = 1e-6f;   // the LayerNorm epilogue's (#2's LN2d)
 
 #define WG_D8(i)                                                         \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
@@ -126,6 +135,21 @@ __device__ __forceinline__ void wgmma_rs_n128_k(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
+// d[64 x 32] += A B^T: A bf16 pairs in registers, B K-major in shared
+// memory (its rows are N)
+__device__ __forceinline__ void wgmma_rs_n32_k(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, 1, 1, 1, 0;\n}\n"
+      : WG_D8(0), WG_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
 // rows r0 .. r0 + ROWS - 1, columns c0 .. c0 + COLS - 1 of a row-major bf16
 // matrix (row stride ld) into a ROWS x COLS tile at shared dst, by the NT
 // threads of the block: 64-column blocks of ROWS rows x 128 bytes, the
@@ -174,6 +198,16 @@ struct GemmOp {
   bf16* out;
   float* out32;
   long ldo;
+  // a bf16 residual [M, ldr] added before the rounding (or null)
+  const bf16* res;
+  long ldr;
+  // LayerNorm of each row after round(acc + bias) (N <= GM_BN; then GELU
+  // when gelu is set), weight and bias [N] f32 (or null)
+  const float* lnw;
+  const float* lnb;
+  // A as the im2col of a 3x3 / stride-2 / pad-1 conv over a [., ih, iw,
+  // ic] bf16 input at a (ic % 8 == 0), output grid oh x ow, K = 9 ic
+  int conv, ih, iw, ic, oh, ow;
   // K split: f32 partials [splits][M][N] (about `target` blocks, 0:
   // GM_TARGET_BLOCKS), and with ta the column sums of A [splits][M] (or
   // null)
@@ -228,6 +262,35 @@ static inline int gm_k_splits(int tiles, int K, int* tiles_per_split,
   return gm_cdiv(kt, tps);
 }
 
+// rows r0 .. of the conv's im2col (GemmOp conv), columns c0 .. c0 + COLS
+// - 1, into a ROWS x COLS tile at shared dst (stage_block's layout); taps
+// outside the input, rows at and past M and columns at and past K are
+// zero-filled
+template <int ROWS, int COLS, int NT>
+__device__ __forceinline__ void stage_conv(uint32_t dst, const GemmOp& o,
+                                           int r0, int c0) {
+  constexpr int C8 = COLS / 8;
+  static_assert(ROWS * C8 % NT == 0, "tile chunks must split evenly");
+#pragma unroll
+  for (int i = 0; i < ROWS * C8 / NT; ++i) {
+    const int e = i * NT + (int)threadIdx.x;
+    const int r = e / C8, c = (e % C8) * 8;
+    const int m = r0 + r, k = c0 + c;
+    bool ok = m < o.M && k < o.K;
+    size_t at = 0;
+    if (ok) {
+      const int tap = k / o.ic, ch = k - tap * o.ic;
+      const int ox = m % o.ow, t = m / o.ow, oy = t % o.oh, n = t / o.oh;
+      const int iy = 2 * oy - 1 + tap / 3, ix = 2 * ox - 1 + tap % 3;
+      ok = iy >= 0 && iy < o.ih && ix >= 0 && ix < o.iw;
+      at = (((size_t)n * o.ih + iy) * o.iw + ix) * o.ic + ch;
+    }
+    const uint32_t off = (c >> 6) * (ROWS * 128) + r * 128 +
+                         ((((c >> 3) & 7) ^ (r & 7)) << 4);
+    cp_async16(dst + off, o.a + (ok ? at : 0), ok);
+  }
+}
+
 template <int BM>
 struct GmSmem {
   static constexpr int A_BYTES = BM * GM_BK * 2;
@@ -238,8 +301,14 @@ struct GmSmem {
   static constexpr int BYTES = RED + 2 * BM * 4 + 1024;
 };
 
-// BM rows of C per block, a warpgroup per 64 rows (2 BM threads)
-template <int BM>
+// the optional parts of the kernel (GemmGroup's ops select them; each
+// combination is its own instantiation, so the others' registers and code
+// are the plain kernel's)
+enum { GM_RES = 1, GM_CONV = 2, GM_LN = 4 };
+
+// BM rows of C per block, a warpgroup per 64 rows (2 BM threads); EXT: the
+// GM_* parts compiled in
+template <int BM, int EXT>
 __global__ void __launch_bounds__(2 * BM, BM == GM_BM ? 2 : 3)
 gemm_group_kernel(const __grid_constant__ GemmGroup G) {
   using SM = GmSmem<BM>;
@@ -274,7 +343,9 @@ gemm_group_kernel(const __grid_constant__ GemmGroup G) {
       kt -= kt1;
     }
     const int k0 = kt * GM_BK;
-    if (!ta)
+    if ((EXT & GM_CONV) && o.conv)
+      stage_conv<BM, GM_BK, NT>(As, o, m0, k0);
+    else if (!ta)
       stage_block<BM, GM_BK, NT>(As, a, lda, m0, o.M, k0, K);
     else
       stage_block<GM_BK, BM, NT>(As, a, lda, k0, K, m0, o.M);
@@ -358,6 +429,43 @@ gemm_group_kernel(const __grid_constant__ GemmGroup G) {
             make_float2(acc[4 * n + 2 * h], acc[4 * n + 2 * h + 1]);
   }
   __syncthreads();
+  if ((EXT & GM_LN) && o.lnw) {        // a warp per row, 4 columns a lane
+    const int lane = tid & 31, c = 4 * lane;
+    const bool okc = c < o.N;
+    float b4[4], w4[4], l4[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      b4[j] = okc ? __ldg(o.bias + c + j) : 0.f;
+      w4[j] = okc ? __ldg(o.lnw + c + j) : 0.f;
+      l4[j] = okc ? __ldg(o.lnb + c + j) : 0.f;
+    }
+    for (int r = tid >> 5; r < BM && m0 + r < o.M; r += NT / 32) {
+      float v[4], s = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = okc ? rb(tile[r * LDS + c + j] + b4[j]) : 0.f;
+        s += v[j];
+      }
+      const float mu = warp_sum(s) / o.N;
+      float q = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float d = okc ? v[j] - mu : 0.f;
+        q += d * d;
+      }
+      const float rs = rsqrtf(warp_sum(q) / o.N + GM_LN_EPS);
+      uint2 u;
+      bf16* ub = reinterpret_cast<bf16*>(&u);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float y = (v[j] - mu) * rs * w4[j] + l4[j];
+        if (o.gelu) y = gelu_erf(y);
+        ub[j] = to_bf16(y);
+      }
+      if (okc) *reinterpret_cast<uint2*>(o.out + (size_t)(m0 + r) * o.ldo + c) = u;
+    }
+    return;
+  }
   if (o.part || o.out32) {
     float* dst = o.part ? o.part + (size_t)split * o.M * o.N : o.out32;
     const long ld = o.part ? o.N : o.ldo;
@@ -409,10 +517,34 @@ gemm_group_kernel(const __grid_constant__ GemmGroup G) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) v[j] *= gelu_erf_grad(to_f32(db[j]));
     }
+    if ((EXT & GM_RES) && o.res) {
+      const uint4 rr = __ldg(reinterpret_cast<const uint4*>(
+          o.res + (size_t)(m0 + r) * o.ldr + n0 + c));
+      const bf16* r8 = reinterpret_cast<const bf16*>(&rr);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] += to_f32(r8[j]);
+    }
 #pragma unroll
     for (int j = 0; j < 8; ++j) ub[j] = to_bf16(v[j]);
     *reinterpret_cast<uint4*>(o.out + at) = u;
   }
+}
+
+template <int BM, int EXT>
+static int gm_launch(const GemmGroup& G, int blocks, cudaStream_t st) {
+  const int smem = GmSmem<BM>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      gemm_group_kernel<BM, EXT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  // the largest shared-memory carve-out, so that two (three) blocks share
+  // an SM; by default CUDA may choose a carve-out that fits only one
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(gemm_group_kernel<BM, EXT>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  gemm_group_kernel<BM, EXT><<<blocks, 2 * BM, smem, st>>>(G);
+  return 0;
 }
 
 // one launch of the group's products in blocks of BM rows (the caller's
@@ -431,7 +563,9 @@ static int gemm_group(GemmGroup& G, cudaStream_t st) {
         (o.ta && !o.tb) ||
         (o.K2 && (o.ta || o.K2 % 8 || o.lda2 % 8 || o.ldb2 % 8)) ||
         (!o.part && !o.out32 && !o.out) || (o.out && o.out32) ||
-        (o.bias && o.N % 8))
+        (o.bias && o.N % 8) || (o.res && (o.ldr % 8 || !o.out)) ||
+        (o.lnw && (o.N > GM_BN || !o.bias || !o.lnb || !o.out)) ||
+        (o.conv && (o.ta || o.ic % 8 || o.K != 9 * o.ic || o.K2)))
       return (int)cudaErrorInvalidValue;
     o.mt = gm_cdiv(o.M, BM);
     o.nt = gm_cdiv(o.N, GM_BN);
@@ -445,19 +579,39 @@ static int gemm_group(GemmGroup& G, cudaStream_t st) {
     o.first_block = blocks;
     blocks += o.mt * o.nt * o.splits;
   }
-  const int smem = GmSmem<BM>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(
-      gemm_group_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  // the largest shared-memory carve-out, so that two (three) blocks share
-  // an SM; by default CUDA may choose a carve-out that fits only one
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(gemm_group_kernel<BM>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
-  gemm_group_kernel<BM><<<blocks, 2 * BM, smem, st>>>(G);
-  return 0;
+  int ext = 0;
+  for (int i = 0; i < G.n; ++i)
+    ext |= (G.op[i].res ? GM_RES : 0) | (G.op[i].conv ? GM_CONV : 0) |
+           (G.op[i].lnw ? GM_LN : 0);
+  switch (ext) {
+    case 0:
+      return gm_launch<BM, 0>(G, blocks, st);
+    case GM_RES:
+      return gm_launch<BM, GM_RES>(G, blocks, st);
+    case GM_CONV:
+      return gm_launch<BM, GM_CONV>(G, blocks, st);
+    case GM_CONV | GM_LN:
+      return gm_launch<BM, GM_CONV | GM_LN>(G, blocks, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// blocks of 128 rows that fill the card: two per SM on 132 SMs
+constexpr int GM_FILL_BLOCKS = 264;
+
+// a group without K splits in blocks of 128 rows where K < 192 and they
+// fill the card, else of 64 (three blocks an SM: faster from K = 192 on in
+// the Hiera forward on the H100, and where 128 would leave the SMs short)
+static int gemm_fill(GemmGroup& G, cudaStream_t st) {
+  long blocks = 0;
+  int k = 0;
+  for (int i = 0; i < G.n; ++i) {
+    blocks += (long)gm_cdiv(G.op[i].M, GM_BM) * gm_cdiv(G.op[i].N, GM_BN);
+    k = G.op[i].K > k ? G.op[i].K : k;
+  }
+  return blocks >= GM_FILL_BLOCKS && k < 192 ? gemm_group<GM_BM>(G, st)
+                                             : gemm_group<64>(G, st);
 }
 
 // ---------------------------------------------------------------------------

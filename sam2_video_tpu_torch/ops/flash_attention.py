@@ -77,7 +77,9 @@ from .position_encoding import axial_rope_table_half
 
 KERNEL_DIM = 256    # q / k width the kernel is compiled for
 KERNEL_KV = 64      # kin / v width
-KPROJ_MAX_ROPE_ROWS = 128   # w + h of the slot grid (64 x 64: 1024 px)
+KPROJ_MAX_ROPE_ROWS = 128   # w + h of the slot grids whose RoPE rows the
+                            # kernel keeps in shared memory (64 x 64: 1024
+                            # px); larger grids read the table in place
 KPROJ_WARPGROUPS = 2        # warpgroups of 64 queries per forward / dq block
 KPROJ_DQ_MAX_ROPE_ROWS = 68  # w + h of the slot grid for two in a dq block
 KPROJ_MIN_SPLIT_TILES = 3   # key tiles a split of #3 runs at least
@@ -232,10 +234,10 @@ def flash_attention_kproj(q, kin, v, wk_weight, wk_bias, key_bias,
     q [..., Lq, 256] (projected and rotated); kin [..., Lk, 64] (memory +
     its positional encoding); v [..., Lk, 64] (the raw memory); wk_weight
     [256, 64], wk_bias [256] (rows de-interleave-permuted); key_bias [Lk] or
-    [..., Lk] additive float32, or None; grid_wh (w, h) of one slot, on the
-    card w + h <= ``KPROJ_MAX_ROPE_ROWS`` (slots up to 64 x 64, 1024 px
-    images: the kernel keeps w + h RoPE rows in shared memory; a larger
-    grid raises there). Returns [..., Lq, 64] in q's dtype."""
+    [..., Lk] additive float32, or None; grid_wh (w, h) of one slot, any
+    size (the kernel keeps the w + h RoPE rows in shared memory up to
+    ``KPROJ_MAX_ROPE_ROWS``, 64 x 64 slots of 1024 px images, and reads
+    them from device memory above). Returns [..., Lq, 64] in q's dtype."""
     if q.device.type == "cpu":
         return flash_attention_kproj_plain(q, kin, v, wk_weight, wk_bias,
                                            key_bias, num_spatial, grid_wh,
@@ -269,9 +271,6 @@ def flash_attention_kproj(q, kin, v, wk_weight, wk_bias, key_bias,
         kb = key_bias.float()
         bias = (kb.reshape(1, Lk) if kb.ndim == 1 else
                 kb.expand(*lead, Lk).reshape(BH, Lk)).contiguous()
-    if gw + gh > KPROJ_MAX_ROPE_ROWS:
-        raise ValueError(f"flash_attention_kproj kernel takes slot grids "
-                         f"with w + h <= {KPROJ_MAX_ROPE_ROWS}, got {grid_wh}")
     out = _KprojFn.apply(q3, kin3, v3, wk_weight.to(q.dtype).contiguous(),
                          wk_bias.to(q.dtype).contiguous(), bias,
                          _rope_axes(D, gw, gh, theta, q.dtype, q.device),

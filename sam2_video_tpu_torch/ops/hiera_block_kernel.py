@@ -2,19 +2,22 @@
 
 Replaces the TPU kernel ``sam2_video_tpu/ops/hiera_block_kernel.py``
 ``fused_block`` (Pallas ``_block_kernel``). Source: ``csrc/hiera_block.cu``
-(shared GEMM / LayerNorm device code in ``csrc/common.cuh``).
+(the attention passes, geometry and LayerNorm shared with the backward in
+``csrc/hiera_attn.cuh``, the GEMM in ``csrc/sm90_gemm.cuh``).
 
 - On H100 at SAM2-tiny 384 px the trunk needs ~30 GFLOP of bf16 products
   per frame (2.5 of them attention) against ~21 MB of block inputs,
-  outputs and weights, each moved once, so the tensor
-  cores bound it: every product runs on ``mma.sync`` with bias, GELU and
-  residual fused into the GEMM epilogue, and the attention runs per
-  (window, head) over key chunks in shared memory, so no block-diagonal
-  mask is needed. Its softmax is exact in two passes (max and sum, then
-  normalised probabilities rounded to bf16 before PV, as sdpa does).
-- Pad tokens are real keys: the reference pads after norm1, so a pad token
-  enters attention with k = bk and v = bv; the kernel reads the rounded
-  biases for them. q-pool blocks pool 2x2 inside each window and crop the
+  outputs and weights, each moved once, so the tensor cores bound it:
+  every product is a wgmma, the projections and the MLP on the pipelined
+  GEMM of ``sm90_gemm.cuh`` (qkv and the shortcut one grouped launch; bias,
+  GELU and residual in its epilogue; blocks of 64 rows where 128 would
+  leave the SMs short), the attention on the passes kernel #6 recomputes
+  with (several small windows share a 64-row tile under a block-diagonal
+  mask; exact softmax, normalised probabilities rounded to bf16 before PV,
+  as sdpa does).
+- Pad tokens are real keys: the reference pads after norm1, so LN1 writes
+  zero rows at the pad tokens of the window-padded grid and qkv there is
+  the rounded bias. q-pool blocks pool 2x2 inside each window and crop the
   pooled grid back to (H/2, W/2), odd pooled windows (7 x 7) included.
 - No TPU eligibility rules: every block of the SAM2 presets runs here, at
   any image size. The kernel refuses (raises) only shapes its tiles do not
@@ -136,34 +139,21 @@ def _launch(ops, x, spec, q_stride, mlp_ratio: float = 4.0):
     B, H, W, Cin, Cout, heads, _ = _check(x, spec, q_stride, hidden)
     wsh, wsw = _window(spec, H, W)
     lib = _lib()
-    q_pool = bool(spec["q_pool"])
+    q_pool = int(bool(spec["q_pool"]))
     Ho, Wo = (H // 2, W // 2) if q_pool else (H, W)
-    M_in, M_out = B * H * W, B * Ho * Wo
-    dim_change = ops[12] is not None
-
-    def scratch(rows, cols):
-        return torch.empty((rows, cols), dtype=torch.bfloat16,
-                           device=x.device)
-
+    geo = (B, H, W, Cin, Cout, heads, hidden, wsh, wsw, q_pool)
     out = torch.empty((B, Ho, Wo, Cout), dtype=torch.bfloat16,
                       device=x.device)
     x1 = torch.empty_like(out)
-    xn, qkv = scratch(M_in, Cin), scratch(M_in, 3 * Cout)
-    sc_full = scratch(M_in, Cout) if dim_change else None
-    sc = scratch(M_out, Cout) if dim_change and q_pool else None
-    attn, y = scratch(M_out, Cout), scratch(M_out, Cout)
-    hid = scratch(M_out, hidden)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    ws = torch.empty(lib.hiera_fwd_workspace_bytes(
+        *geo, int(ops[12] is not None)), dtype=torch.uint8, device=x.device)
+    table = (ctypes.c_void_p * len(ops))(*(
+        None if t is None else t.data_ptr() for t in ops))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        status = lib.hiera_block_fwd(
-            ptr(x), ptr(out), *(ptr(t) for t in ops),
-            ptr(xn), ptr(qkv), ptr(sc_full), ptr(sc), ptr(attn), ptr(x1),
-            ptr(y), ptr(hid), B, H, W, Cin, Cout, heads, hidden, wsh, wsw,
-            int(q_pool), stream)
+        status = lib.hiera_block_fwd(x.data_ptr(), out.data_ptr(),
+                                     x1.data_ptr(), table, ws.data_ptr(),
+                                     *geo, stream)
     kernel_build.check_launch(status, "hiera_block_fwd")
     fused_block.launches += 1
     return out, x1
@@ -175,9 +165,11 @@ fused_block.launches = 0
 def _lib() -> ctypes.CDLL:
     lib = kernel_build.load("hiera_block")
     if not getattr(lib, "_sam2_typed", False):
-        lib.hiera_block_fwd.argtypes = ([ctypes.c_void_p] * 24
-                                        + [ctypes.c_int] * 10
-                                        + [ctypes.c_void_p])
-        lib.hiera_block_fwd.restype = ctypes.c_int
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.hiera_fwd_workspace_bytes.argtypes = [I] * 11
+        lib.hiera_fwd_workspace_bytes.restype = ctypes.c_long
+        lib.hiera_block_fwd.argtypes = ([P] * 3 + [ctypes.POINTER(P), P]
+                                        + [I] * 10 + [P])
+        lib.hiera_block_fwd.restype = I
         lib._sam2_typed = True
     return lib

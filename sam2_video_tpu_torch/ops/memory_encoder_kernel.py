@@ -2,20 +2,22 @@
 
 Replaces the TPU kernel ``sam2_video_tpu/ops/memory_encoder_kernel.py``
 ``fused_memory_encoder`` (Pallas ``_kernel``). Source:
-``csrc/memory_encoder.cu`` (shared GEMM / LayerNorm device code in
-``csrc/common.cuh``).
+``csrc/memory_encoder.cu`` (the pipelined wgmma GEMM of
+``csrc/sm90_gemm.cuh``, the row LayerNorm of ``csrc/hiera_attn.cuh``).
 
 - On H100 at 384 px with 8 objects the function needs ~12.5 GFLOP of
   products (the k3/s2 pyramid at its own resolutions 1.8 of them) on ~8 MB
-  of inputs, output and weights, so the tensor cores bound it. Each 2x2
-  phase-routed conv is one K = 1024 product whose A tiles are read through
-  an implicit im2col of the four shifted taps (9.7 GFLOP for the pyramid,
-  the zeros of the phase routing included), and the bias, GELU, layer
-  scale and residuals ride in the GEMM epilogue.
-- The space-to-depth input is phase-packed (lane = channel * phases +
-  phase); the 2x2 weights come from ``models/memory_encoder.py``
-  ``effective_weight``. The packed LayerNorm is a per-phase-group
-  reduction; the depthwise 7x7 (zero padding 3) is a per-channel loop.
+  of inputs, output and weights, so the tensor cores bound it. The
+  downsampler runs each layer at its own resolution: layers 1 and 2 (1 ->
+  4 -> 16 channels) in one direct kernel on the CUDA cores, layers 3 and
+  4 as wgmma products with an implicit im2col of the nine taps (the TPU
+  kernel's phase-packed K = 1024 products did 9.7 GFLOP, mostly zeros).
+  Each CXBlock is two kernels: the depthwise 7x7 (zero padding 3) with
+  its LayerNorm over a halo tile in shared memory, then the MLP with its
+  1024-wide hidden layer kept in shared memory; bias, GELU, layer scale
+  and residuals ride in the epilogues. 10 device operations per call.
+- The conv weights enter as OIHW (layers 1-2, f32 of the bf16 weights) or
+  as [out, 9 in] bf16 with column (ky 3 + kx) in + ci (layers 3-4).
 - GELU uses CUDA's ``erff``; the kernel rounds once per stage where the
   plain version rounds after each op, which chip_smoke.py bounds at 2e-2
   of the output scale.
@@ -52,12 +54,16 @@ def eligible(cfg) -> bool:
             and cfg.fuser_kernel == 7 and cfg.fuser_padding == 3)
 
 
-def _conv2x2_weight(w, gi: int, go: int):
-    """OIHW 3x3 -> [256 out, 4 taps * 256 in] bf16, column = tap * 256 +
-    packed input lane (the implicit-im2col order of ``Conv2x2A``)."""
-    weff = me.effective_weight(w, gi, go)              # [2, 2, in, out]
-    return weff.permute(3, 0, 1, 2).reshape(weff.shape[3], -1).to(
+def _conv_weight(w):
+    """OIHW 3x3 [out, in, 3, 3] -> [out, 9 in] bf16, column (ky 3 + kx) in
+    + ci (the implicit-im2col order of the kernel's conv A)."""
+    return w.permute(0, 2, 3, 1).reshape(w.shape[0], -1).to(
         torch.bfloat16).contiguous()
+
+
+def _direct_weight(w):
+    """OIHW 3x3 -> f32 of the bf16 weights (the direct kernel's layers)."""
+    return w.to(torch.bfloat16).float().contiguous()
 
 
 def _dw_weight(w):
@@ -67,27 +73,26 @@ def _dw_weight(w):
 
 
 def pack(p, cfg):
-    """Weight table in the order of ``memory_encoder_fwd`` (csrc) and the
-    packed phases per downsampler layer. ``models/sam2.py`` ``prepare``
-    keeps them on the tree as the memory encoder's ``_ops`` entry."""
+    """Weight table in the order of ``memory_encoder_fwd`` (csrc).
+    ``models/sam2.py`` ``prepare`` keeps it on the tree as the memory
+    encoder's ``_ops`` entry."""
     def bf(t):
-        return t.to(torch.bfloat16)
+        return t.to(torch.bfloat16).contiguous()
 
     def f32(t):
-        return t.float()
+        return t.float().contiguous()
 
     def bf_1x1(t):
-        return t.flatten(1).to(torch.bfloat16)
+        return t.flatten(1).to(torch.bfloat16).contiguous()
 
     enc = p["mask_downsampler"]["encoder"]
-    wt, phases = [], []
+    wt = []
     idx = 0
-    for ci, gi, co, go in me.GEOMETRY:
+    for layer in range(len(me.GEOMETRY)):
         cp, ln = enc[str(idx)], enc[str(idx + 1)]
-        wt += [_conv2x2_weight(cp["weight"], gi, go),
-               cp["bias"].float().repeat_interleave(go * go),
-               f32(ln["weight"]), f32(ln["bias"])]
-        phases.append(go * go)
+        conv = _direct_weight if layer < 2 else _conv_weight
+        wt += [conv(cp["weight"]), f32(cp["bias"]), f32(ln["weight"]),
+               f32(ln["bias"])]
         idx += 3
     fin = enc[str(idx)]
     wt += [bf_1x1(fin["weight"]), f32(fin["bias"])]
@@ -100,7 +105,7 @@ def pack(p, cfg):
                bf(cx["pwconv2"]["weight"]), f32(cx["pwconv2"]["bias"]),
                f32(cx["gamma"])]
     wt += [bf_1x1(p["out_proj"]["weight"]), f32(p["out_proj"]["bias"])]
-    return wt, phases
+    return wt
 
 
 def fused_memory_encoder(p, cfg, pix_proj, masks):
@@ -133,30 +138,22 @@ def fused_memory_encoder(p, cfg, pix_proj, masks):
         raise ValueError(f"pix_proj must be {(N, h, w, 256)}, got "
                          f"{tuple(pix_proj.shape)}")
     dev = masks.device
-    ms = me.space_to_depth16(masks).contiguous()
+    ms = masks.contiguous()
     pix = pix_proj.contiguous()
-    ops = p.get("_ops")
-    wt, phases = pack(p, cfg) if ops is None else ops
+    wt = p.get("_ops")
+    if wt is None:
+        wt = pack(p, cfg)
     out_dim = wt[36].shape[0]
-    M = N * h * w
-
-    def scratch(cols, dtype=torch.bfloat16):
-        return torch.empty((M, cols), dtype=dtype, device=dev)
-
     out = torch.empty((N, h, w, out_dim), dtype=torch.bfloat16, device=dev)
-    tmp, act, xa, xb, yb = (scratch(256) for _ in range(5))
-    y32 = scratch(256, torch.float32)
-    hid = scratch(1024)
-    table = (ctypes.c_void_p * _NUM_WEIGHTS)(*(t.data_ptr() for t in wt))
-    ph = (ctypes.c_int * 4)(*phases)
     lib = _lib()
+    ws = torch.empty(lib.memory_encoder_workspace_bytes(N, h, w),
+                     dtype=torch.uint8, device=dev)
+    table = (ctypes.c_void_p * _NUM_WEIGHTS)(*(t.data_ptr() for t in wt))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.memory_encoder_fwd(
-            ms.data_ptr(), pix.data_ptr(), out.data_ptr(), table, ph,
-            tmp.data_ptr(), act.data_ptr(), xa.data_ptr(), xb.data_ptr(),
-            yb.data_ptr(), y32.data_ptr(), hid.data_ptr(), N, h, w, out_dim,
-            stream)
+            ms.data_ptr(), pix.data_ptr(), out.data_ptr(), table,
+            ws.data_ptr(), N, h, w, out_dim, stream)
     kernel_build.check_launch(status, "memory_encoder_fwd")
     fused_memory_encoder.launches += 1
     return out
@@ -168,12 +165,13 @@ fused_memory_encoder.launches = 0
 def _lib() -> ctypes.CDLL:
     lib = kernel_build.load("memory_encoder")
     if not getattr(lib, "_sam2_typed", False):
-        lib.memory_encoder_fwd.argtypes = (
-            [ctypes.c_void_p] * 3
-            + [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)]
-            + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        lib.memory_encoder_fwd.restype = ctypes.c_int
-        lib.memory_encoder_num_weights.restype = ctypes.c_int
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.memory_encoder_workspace_bytes.argtypes = [I] * 3
+        lib.memory_encoder_workspace_bytes.restype = ctypes.c_long
+        lib.memory_encoder_fwd.argtypes = ([P] * 3 + [ctypes.POINTER(P), P]
+                                           + [I] * 4 + [P])
+        lib.memory_encoder_fwd.restype = I
+        lib.memory_encoder_num_weights.restype = I
         if lib.memory_encoder_num_weights() != _NUM_WEIGHTS:
             raise RuntimeError("memory_encoder_fwd weight table mismatch")
         lib._sam2_typed = True

@@ -1,7 +1,9 @@
-"""Device time of the attention kernels on one NVIDIA GPU: #7 (the generic
+"""Device time of the port's kernels on one NVIDIA GPU: #7 (the generic
 flash attention) by key split by default, #3 (``flash_attention_kproj``)
 with ``--kproj``, #4 and #5 (the memory-attention layer blocks) with
-``--memattn``, #6 (the Hiera block backward) with ``--hiera-bwd``.
+``--memattn``, #6 (the Hiera block backward) with ``--hiera-bwd``, #1 (the
+Hiera block forward) with ``--hiera-fwd``, #2 (the memory encoder) with
+``--memenc`` and #8 (the two-way decoder block) with ``--twoway``.
 
     python3 -m sam2_video_tpu_torch.profile_flash [--lk 580,1156,2308,4068]
         [--tiles 0,64,32,16,13,10,8,6]
@@ -9,6 +11,30 @@ with ``--kproj``, #4 and #5 (the memory-attention layer blocks) with
         [--lk 580,1156,2308,4068,4096] [--tiles 0,...]
     python3 -m sam2_video_tpu_torch.profile_flash --memattn
     python3 -m sam2_video_tpu_torch.profile_flash --hiera-bwd
+    python3 -m sam2_video_tpu_torch.profile_flash --hiera-fwd [--frames 10]
+    python3 -m sam2_video_tpu_torch.profile_flash --memenc
+    python3 -m sam2_video_tpu_torch.profile_flash --twoway
+
+``--hiera-fwd``: ``fused_block`` on each of the 12 blocks of the tiny
+trunk (the operand pack made beforehand, as ``models/sam2.py`` ``prepare``
+does) and the plain block, at ``--frames`` frames of 384 px (10: the train
+steps' trunk forward; 8: one serving chunk), ``synthetic_params`` weights:
+device ms and device operations per block, per geometry class (the mean
+over its blocks) and per trunk pass (the sum), and the kernels by name.
+
+``--memenc``: ``fused_memory_encoder`` and its plain version at 8 objects
+of 384 px (masks [8, 384, 384, 1] through the scaled sigmoid, projected
+pixels [8, 24, 24, 256], bf16; ``synthetic_params`` weights through
+``prepare``): device ms and device operations per call, and the kernels
+by name.
+
+``--twoway``: ``fused_twoway_block`` forward and backward (autograd, one
+random cotangent) and the plain bf16 block, the decoder's second block at
+the fused step's shape (8 objects, 8 tokens, 576 image keys), its packed
+operands made beforehand: device ms and device operations per call.
+
+``--hiera-fwd``, ``--memenc`` and ``--twoway`` use the public API only, so
+they also time an older tree of the package (copy this file into it).
 
 ``--memattn``: ``fused_self_block`` and ``fused_tail_block`` forward and
 backward (autograd through the kernel, random cotangents) at the training
@@ -337,6 +363,123 @@ def profile_hiera_bwd(dev, gen) -> None:
           "ops", flush=True)
 
 
+def profile_hiera_fwd(dev, gen, frames: int) -> None:
+    from .data.synthetic import synthetic_params
+    from .models import sam2 as sam2_mod
+    from .ops import hiera_block_kernel as hbk
+
+    cfg = sam2_mod.SAM2Config(image_size=384, compute_dtype="bfloat16")
+    tcfg = cfg.trunk_config
+    trunk = sam2_mod.prepare(synthetic_params(cfg, seed=SEED).to(dev), cfg)[
+        "image_encoder"]["trunk"]
+    H = cfg.image_size // 4
+    total = {"kernel": [0.0, 0.0], "plain": [0.0, 0.0]}
+    classes: dict = {}
+    for i, spec in enumerate(tcfg.block_specs()):
+        ws = spec["window_size"]
+        geom = (f"{H}x{H} {spec['dim']}->{spec['dim_out']} "
+                + ("global" if ws == 0 else f"window {ws}")
+                + (", q-pool" if spec["q_pool"] else ""))
+        bp = trunk["blocks"][str(i)]
+        x = torch.randn((frames, H, H, spec["dim"]), generator=gen).to(
+            dev, torch.bfloat16)
+        for kind, fn in (("kernel", hbk.fused_block),
+                         ("plain", hbk.fused_block_plain)):
+            n = {}
+            with torch.no_grad():
+                t, by = device_ms(lambda: fn(bp, x, spec, tcfg.q_stride,
+                                             tcfg.mlp_ratio), n)
+            ops = sum(n.values())
+            total[kind][0] += t
+            total[kind][1] += ops
+            classes.setdefault(geom, {"kernel": [], "plain": []})[
+                kind].append((t, ops))
+            print(f"block {i:2d} {geom} #1 {kind}: forward {t:.4f} ms, "
+                  f"{ops:g} device ops", flush=True)
+            if kind == "kernel":
+                print(f"  {_kernels(by)}", flush=True)
+        if spec["q_pool"]:
+            H //= 2
+    for geom, c in classes.items():
+        k = [sum(v) / len(c["kernel"]) for v in zip(*c["kernel"])]
+        p = [sum(v) / len(c["plain"]) for v in zip(*c["plain"])]
+        print(f"class {geom} ({len(c['kernel'])} blocks): #1 {k[0]:.4f} ms, "
+              f"{k[1]:g} device ops; plain {p[0]:.4f} ms, {p[1]:g} device "
+              "ops", flush=True)
+    print(f"trunk pass forward, kernel #1 ({frames} frames, 12 blocks): "
+          f"{total['kernel'][0]:.4f} ms, {total['kernel'][1]:g} device ops; "
+          f"plain {total['plain'][0]:.4f} ms, {total['plain'][1]:g} device "
+          "ops", flush=True)
+
+
+def profile_memenc(dev, gen) -> None:
+    from .data.synthetic import synthetic_params
+    from .models import sam2 as sam2_mod
+    from .ops import common as nn
+    from .ops import memory_encoder_kernel as mek
+
+    cfg = sam2_mod.SAM2Config(image_size=384, compute_dtype="bfloat16")
+    mcfg = cfg.memory_encoder_config
+    p = sam2_mod.prepare(synthetic_params(cfg, seed=SEED).to(dev), cfg)[
+        "memory_encoder"]
+    S, h = cfg.image_size, cfg.feat_size
+    masks = (torch.sigmoid(8.0 * torch.randn((OBJECTS, S, S, 1),
+                                             generator=gen))
+             * 20.0 - 10.0).to(dev, torch.bfloat16)
+    pix = torch.randn((OBJECTS, h, h, 256), generator=gen).to(
+        dev, torch.bfloat16)
+    with torch.no_grad():
+        pix_proj = nn.conv2d(p["pix_feat_proj"], pix)
+        for kind, fn in (("kernel", mek.fused_memory_encoder),
+                         ("plain", mek.fused_memory_encoder_plain)):
+            n = {}
+            t, by = device_ms(lambda: fn(p, mcfg, pix_proj, masks), n)
+            print(f"fused_memory_encoder {kind} ({OBJECTS} objects, {S} px): "
+                  f"{t:.4f} ms, {sum(n.values()):g} device ops", flush=True)
+            if kind == "kernel":
+                print(f"  {_kernels(by)}", flush=True)
+
+
+def profile_twoway(dev, gen) -> None:
+    from .data.synthetic import synthetic_params
+    from .models import sam2 as sam2_mod
+    from .ops import common as nn
+    from .ops import twoway_kernel as twk
+
+    cfg = sam2_mod.SAM2Config(image_size=384)
+    layer = synthetic_params(cfg, seed=SEED).to(dev)["sam_mask_decoder"][
+        "transformer"]["layers"]["1"]
+    O, N, HW = OBJECTS, 8, 576
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+
+    x = [rnd(O, N, 256), rnd(O, HW, 256), rnd(O, N, 256), rnd(HW, 256)]
+    cots = [rnd(O, N, 256), rnd(O, HW, 256)]
+    for kind, fn in (("kernel", twk.fused_twoway_block),
+                     ("plain", twk.twoway_block_plain)):
+        w = [t.detach().clone().requires_grad_(True)
+             for t in twk.leaves(layer)]
+        xl = [t.clone().requires_grad_(True) for t in x]
+        t = twk.block_params(w)
+        if kind == "kernel":
+            with torch.no_grad():
+                t["_ops"] = twk.pack(t)
+        else:                          # bf16 copies inside the graph
+            nn.add_compute_casts(t, torch.bfloat16)
+        outs = fn(t, *xl, False)
+        n_f, n_b = {}, {}
+        t_f, by_f = device_ms(lambda: fn(t, *xl, False), n_f)
+        t_b, by_b = device_ms(lambda: torch.autograd.grad(
+            outs, w + xl, cots, retain_graph=True), n_b)
+        print(f"fused_twoway_block {kind} (O={O} N={N} HW={HW}): forward "
+              f"{t_f:.4f} ms, {sum(n_f.values()):g} device ops; backward "
+              f"{t_b:.4f} ms, {sum(n_b.values()):g} device ops", flush=True)
+        if kind == "kernel":
+            print(f"  forward: {_kernels(by_f)}", flush=True)
+            print(f"  backward: {_kernels(by_b)}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kproj", action="store_true",
@@ -345,6 +488,14 @@ def main() -> int:
                     help="kernels #4 and #5 instead of #7")
     ap.add_argument("--hiera-bwd", action="store_true",
                     help="kernel #6 instead of #7")
+    ap.add_argument("--hiera-fwd", action="store_true",
+                    help="kernel #1 instead of #7")
+    ap.add_argument("--frames", type=int, default=FRAMES,
+                    help="frames per call of --hiera-fwd")
+    ap.add_argument("--memenc", action="store_true",
+                    help="kernel #2 instead of #7")
+    ap.add_argument("--twoway", action="store_true",
+                    help="kernel #8 instead of #7")
     ap.add_argument("--lk", default=None)
     ap.add_argument("--tiles", default="0,64,32,16,13,10,8,6")
     args = ap.parse_args()
@@ -358,7 +509,13 @@ def main() -> int:
                      else "580,1156,2308,4068")
     lks = [int(x) for x in lk.split(",")]
     tiles = [int(x) for x in args.tiles.split(",")]
-    if args.hiera_bwd:
+    if args.hiera_fwd:
+        profile_hiera_fwd(dev, gen, args.frames)
+    elif args.memenc:
+        profile_memenc(dev, gen)
+    elif args.twoway:
+        profile_twoway(dev, gen)
+    elif args.hiera_bwd:
         profile_hiera_bwd(dev, gen)
     elif args.memattn:
         profile_memattn(dev, gen)

@@ -79,6 +79,36 @@ def test_fused_block_matches_plain(card, image_size):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("image_size, frames", [
+    (384, 1), (384, 10),    # one frame; the train steps' 10 frames
+    # 96 px: stage grids 24 / 12 / 6 / 3, windows larger than their grid
+    # (stage 3's 14 over 6, stage 4's 7 over 3) and a 3 x 3 grid pooled to
+    # 1 x 1 (an odd crop)
+    (96, 2),
+    (1024, 1),              # stage 3's global blocks over 4,096 keys
+])
+def test_fused_block_edges(card, image_size, frames):
+    """Every block of the tiny trunk at the kernel's edges, against the
+    plain block; a second run gives the same bits."""
+    cfg, params = card
+    tcfg = cfg.trunk_config
+    trunk = params["image_encoder"]["trunk"]
+    gen = torch.Generator().manual_seed(image_size + frames)
+    H = image_size // 4
+    for i, spec in enumerate(tcfg.block_specs()):
+        x = torch.randn((frames, H, H, spec["dim"]), generator=gen).to(
+            "cuda", torch.bfloat16)
+        bp = trunk["blocks"][str(i)]
+        got = hbk.fused_block(bp, x, spec, tcfg.q_stride)
+        _assert_close(got, hbk.fused_block_plain(bp, x, spec, tcfg.q_stride),
+                      msg=f"block {i}")
+        assert torch.equal(got, hbk.fused_block(bp, x, spec, tcfg.q_stride)), \
+            f"block {i}: two runs differ"
+        if spec["q_pool"]:
+            H //= 2
+
+
+@pytest.mark.cuda
 def test_fused_memory_encoder_matches_plain(card):
     cfg, params = card
     mcfg = cfg.memory_encoder_config
@@ -93,6 +123,31 @@ def test_fused_memory_encoder_matches_plain(card):
     _assert_close(mek.fused_memory_encoder(p, mcfg, pix_proj, masks),
                   me.apply_unfused(p, mcfg, pix_proj, masks))
     assert mek.fused_memory_encoder.launches == launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objects, image_size", [
+    (1, 384), (8, 384), (16, 384),   # one object's 576 rows: 9 MLP blocks
+    (8, 1024),                       # a 64 x 64 grid
+])
+def test_fused_memory_encoder_sizes(card, objects, image_size):
+    """Kernel #2 against the plain path at other object counts and a larger
+    grid; a second run gives the same bits."""
+    cfg, params = card
+    mcfg = cfg.memory_encoder_config
+    p = params["memory_encoder"]
+    gen = torch.Generator().manual_seed(objects + image_size)
+    h = image_size // 16
+    masks = (torch.sigmoid(8 * torch.randn((objects, image_size, image_size,
+                                            1), generator=gen))
+             * 20 - 10).to("cuda", torch.bfloat16)
+    pix = torch.randn((objects, h, h, 256), generator=gen).to(
+        "cuda", torch.bfloat16)
+    pix_proj = nn.conv2d(p["pix_feat_proj"], pix)
+    got = mek.fused_memory_encoder(p, mcfg, pix_proj, masks)
+    _assert_close(got, me.apply_unfused(p, mcfg, pix_proj, masks))
+    assert torch.equal(got, mek.fused_memory_encoder(p, mcfg, pix_proj,
+                                                     masks))
 
 
 @pytest.mark.cuda
@@ -328,10 +383,15 @@ def test_memattn_blocks_same_bits_twice(card):
         # the dq pass's warpgroup edges (KPROJ_DQ_MAX_ROPE_ROWS): 34 x 34
         # slots, the largest with two warpgroups per dq block (their RoPE
         # rows fill shared memory to the byte); 35 x 35, one past it; 64 x
-        # 64 (1024 px), the largest grid the kernel takes
+        # 64 (1024 px), the largest grid whose RoPE rows the kernel keeps
+        # in shared memory
         (544, 2, 100, 2, 4, False, (10, 10, 2)),
         (560, 2, 100, 2, 4, True, (13, 13, 1)),
         (1024, 2, 100, 1, 4, False, (13, 13, 1)),
+        # 72 x 72 slots (1152 px): the passes read the RoPE table in device
+        # memory; one slot, and two with the pointer keys masked
+        (1152, 2, 100, 1, 4, False, (17, 17, 1)),
+        (1152, 1, 100, 2, 4, True, (24, 24, 1)),
     ])
 def test_flash_attention_kproj_matches_plain(card, image_size, objects,
                                              queries, slots, ptr_tokens,
@@ -594,7 +654,7 @@ GELU_F32_RATIO = 2.0
 GELU_HELD = ("x", "mlp.layers.0.weight", "mlp.layers.0.bias")
 
 
-def _gelu_probe_leaves(hbb, w, spec, mlp_ratio, gen):
+def _gelu_probe_leaves(hbb, w, spec, mlp_ratio, gen, centre=-2.1):
     C = spec["dim_out"]
     hid = int(C * mlp_ratio)
     d = dict(zip(hbb.paths(spec), [t.detach().float().clone() for t in w]))
@@ -609,7 +669,7 @@ def _gelu_probe_leaves(hbb, w, spec, mlp_ratio, gen):
     w1 = (torch.randn(hid, C, generator=gen) / C ** 0.5).bfloat16().float()
     d["mlp", "layers", "0", "weight"] = w1
     d["mlp", "layers", "0", "bias"] = (
-        -2.1 + 0.3 * (torch.rand(hid, generator=gen) - 0.5) - w1 @ ln2b)
+        centre + 0.3 * (torch.rand(hid, generator=gen) - 0.5) - w1 @ ln2b)
     d["mlp", "layers", "1", "weight"] = (
         torch.randn(C, hid, generator=gen).abs() * sign(hid) * (1000.0 / C))
     return [d[p].bfloat16().float().to("cuda") for p in hbb.paths(spec)]
@@ -656,6 +716,39 @@ def test_trainable_block_backward_gelu_derivative(card, block, frames):
         if rel > GELU_F32_RATIO * rel_plain:
             bad.append((name, rel, rel_plain))
     assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block, frames", [(0, 1), (11, 4)])
+def test_fused_block_gelu_probe(card, block, frames):
+    """Kernel #1's output against the float32 plain block on the probe
+    weights above with pre-activations near -3, where a tanh GELU is ~10%
+    off erf (near -2, where its derivative is, its value is as close as a
+    bf16 rounding), within GELU_F32_RATIO of the plain bf16 block's
+    distance from float32: the W1 epilogue of the fused MLP (96 wide) and
+    of the GEMM (768 wide)."""
+    from sam2_video_tpu_torch.ops import hiera_block_bwd as hbb
+
+    cfg, params = card
+    tcfg = cfg.trunk_config
+    specs = tcfg.block_specs()
+    spec = specs[block]
+    H = cfg.image_size // 4 // 2 ** sum(s["q_pool"] for s in specs[:block])
+    gen = torch.Generator().manual_seed(block + 70)
+    w = _gelu_probe_leaves(hbb, hbb.leaves(
+        params["image_encoder"]["trunk"]["blocks"][str(block)], spec), spec,
+        tcfg.mlp_ratio, gen, centre=-3.0)
+    x = torch.randn((frames, H, H, spec["dim"]), generator=gen).to(
+        "cuda", torch.bfloat16)
+    p = hbb.block_params(w, spec)
+    got = hbk.fused_block(p, x, spec, tcfg.q_stride).float()
+    want = hbk.fused_block_plain(p, x, spec, tcfg.q_stride).float()
+    ref = hbk.fused_block_plain(p, x.float(), spec, tcfg.q_stride)
+    assert torch.isfinite(got).all()
+    rel, rel_plain = _rel_l2(got, ref), _rel_l2(want, ref)
+    print(f"block {block}: rel_l2 to float32: kernel {rel:.4g}, plain bf16 "
+          f"{rel_plain:.4g}")
+    assert rel <= GELU_F32_RATIO * rel_plain, (rel, rel_plain)
 
 
 @pytest.mark.cuda
