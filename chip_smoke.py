@@ -30,8 +30,9 @@ Phases (all by default):
              dx and every parameter gradient (on q-pool blocks, those a 2x2
              max-pool routes by relative L2, POOL_REL_L2); #8
              fused_twoway_block, forward and backward, the decoder's first
-             and second block at 8 objects x 8 tokens x 576 keys and 3 x 9
-             x 784 (448 px), every output and gradient (the three key-bias
+             and second block at 8 objects x 8 tokens x 576 keys, 3 x 9
+             x 784 (448 px), 1 x 7 x 576, 16 x 9 x 576 and 2 x 8 x 4096
+             (1024 px), every output and gradient (the three key-bias
              gradients, zero in exact arithmetic, against float32:
              TWOWAY_ZERO_GRADS), and its device operations per call
              against the plain block's; #7 flash_attention, forward and
@@ -43,7 +44,11 @@ Phases (all by default):
              2e-2 of its own max|plain|, with the key splits, the device
              operations, launches and device ms of one call, beside
              F.scaled_dot_product_attention forward and backward (CUDA
-             events and device ms)
+             events and device ms);
+             and SAM2-base+ and SAM2-large (phase_presets): forward_image
+             at 384 px, 2 frames, against the CPU float32 trunk, a
+             trainable trunk pass, #1 / #6 per trunk pass and #6 per
+             geometry class against plain
   train      the headline train step (SAM2-tiny 384 px, bf16, T=10, O=8,
              C=7, B=2, point prompts, trainable memory attention and memory
              encoder, AdamW lr 1e-4): 1 warm-up and 5 timed steps; finite
@@ -978,11 +983,13 @@ def _trunk_classes(cfg) -> list:
     return list(dict.fromkeys(g for *_, g in _trunk_blocks(cfg)))
 
 
-def phase_hiera_bwd_kernels(params, cfg, seed: int, frames: int):
+def phase_hiera_bwd_kernels(params, cfg, seed: int, frames: int,
+                            classes_only: bool = False):
     """Kernel #6 (B1 + B2, through ``fused_block_trainable``'s autograd
     Function) against autograd through the plain bf16 block, for each of
-    the 12 blocks of the tiny trunk (every geometry class) at the training
-    shape: ``frames`` frames of 384 px per call, ``synthetic_params``
+    the 12 blocks of the tiny trunk (every geometry class; with
+    ``classes_only`` the first block of each class of cfg's trunk) at the
+    training shape: ``frames`` frames of 384 px per call, ``synthetic_params``
     weights, one random cotangent; a second kernel run (forward and
     backward) must give the same bits. Prints each block's and each
     class's device ms and device operations (kernel and plain, one
@@ -1000,7 +1007,12 @@ def phase_hiera_bwd_kernels(params, cfg, seed: int, frames: int):
     k_ms = p_ms = b_ms = 0.0
     k_dev, p_dev = [0, 0, 0.0], [0, 0, 0.0]
     classes: dict = {}
+    seen, summed = set(), 0
     for i, spec, H, geom in _trunk_blocks(cfg):
+        if classes_only and geom in seen:
+            continue
+        seen.add(geom)
+        summed += 1
         bp = trunk["blocks"][str(i)]
         names = [".".join(pt) for pt in hbb.paths(spec)]
         w0 = hbb.leaves(bp, spec)
@@ -1112,8 +1124,9 @@ def phase_hiera_bwd_kernels(params, cfg, seed: int, frames: int):
               flush=True)
         print("  err/scale " + ", ".join(each), flush=True)
         del res, ko, kg, po, pg
-    print(f"fused_block_trainable_bwd trunk total (12 blocks, {frames} "
-          f"frames): kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+    what = "trunk total" if not classes_only else "first block of each class"
+    print(f"fused_block_trainable_bwd {what} ({summed} blocks, "
+          f"{frames} frames): kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
           f"bound_ms={b_ms:.4f} {_ops_text(k_dev, p_dev)}", flush=True)
     if failures:
         raise SystemExit(f"{len(failures)} kernel #6 gradients disagree "
@@ -1134,6 +1147,182 @@ def phase_hiera_bwd_kernels(params, cfg, seed: int, frames: int):
               f"bound_ms {rows[-1]['bound_ms']:.4f} device_ms "
               f"{ko_[2]:.4f} (plain {po_[2]:.4f}) device_ops {ko_[0]:g} "
               f"(plain {po_[0]:g})", flush=True)
+    return rows
+
+
+PRESETS = ("base_plus", "large")
+PRESET_FRAMES = 2
+
+
+def phase_presets(cfg, seed: int):
+    """SAM2-base+ and SAM2-large (widths 112-896 / 144-1152, head dims 56 /
+    72; ``synthetic_params``) at cfg.image_size, PRESET_FRAMES frames:
+      - forward_image on the card, kernel #1 at every block of the trunk
+        (its launches counted), against the same on the CPU in float32
+        (plain blocks): each FPN level and vision_pos_enc within relative L2
+        CPU_REL_L2_TOL;
+      - one trainable trunk pass on the card (fused_backbone_vjp, the
+        gradient of every trunk leaf from a random cotangent per FPN
+        level): kernel #6 at every block, finite gradients;
+      - #1 and #6 per block on random inputs of each block's shape: #1
+        against its plain block within KERNEL_TOL; CUDA-event ms, device
+        ms and operations (kernel and plain) and the bound, summed per
+        trunk pass;
+      - #6 against its plain version at the first block of each geometry
+        class, with #6's limits (phase_hiera_bwd_kernels).
+    Returns the JSON rows (#1 and #6 per trunk pass of each preset). Their
+    launches stay null: neither preset runs on a training step or in
+    serving; the counts of the two card passes above are checked and
+    printed only."""
+    from sam2_video_tpu_torch.models import sam2 as sam2_mod
+    from sam2_video_tpu_torch.ops import hiera_block_bwd as hbb
+    from sam2_video_tpu_torch.ops import hiera_block_kernel as hbk
+
+    rows = []
+    S = cfg.image_size
+    for name in PRESETS:
+        pcfg = dataclasses.replace(cfg, backbone=name)
+        tcfg = pcfg.trunk_config
+        blocks = _trunk_blocks(pcfg)
+        params = synthetic_params(pcfg, seed).to(DEVICE)
+        rng = np.random.default_rng(seed + 21)
+        images = torch.from_numpy(rng.integers(
+            0, 256, (PRESET_FRAMES, S, S, 3), dtype=np.uint8))
+        n1 = hbk.fused_block.launches
+        with torch.no_grad():
+            card = sam2_mod.forward_image(sam2_mod.prepare(params, pcfg),
+                                          pcfg, images.to(DEVICE))
+        torch.cuda.synchronize()
+        n1 = hbk.fused_block.launches - n1
+        cpu_cfg = dataclasses.replace(pcfg, compute_dtype="float32")
+        with torch.no_grad():
+            ref = sam2_mod.forward_image(synthetic_params(cpu_cfg, seed),
+                                         cpu_cfg, images)
+        pairs = [(f"fpn[{k}]", a, b) for k, (a, b) in enumerate(zip(
+            card["backbone_fpn"], ref["backbone_fpn"]))]
+        pairs += [(f"pos[{k}]", a, b) for k, (a, b) in enumerate(zip(
+            card["vision_pos_enc"], ref["vision_pos_enc"]))]
+        rel = {k: _rel_l2(a.cpu(), b) for k, a, b in pairs}
+        finite = all(bool(torch.isfinite(a.float()).all()) for _, a, _ in pairs)
+        ok = finite and n1 == len(blocks) and max(rel.values()) <= CPU_REL_L2_TOL
+        print(f"preset {name} forward_image ({PRESET_FRAMES} frames, {S} px) "
+              f"card vs cpu float32: rel_l2 " + ", ".join(
+                  f"{k} {v:.4g}" for k, v in rel.items())
+              + f" (tol {CPU_REL_L2_TOL}); fused_block launches {n1} of "
+              f"{len(blocks)} blocks {'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"{name}: the card's image features disagree "
+                             f"with the CPU's, or a block skipped kernel #1")
+        del card, ref
+
+        # a trainable trunk pass: kernel #6 at every block
+        vcfg = dataclasses.replace(pcfg, fused_backbone_vjp=True)
+        leaves = list(params["image_encoder"]["trunk"].parameters())
+        for t in leaves:
+            t.requires_grad_(True)
+        n6 = hbb.fused_block_trainable.launches
+        out = sam2_mod.forward_image(params, vcfg, images.to(DEVICE))
+        fpn = out["backbone_fpn"]
+        gen = torch.Generator().manual_seed(seed + 22)
+        cots = [torch.randn(f.shape, generator=gen).to(DEVICE, f.dtype)
+                for f in fpn]
+        grads = torch.autograd.grad(fpn, leaves, cots, allow_unused=True)
+        torch.cuda.synchronize()
+        n6 = hbb.fused_block_trainable.launches - n6
+        for t in leaves:
+            t.requires_grad_(False)
+        finite = all(g is None or bool(torch.isfinite(g).all())
+                     for g in grads)
+        ok = finite and n6 == 2 * len(blocks)
+        print(f"preset {name} trainable trunk pass: kernel #6 launches {n6} "
+              f"(B1 + B2 of {len(blocks)} blocks), finite gradients "
+              f"{finite} {'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"{name}: the trainable trunk pass failed")
+        del out, fpn, grads
+
+        # #1 and #6 per block, summed per trunk pass
+        trunk = params["image_encoder"]["trunk"]
+        f_sum = np.zeros(7)        # ms, plain ms, bound, dev ms, dev ops, plain dev ms, plain ops
+        b_sum = np.zeros(7)
+        f_by, b_by, f_err = set(), set(), 0.0
+        gen = torch.Generator().manual_seed(seed + 23)
+        for i, spec, H, geom in blocks:
+            bp = trunk["blocks"][str(i)]
+            x = torch.randn((PRESET_FRAMES, H, H, spec["dim"]),
+                            generator=gen).to(DEVICE, torch.bfloat16)
+            q = tcfg.q_stride
+            with torch.no_grad():
+                got = hbk.fused_block(bp, x, spec, q, tcfg.mlp_ratio)
+                want = hbk.fused_block_plain(bp, x, spec, q, tcfg.mlp_ratio)
+                err = (got.float() - want.float()).abs().max().item()
+                scale = max(1.0, want.float().abs().max().item())
+                if not (bool(torch.isfinite(got.float()).all())
+                        and err <= KERNEL_TOL * scale):
+                    raise SystemExit(f"{name} block {i} ({geom}): kernel #1 "
+                                     f"disagrees with plain ({err} > "
+                                     f"{KERNEL_TOL * scale})")
+                f_err = max(f_err, err)
+                t_k = cuda_ms(lambda: hbk.fused_block(bp, x, spec, q,
+                                                      tcfg.mlp_ratio))
+                t_p = cuda_ms(lambda: hbk.fused_block_plain(bp, x, spec, q))
+                l_k = _device_launches(lambda: hbk.fused_block(
+                    bp, x, spec, q, tcfg.mlp_ratio))
+                l_p = _device_launches(lambda: hbk.fused_block_plain(
+                    bp, x, spec, q))
+            b, by = bound_ms(*block_cost(spec, PRESET_FRAMES, H, H,
+                                         tcfg.mlp_ratio, bp, x, got))
+            f_by.add(by)
+            f_sum += [t_k, t_p, b, l_k[2], l_k[0], l_p[2], l_p[0]]
+            w0 = hbb.leaves(bp, spec)
+            res = []
+            for fn in (hbb.fused_block_trainable,
+                       hbb.fused_block_trainable_plain):
+                w = _leaves(w0)
+                xl = x.detach().clone().requires_grad_(True)
+                o = fn(hbb.block_params(w, spec), xl, spec, q, tcfg.mlp_ratio)
+                cot = torch.randn(o.shape, generator=gen).to(DEVICE, o.dtype)
+                res.append((_time_backward(o, [xl] + w, cot),
+                            _device_launches(lambda: torch.autograd.grad(
+                                o, [xl] + w, cot, retain_graph=True))))
+                if fn is hbb.fused_block_trainable:
+                    dx = torch.autograd.grad(o, xl, cot, retain_graph=True)[0]
+                del o
+            (tb, lb), (tpb, lpb) = res
+            b, by = bound_ms(*hiera_block_bwd_cost(
+                spec, PRESET_FRAMES, H, H, tcfg.mlp_ratio,
+                sum(t.numel() for t in w0), [x, got, got, dx]))
+            b_by.add(by)
+            b_sum += [tb, tpb, b, lb[2], lb[0], lpb[2], lpb[0]]
+        for kind, sm, bys, cnt in (("fused_block", f_sum, f_by, n1),
+                                   ("fused_block_trainable_bwd", b_sum, b_by,
+                                    n6)):
+            rname = f"{kind}[{name} trunk pass]"
+            src = ("hiera_block.cu" if kind == "fused_block"
+                   else "hiera_block_bwd.cu")
+            rep_ = ("sam2_video_tpu/ops/hiera_block_kernel.py:399"
+                    if kind == "fused_block"
+                    else "sam2_video_tpu/ops/hiera_block_bwd.py:353")
+            rows.append(dict(name=rname, route="cuda",
+                             source=f"sam2_video_tpu_torch/csrc/{src}",
+                             replaces=rep_,
+                             max_abs_err=f_err if kind == "fused_block"
+                             else None,
+                             ms=float(sm[0]), plain_ms=float(sm[1]),
+                             bound_ms=float(sm[2]),
+                             bound_by="operations" if "operations" in bys
+                             else "bytes", library_ms=None))
+            print(f"{rname} ({len(blocks)} blocks, {PRESET_FRAMES} frames, "
+                  f"{S} px; launches in the card pass {cnt}, not on the "
+                  f"main path): kernel_ms={sm[0]:.4f} plain_ms={sm[1]:.4f} "
+                  f"bound_ms={sm[2]:.4f} device_ms={sm[3]:.4f} (plain "
+                  f"{sm[5]:.4f}) device_ops={sm[4]:g} (plain {sm[6]:g})",
+                  flush=True)
+        cls = phase_hiera_bwd_kernels(params, pcfg, seed, PRESET_FRAMES,
+                                      classes_only=True)
+        rows[-1]["max_abs_err"] = max(r["max_abs_err"] for r in cls)
+        del params, trunk
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1183,7 +1372,10 @@ def _device_launches(fn) -> tuple[int, int, float]:
     return best
 
 
-TWOWAY_SHAPES = ((8, 8, 576), (3, 9, 784))   # (O, N, HW): 384 px, 448 px
+# (O, N, HW): 384 px, 448 px, one object (7 token rows), 144 token rows
+# (more than one 64-row tile), 1024 px
+TWOWAY_SHAPES = ((8, 8, 576), (3, 9, 784), (1, 7, 576), (16, 9, 576),
+                 (2, 8, 4096))
 TWOWAY = ("fused_twoway_block", "fused_twoway_block_bwd")
 # Kernel #8: each attention's key-bias gradient is zero in exact
 # arithmetic (adding q . bk to every logit of a query leaves its softmax
@@ -1208,9 +1400,14 @@ def phase_twoway_kernels(params, cfg, seed: int):
     (3 objects, 9 tokens, 784 keys: 448 px): both outputs and the
     gradients of queries, keys, qpe, kpe and every weight within
     KERNEL_TOL of max(1, max|plain|), the key-bias gradients against
-    float32 (TWOWAY_ZERO_GRADS). Each side runs as the main path runs
-    it: the kernel with its packed operands, the plain block with bf16
-    weight copies. Device launches of one call, kernel against plain.
+    float32 (TWOWAY_ZERO_GRADS). The MLP's hidden activation (ReLU'd)
+    within KERNEL_TOL of the plain block's, so a ReLU mask bit may differ
+    only where the pre-activation is that near 0; a differing bit moves a
+    whole hidden gradient, so the gradients are held to the plain
+    backward (bf16 and float32) taken through the kernel's ReLU mask
+    (twk.PlainReluMask). Each side runs as the main path runs it: the
+    kernel with its packed operands, the plain block with bf16 weight
+    copies. Device launches of one call, kernel against plain.
     Returns the JSON rows (the slice's shape, second block; the worst error
     of all four cases)."""
     from sam2_video_tpu_torch.ops import common as nn
@@ -1250,9 +1447,16 @@ def phase_twoway_kernels(params, cfg, seed: int):
                 w, xl = _leaves(w0), _leaves(x)
                 t = tree(kind, w)
                 run = lambda: fn(t, *xl, first)  # noqa: E731
-                outs = run()
-                grads = torch.autograd.grad(outs, w + xl, cots,
-                                            retain_graph=True)
+                if kind == "kernel":
+                    outs = run()
+                    hidden = twk.relu_hidden(outs[0]).clone()
+                    grads = torch.autograd.grad(outs, w + xl, cots,
+                                                retain_graph=True)
+                else:
+                    with twk.PlainReluMask(None) as rec:
+                        outs = run()
+                    with twk.PlainReluMask(hidden > 0):
+                        grads = torch.autograd.grad(run(), w + xl, cots)
                 t_f = cuda_ms(run)
                 t_b = _time_backward(outs, w + xl, cots)
                 with torch.no_grad():
@@ -1261,15 +1465,23 @@ def phase_twoway_kernels(params, cfg, seed: int):
                     outs, w + xl, cots, retain_graph=True))
                 res[kind] = (outs, grads, t_f, t_b, l_f, l_b)
             w, xl = _leaves(w0), _leaves([t.float() for t in x])
-            f32 = torch.autograd.grad(
-                twk.twoway_block_plain(twk.block_params(w), *xl, first),
-                w + xl, [c.float() for c in cots])
+            with twk.PlainReluMask(hidden > 0):
+                f32 = torch.autograd.grad(
+                    twk.twoway_block_plain(twk.block_params(w), *xl, first),
+                    w + xl, [c.float() for c in cots])
             torch.cuda.synchronize()
             (ko, kg, kf, kb, klf, klb) = res["kernel"]
             (po, pg, pf, pb, plf, plb) = res["plain"]
             label = f"O={O} N={N} HW={HW} first={first}"
             err_f, rel_f = _check_grads(["twoway queries'", "twoway keys'"],
                                         ko, po, failures)
+            _check_grads(["twoway MLP hidden"], [hidden],
+                         [torch.relu(rec.pre)], failures)
+            flips = int(((hidden > 0) != (rec.pre > 0)).sum())
+            print(f"  ReLU mask bits that differ from the plain block's: "
+                  f"{flips} of {hidden.numel()} (the gradients are held to "
+                  f"the plain backward through the kernel's mask)",
+                  flush=True)
             zero = [names.index(n) for n in TWOWAY_ZERO_GRADS]
             rest = [i for i in range(len(names)) if i not in zero]
             err_b, rel_b = _check_grads(
@@ -1955,6 +2167,7 @@ def main() -> int:
         rows += phase_hiera_bwd_kernels(params, cfg, args.seed, TRAIN_T)
         rows += phase_twoway_kernels(params, cfg, args.seed)
         rows += phase_flash_kernels(args.seed)
+        rows += phase_presets(cfg, args.seed)
     heads_cfg = dataclasses.replace(cfg, memory_attention_num_heads=HEADS)
     launches = {}
     if "train" in phases:
@@ -1985,7 +2198,8 @@ def main() -> int:
     # each kernel's launches on its training path (#1-#5: the memory-only
     # step, #6 per geometry class: the all-trainable step, #7 the two-head
     # memory-only step, #8 the fused all-trainable steps), else serving's
-    # (#7: the two-head pass, #8: the fused pass), else null
+    # (#7: the two-head pass, #8: the fused pass), else null (the base+ and
+    # large rows: no path here runs them)
     for r in rows:
         r["launches"] = launches.get(r["name"])
     print(card, flush=True)

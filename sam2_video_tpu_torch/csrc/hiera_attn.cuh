@@ -623,7 +623,8 @@ attn_fwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
 }
 
 // ---------------------------------------------------------------------------
-// LayerNorm forward over rows of C <= 1024 channels (C % 8 == 0, eps 1e-6),
+// LayerNorm forward over rows of C <= LN_MAX_C channels (C % 8 == 0, eps
+// 1e-6),
 // a warp per row (two rows for C <= 128; 16-byte loads and stores), rows
 // mapped between a grid (B,
 // H, W) and its padding (Hp, Wp) >= (H, W); optional exact GELU after it
@@ -744,7 +745,10 @@ static void ln_fwd(const bf16* x, bf16* y, const float* w, const float* b,
   else if (C <= 512)
     ln_fwd_kernel<2, 32><<<blocks(1), 128, 0, st>>>(x, y, w, b, map, rows, C,
                                                     gelu);
-  else
+  else if (C <= 1024)
     ln_fwd_kernel<4, 32><<<blocks(1), 128, 0, st>>>(x, y, w, b, map, rows, C,
+                                                    gelu);
+  else
+    ln_fwd_kernel<5, 32><<<blocks(1), 128, 0, st>>>(x, y, w, b, map, rows, C,
                                                     gelu);
 }

@@ -273,7 +273,7 @@ extern "C" int hiera_block_fwd(const void* x_, void* out_, void* x1_,
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   const int sc = w[W_SC] != nullptr;
   const HGeo g = hgeo(B, H, W, C, heads, wsh, wsw, q_pool);
-  if (g.hd > AT_COLS || g.hd % 8 || C % 32 || Cin % 32 || hid % 32 ||
+  if (g.hd > AT_COLS || g.hd % 8 || C % 8 || Cin % 8 || hid % 8 ||
       Cin > LN_MAX_C || C > LN_MAX_C || (q_pool && (wsh % 2 || wsw % 2)) ||
       (q_pool && !sc))
     return (int)cudaErrorInvalidValue;

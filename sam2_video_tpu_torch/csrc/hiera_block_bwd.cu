@@ -386,8 +386,11 @@ static void ln_bwd(const bf16* x, const float* w, const float* dyl, int np,
   else if (C <= 512)
     ln_bwd_kernel<16><<<blocks, LB_WARPS * 32, 0, st>>>(
         x, w, dyl, np, pstride, map, res, dx, part, rows, rpb, C);
-  else
+  else if (C <= 1024)
     ln_bwd_kernel<32><<<blocks, LB_WARPS * 32, 0, st>>>(
+        x, w, dyl, np, pstride, map, res, dx, part, rows, rpb, C);
+  else
+    ln_bwd_kernel<40><<<blocks, LB_WARPS * 32, 0, st>>>(
         x, w, dyl, np, pstride, map, res, dx, part, rows, rpb, C);
 }
 
@@ -568,7 +571,7 @@ extern "C" int hiera_block_bwd(const void* x_, const void* x1_,
   const int sc = w[W_SC] != nullptr;
   const Dims d = dims(B, H, W, Cin, C, heads, hid, wsh, wsw, q_pool, sc);
   const HGeo& g = d.g;
-  if (g.hd > AT_COLS || g.hd % 8 || C % 32 || Cin % 32 || hid % 32 ||
+  if (g.hd > AT_COLS || g.hd % 8 || C % 8 || Cin % 8 || hid % 8 ||
       Cin > LN_MAX_C || C > LN_MAX_C || (q_pool && (wsh % 2 || wsw % 2)))
     return (int)cudaErrorInvalidValue;
   Arena ar{static_cast<char*>(ws), 0};

@@ -19,10 +19,12 @@ Replaces the TPU kernel ``sam2_video_tpu/ops/hiera_block_kernel.py``
   zero rows at the pad tokens of the window-padded grid and qkv there is
   the rounded bias. q-pool blocks pool 2x2 inside each window and crop the
   pooled grid back to (H/2, W/2), odd pooled windows (7 x 7) included.
-- No TPU eligibility rules: every block of the SAM2 presets runs here, at
-  any image size. The kernel refuses (raises) only shapes its tiles do not
-  cover: a head dim over 128 or not a multiple of 8, channel counts that
-  are not multiples of 32.
+- No TPU eligibility rules: every block of the four SAM2 presets (tiny,
+  small: widths 96-768, head dim 96; base+: 112-896, head dim 56; large:
+  144-1152, head dim 72) runs here, at any image size. The kernel refuses
+  (raises, ``check_block``) only shapes its tiles do not cover: a head dim
+  over 128 or not a multiple of 8, channel counts that are not multiples
+  of 8 (16-byte rows), rows wider than 1280 channels (its LayerNorms).
 - GELU uses CUDA's ``erff`` (exact erf); the plain version's bf16 rounding
   points differ from the kernel's single f32 epilogue, which chip_smoke.py
   bounds at 2e-2 of the output scale.
@@ -81,17 +83,21 @@ def pack(p, spec):
     return ops
 
 
-def _check(x, spec, q_stride, hidden: int):
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"fused_block kernel takes bfloat16, got {x.dtype}")
-    if x.ndim != 4 or not x.is_contiguous():
-        raise ValueError("fused_block kernel takes a contiguous [B, H, W, C]")
-    B, H, W, Cin = x.shape
+LN_MAX_C = 1280        # csrc/common.cuh: the widest row a LayerNorm takes
+
+
+def check_block(Cin: int, spec, q_stride, hidden: int) -> int:
+    """Raise ValueError unless kernels #1 and #6 take a block of this spec
+    with Cin input channels and an MLP of ``hidden``; returns the head
+    dim."""
     Cout, heads = spec["dim_out"], spec["num_heads"]
     if Cin != spec["dim"]:
         raise ValueError(f"x has {Cin} channels, block expects {spec['dim']}")
-    if Cin % 32 or Cout % 32 or hidden % 32:
-        raise ValueError("fused_block kernel needs channels % 32 == 0")
+    if Cin % 8 or Cout % 8 or hidden % 8:
+        raise ValueError("fused_block kernel needs channels % 8 == 0")
+    if max(Cin, Cout) > LN_MAX_C:
+        raise ValueError(f"fused_block kernel takes at most {LN_MAX_C} "
+                         f"channels, got {max(Cin, Cout)}")
     hd = Cout // heads
     if hd % 8 or hd > 128:
         raise ValueError(f"fused_block kernel needs head dim % 8 == 0 and "
@@ -103,7 +109,17 @@ def _check(x, spec, q_stride, hidden: int):
             raise ValueError("q-pool block without a dim change")
         if spec["window_size"] % 2:
             raise ValueError("q-pool needs an even window")
-    return B, H, W, Cin, Cout, heads, hd
+    return hd
+
+
+def _check(x, spec, q_stride, hidden: int):
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"fused_block kernel takes bfloat16, got {x.dtype}")
+    if x.ndim != 4 or not x.is_contiguous():
+        raise ValueError("fused_block kernel takes a contiguous [B, H, W, C]")
+    B, H, W, Cin = x.shape
+    hd = check_block(Cin, spec, q_stride, hidden)
+    return B, H, W, Cin, spec["dim_out"], spec["num_heads"], hd
 
 
 FORWARD_ONLY = (

@@ -4,8 +4,8 @@ kernel for Hopper, forward and backward.
 Replaces the TPU kernel ``sam2_video_tpu/ops/twoway_kernel.py``
 ``fused_twoway_block`` (Pallas ``_twoway_fwd_kernel`` and the two backward
 programs ``_twoway_bwd1_kernel`` / ``_twoway_bwd2_kernel``). Source:
-``csrc/twoway_block.cu`` (GEMM, column sums and ordered reductions from
-``csrc/common.cuh``).
+``csrc/twoway_block.cu`` (the tile staging and wgmma wrappers of
+``csrc/sm90_gemm.cuh`` / ``csrc/sm90.cuh``).
 
 - One block over all objects: self-attention, token -> image attention,
   ReLU MLP, image -> token attention and four LayerNorms, with the token
@@ -13,17 +13,24 @@ programs ``_twoway_bwd1_kernel`` / ``_twoway_bwd2_kernel``). Source:
   image pe (``kpe``, shared by the objects) on the image side.
 - On H100 at SAM2-tiny 384 px (8 objects, 8 tokens, 576 image keys) the
   block is ~1.3 GFLOP of products on ~6 MB, a few microseconds of bound:
-  what costs is the number of launches, the plain block's dozens against
-  the kernel's fixed sequence over all objects at once (every row-wise
-  product one batched mma.sync GEMM over all objects' rows, each attention
-  one launch of a warp per object, head and query row). Objects attend
-  only to their own keys, so the TPU's block-diagonal object mask and its
-  VMEM group sizing have no counterpart.
+  what costs is latency, a chain of ~15 dependent steps, most over only
+  the O N token rows. Each direction is one cooperative launch (and the
+  memset of its grid barrier) that walks the chain as stages between
+  grid-wide barriers, every product as 64 x 64 wgmma tiles spread over the
+  SMs (a token product's weights stream through as many SMs as it has
+  column tiles), the attentions as jobs per (object, head[, key split]) or
+  per 16 / 32 image rows. Objects attend only to their own keys, so the
+  TPU's block-diagonal object mask and its VMEM group sizing have no
+  counterpart. The softmax sums run in torch's order, so that the MLP's
+  ReLU mask mostly agrees with the plain block's; where a bit still flips
+  (a pre-activation a rounding away from 0), the gradients follow the
+  kernel's mask, and a comparison takes the plain backward through it
+  (``relu_hidden``, ``PlainReluMask``).
 - The forward keeps its activations in one workspace tensor that autograd
   holds until the backward, in place of the TPU's recompute programs B1 and
-  B2. Weight gradients are float32, summed in a fixed order (no atomics:
-  the same bits from run to run); the backward skips them where autograd
-  needs none (a frozen decoder in the memory-only train step).
+  B2. Weight gradients are float32, summed in a fixed order (no float
+  atomics: the same bits from run to run); the backward skips them where
+  autograd needs none (a frozen decoder in the memory-only train step).
 - The kernel is specialised to the SAM2 decoder's geometry: d_model 256, 8
   heads, self-attention head dim 32, cross-attention head dim 16 (downsample
   2), MLP 2048, bf16. Any object count, token count and HW. A CUDA tensor of
@@ -49,6 +56,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
+from torch.overrides import TorchFunctionMode
 
 from ..models import mask_decoder as md
 from . import kernel_build
@@ -110,6 +119,42 @@ def twoway_block_plain(p, queries, keys, qpe, kpe, first: bool,
     [O, N, C]; keys [O, HW, C]; kpe [HW, C]. Returns (queries', keys')."""
     return md._twoway_block(p, queries, keys, qpe, kpe[None], heads,
                             skip_first_pe=bool(first))
+
+
+class PlainReluMask(TorchFunctionMode):
+    """Within it, ``torch.nn.functional.relu`` (the plain block's MLP
+    activation, its only ReLU) passes its input where ``mask`` is set and 0
+    elsewhere, in value and in gradient, and keeps that input (the
+    pre-activation) as ``.pre``: the plain block taken through another
+    forward's ReLU mask, the kernel's from ``relu_hidden``. With ``mask``
+    None the ReLU is torch's and ``.pre`` is only recorded."""
+
+    def __init__(self, mask: torch.Tensor | None):
+        super().__init__()
+        self.mask, self.pre = mask, None
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is not F.relu:
+            return func(*args, **kwargs)
+        h = args[0]
+        self.pre = h.detach()
+        if self.mask is None:
+            return func(*args, **kwargs)
+        return torch.where(self.mask, h, torch.zeros_like(h))
+
+
+def relu_hidden(out: torch.Tensor) -> torch.Tensor:
+    """The MLP hidden activation relu(x2 W1^T + b1), bf16 [O, N, 2048], of
+    the kernel's forward that returned ``out`` (either output of a
+    ``fused_twoway_block`` call on the card, its graph not yet freed by a
+    backward): a view of the saved activations; its ReLU mask (> 0) is the
+    one the kernel's backward reads."""
+    x, k0, _, _, _, fws = out.grad_fn.saved_tensors[:6]
+    O, N, _ = x.shape
+    off = _lib().twoway_hidden_offset(O, N, k0.shape[1])
+    return fws[off:off + O * N * MLP_DIM * 2].view(torch.bfloat16).view(
+        O, N, MLP_DIM)
 
 
 def pack(p):
@@ -280,6 +325,8 @@ def _lib() -> ctypes.CDLL:
         lib.twoway_grad_floats.restype = L
         lib.twoway_workspace_bytes.argtypes = [I] * 4
         lib.twoway_workspace_bytes.restype = L
+        lib.twoway_hidden_offset.argtypes = [I] * 3
+        lib.twoway_hidden_offset.restype = L
         lib.twoway_fwd.argtypes = [P] * 4 + [T] + [P] * 3 + [I] * 4 + [P]
         lib.twoway_fwd.restype = I
         lib.twoway_bwd.argtypes = ([P] * 4 + [T] + [P] * 10 + [I] * 5

@@ -606,6 +606,57 @@ def test_trainable_block_backward_matches_plain(card, image_size, frames,
     assert hbb.fused_block_trainable.launches == launches + 2 * 2 * 12
 
 
+PRESET_PARAMS: dict = {}
+
+
+def _preset(backbone):
+    """(cfg, synthetic_params on the card) of a SAM2 preset at 384 px, made
+    once per test process."""
+    if backbone not in PRESET_PARAMS:
+        cfg = sam2_mod.SAM2Config(backbone=backbone, image_size=384,
+                                  use_flash_attention=False)
+        PRESET_PARAMS[backbone] = (cfg, synthetic_params(cfg, seed=0).to(
+            "cuda"))
+    return PRESET_PARAMS[backbone]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backbone", ["base_plus", "large"])
+@pytest.mark.parametrize("frames", [1, 10])
+def test_preset_blocks_match_plain(card, backbone, frames):
+    """Kernels #1 and #6 at SAM2-base+ (widths 112-896, head dim 56) and
+    SAM2-large (144-1152, head dim 72), 384 px, at the first block of each
+    geometry class (windows 8 / 4 / 14 or 16 / 7 or 8, global, the three
+    q-pool blocks, stage 4): #1 against the plain block within TOL and
+    bit-equal on a second run; #6 as ``_check_trainable_block`` (TOL, the
+    pool and walk limits, a second run's bits)."""
+    from sam2_video_tpu_torch.ops import hiera_block_bwd as hbb
+
+    cfg, params = _preset(backbone)
+    tcfg = cfg.trunk_config
+    trunk = params["image_encoder"]["trunk"]
+    gen = torch.Generator().manual_seed(frames * 7 + len(backbone))
+    H = cfg.image_size // 4
+    seen = set()
+    for i, spec in enumerate(tcfg.block_specs()):
+        geom = hbb.geometry(spec, H, H)
+        if geom not in seen:
+            seen.add(geom)
+            x = torch.randn((frames, H, H, spec["dim"]), generator=gen).to(
+                "cuda", torch.bfloat16)
+            bp = trunk["blocks"][str(i)]
+            got = hbk.fused_block(bp, x, spec, tcfg.q_stride, tcfg.mlp_ratio)
+            _assert_close(got, hbk.fused_block_plain(bp, x, spec,
+                                                     tcfg.q_stride),
+                          msg=(backbone, i))
+            assert torch.equal(got, hbk.fused_block(
+                bp, x, spec, tcfg.q_stride, tcfg.mlp_ratio)), (backbone, i)
+            _check_trainable_block(hbb, tcfg, bp, spec, x, gen, (backbone, i))
+        if spec["q_pool"]:
+            H //= 2
+    assert len(seen) >= 8
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("block", [2, 11])
 def test_trainable_block_backward_split_edges(card, block):
@@ -799,14 +850,24 @@ ZERO_GRAD_RATIO = 3.0
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("first", [True, False])
-@pytest.mark.parametrize("O, N, HW", [(8, 8, 576), (3, 9, 784)])
+@pytest.mark.parametrize("O, N, HW", [
+    (8, 8, 576), (3, 9, 784),
+    (1, 7, 576),       # one object: T = 7 token rows, one split per key tile
+    (16, 9, 576),      # T = 144: three 64-row token tiles
+    (2, 8, 4096),      # 1024 px: 64 x 64 image rows per object
+])
 def test_twoway_block_matches_plain(card, first, O, N, HW):
     """Kernel #8 forward and backward against the plain bf16 block (the
     decoder's first or second block, synthetic weights) at the 384 px slice
-    shape and a ragged 448 px one: both outputs and the gradients of every
-    weight, queries, keys, qpe and kpe within TOL of max(1, max|plain|),
-    the three key-bias gradients against float32; two backward runs give
-    the same bits (no atomics)."""
+    shape, a ragged 448 px one, one object, more token rows than one 64-row
+    tile, and 1024 px: both outputs and the MLP's hidden activation
+    (ReLU'd) within TOL of max(1, max|plain|); the gradients of every
+    weight, queries, keys, qpe and kpe within TOL of the plain backward
+    taken through the kernel's ReLU mask (a mask bit that differs, which
+    the hidden check allows only at pre-activations within TOL of 0, moves
+    a whole hidden gradient), the three key-bias gradients against float32
+    through the same mask; two backward runs give the same bits (no
+    atomics)."""
     from sam2_video_tpu_torch.ops import twoway_kernel as twk
 
     cfg, params = card
@@ -826,18 +887,26 @@ def test_twoway_block_matches_plain(card, first, O, N, HW):
             return fn(twk.block_params(w), q, k, qpe, kpe, first)
         return run
 
+    probe = [t.detach().clone().requires_grad_(True) for t in inputs]
+    hidden = twk.relu_hidden(block(twk.fused_twoway_block)(*probe)[0]).clone()
+    mask = hidden > 0
     launches = (twk.fused_twoway_block.launches,
                 twk.fused_twoway_block.backward_launches)
     outs, grads = _vjp(block(twk.fused_twoway_block), inputs, cots)
     _, again = _vjp(block(twk.fused_twoway_block), inputs, cots)
-    p_outs, p_grads = _vjp(block(twk.twoway_block_plain), inputs, cots)
-    _, f_grads = _vjp(block(twk.twoway_block_plain),
-                      [t.float() for t in inputs], [c.float() for c in cots])
+    with torch.no_grad(), twk.PlainReluMask(None) as plain:
+        p_outs = block(twk.twoway_block_plain)(*inputs)
+    with twk.PlainReluMask(mask):
+        _, p_grads = _vjp(block(twk.twoway_block_plain), inputs, cots)
+        _, f_grads = _vjp(block(twk.twoway_block_plain),
+                          [t.float() for t in inputs],
+                          [c.float() for c in cots])
     assert (twk.fused_twoway_block.launches,
             twk.fused_twoway_block.backward_launches) == (
         launches[0] + 2, launches[1] + 2)
     for got, want in zip(outs, p_outs, strict=True):
         _assert_close(got, want)
+    _assert_close(hidden, torch.relu(plain.pre), msg="MLP hidden")
     names = ["queries", "keys", "qpe", "kpe"] + [".".join(p)
                                                  for p in twk.LEAVES]
     for name, got, same, want, f32 in zip(names, grads, again, p_grads,
@@ -850,6 +919,43 @@ def test_twoway_block_matches_plain(card, first, O, N, HW):
             assert d_k <= ZERO_GRAD_RATIO * d_p, (name, d_k, d_p)
         else:
             _assert_close(got, want)
+
+
+def _tree_sum(v):
+    """v[..., 0] after v[..., i] += v[..., i + off] for off = W / 2 .. 1: a
+    butterfly's sum over the last axis as lane 0 sees it."""
+    while v.shape[-1] > 1:
+        half = v.shape[-1] // 2
+        v = v[..., :half] + v[..., half:]
+    return v[..., 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [7, 8, 9, 576, 784, 4096])
+def test_torch_softmax_sum_order(card, D):
+    """Kernel #8 sums its softmax denominators in the order of torch's CUDA
+    softmax (``csrc/twoway_block.cu`` ``sm_width``, fitted to torch
+    2.11.0+cu128), so that its probabilities mostly round as the plain
+    block's: torch.softmax of float32 rows of D values equals exp(x - max)
+    / L, L summed in that order, bit for bit. D <= 1024: min(32, next power
+    of two of D) lanes, lane l adding j = l, l + width, .., then a
+    butterfly; above: 1024 threads, a butterfly per warp, then over the 32
+    warps. A failure says the torch build sums otherwise: not a kernel
+    fault (``test_twoway_block_matches_plain`` holds the gradients through
+    the kernel's own ReLU mask, whatever the order), but the kernel's order
+    should then follow torch's."""
+    rows = 64
+    gen = torch.Generator().manual_seed(D)
+    x = (3 * torch.randn((rows, D), generator=gen)).to("cuda")
+    e = torch.exp(x - x.amax(-1, keepdim=True))
+    W = 1024 if D > 1024 else min(32, 1 << (D - 1).bit_length())
+    n = -(-D // W)
+    part = torch.nn.functional.pad(e, (0, n * W - D)).view(rows, n, W)
+    acc = part[:, 0]
+    for i in range(1, n):
+        acc = acc + part[:, i]
+    L = _tree_sum(_tree_sum(acc.view(rows, 32, 32)) if W > 32 else acc)
+    assert torch.equal(torch.softmax(x, -1), e / L[:, None])
 
 
 @pytest.mark.cuda

@@ -1,8 +1,11 @@
 """The trainable Hiera block of the PyTorch port (``ops/hiera_block_bwd.py``
 ``fused_block_trainable``, kernel #6's module) held against the JAX
-package on the CPU, in float32: SAM2-tiny's trunk at image_size=128, one
-JAX parameter tree (``jax_tree``) carried over with ``from_jax_params``,
-inputs and cotangents from a numpy seed.
+package on the CPU, in float32: SAM2-tiny's trunk at image_size=128 (and
+the first block and first q-pool block of SAM2-base+ and SAM2-large,
+widths 112 / 144 and head dims 56 / 72), one JAX parameter tree per
+preset (``jax_tree``) carried over with ``from_jax_params``, inputs and
+cotangents from a numpy seed. Every block of the four presets at 384 and
+1024 px passes the kernels' width check.
 
 On a CPU tensor ``fused_block_trainable`` is its plain version, autograd
 through ``models/hiera.py`` ``_block``. Per geometry class of the tiny
@@ -117,33 +120,31 @@ def _jax_vjp(fn, p, x, cot):
     return jax.jit(run)(p, x, cot)
 
 
-@pytest.mark.parametrize("i", list(CLASSES),
-                         ids=[f"{i}-{c.replace(' ', '_')}"
-                              for i, c in CLASSES.items()])
-def test_trainable_block_matches_jax(trunk, exact_gelu, i):  # noqa: F811
-    spec, H = _geometry(i)
-    g = np.random.default_rng(100 + i)
+def _check_block(bj, spec, H, cfg, seed, pallas=False):
+    """The port's trainable block (its plain version on the CPU) against
+    ``jax.vjp`` of JAX's XLA ``_block`` (and, with ``pallas``, of the JAX
+    kernel in interpret mode): value, dx and every parameter gradient."""
+    g = np.random.default_rng(seed)
     x = g.standard_normal((2, H, H, spec["dim"])).astype(np.float32)
-    bj = trunk["blocks"][str(i)]
     y_shape = jax.eval_shape(
-        lambda v: jhiera._block(bj, v, spec, TRUNK.q_stride),
+        lambda v: jhiera._block(bj, v, spec, cfg.q_stride),
         jnp.asarray(x)).shape
     cot = g.standard_normal(y_shape).astype(np.float32)
 
     leaves = _torch_leaves(bj)
     xt = torch.from_numpy(x).requires_grad_(True)
     out = thbb.fused_block_trainable(unflatten(leaves), xt, spec,
-                                     TRUNK.q_stride, TRUNK.mlp_ratio)
+                                     cfg.q_stride, cfg.mlp_ratio)
     grads = torch.autograd.grad(out, [xt] + list(leaves.values()),
                                 torch.from_numpy(cot))
 
     refs = [("XLA _block", lambda p, v: jhiera._block(p, v, spec,
-                                                      TRUNK.q_stride))]
-    if i in JAX_KERNEL:
-        assert jhbb.fused_block_bwd_eligible(spec, H, H, TRUNK.mlp_ratio,
+                                                      cfg.q_stride))]
+    if pallas:
+        assert jhbb.fused_block_bwd_eligible(spec, H, H, cfg.mlp_ratio,
                                              interpret=True)
         refs.append(("Pallas kernel", lambda p, v: jhbb.fused_block_trainable(
-            p, v, spec, TRUNK.q_stride, TRUNK.mlp_ratio, interpret=True)))
+            p, v, spec, cfg.q_stride, cfg.mlp_ratio, interpret=True)))
     for label, fn in refs:
         jout, (jgp, jgx) = _jax_vjp(fn, bj, jnp.asarray(x), jnp.asarray(cot))
         flips = spec["q_pool"]
@@ -153,6 +154,66 @@ def test_trainable_block_matches_jax(trunk, exact_gelu, i):  # noqa: F811
         assert set(want) == set(leaves)
         for name, gr in zip(leaves, grads[1:], strict=True):
             _close(gr, want[name].numpy(), f"{label}: d{name}", flips)
+
+
+@pytest.mark.parametrize("i", list(CLASSES),
+                         ids=[f"{i}-{c.replace(' ', '_')}"
+                              for i, c in CLASSES.items()])
+def test_trainable_block_matches_jax(trunk, exact_gelu, i):  # noqa: F811
+    spec, H = _geometry(i)
+    _check_block(trunk["blocks"][str(i)], spec, H, TRUNK, 100 + i,
+                 pallas=i in JAX_KERNEL)
+
+
+# SAM2-base+ (widths 112-896, head dim 56) and SAM2-large (144-1152, head
+# dim 72): their first block (C 112 / 144, window 8) and first q-pool block
+# (112 -> 224 / 144 -> 288, head dim 56 / 72), whose widths are no multiple
+# of 32 or of the 64-column tiles of kernels #1 and #6
+PRESET_BLOCKS = {"base_plus": (0, 2), "large": (0, 2)}
+
+
+@pytest.fixture(scope="module")
+def preset_trunks():
+    """The base+ and large trunks' JAX parameters (a seeded port init of
+    the whole model through the JAX strict converter, ~3 s each)."""
+    return {b: jax_tree(dict(KW, backbone=b), seed=11)["image_encoder"]["trunk"]
+            for b in PRESET_BLOCKS}
+
+
+@pytest.mark.parametrize("backbone, i", [(b, i) for b, blocks in
+                                         PRESET_BLOCKS.items()
+                                         for i in blocks])
+def test_preset_block_matches_jax(preset_trunks, exact_gelu,  # noqa: F811
+                                  backbone, i):
+    cfg = jhiera.HIERA_PRESETS[backbone]
+    spec = cfg.block_specs()[i]
+    assert spec["q_pool"] == (i == 2) and spec["window_size"] == 8
+    assert spec["dim_out"] // spec["num_heads"] in (56, 72)
+    _check_block(preset_trunks[backbone]["blocks"][str(i)], spec, IMG // 4,
+                 cfg, 200 + i)
+
+
+@pytest.mark.parametrize("backbone", list(jhiera.HIERA_PRESETS))
+@pytest.mark.parametrize("image_size", [384, 1024])
+def test_every_preset_block_passes_the_kernel_check(backbone, image_size):
+    """Kernels #1 and #6 take every block of the four SAM2 presets at 384
+    and 1024 px (``hiera_block_kernel.check_block``, the wrapper's check of
+    widths, head dims and q-pool windows, which ``fused_block`` and
+    ``fused_block_trainable`` run before any launch), on the input grid
+    each block sees."""
+    cfg = thiera.HIERA_PRESETS[backbone]
+    H = image_size // 4
+    dims = set()
+    for spec in cfg.block_specs():
+        hidden = int(spec["dim_out"] * cfg.mlp_ratio)
+        hd = thbk.check_block(spec["dim"], spec, cfg.q_stride, hidden)
+        x = torch.empty((1, H, H, spec["dim"]), dtype=torch.bfloat16,
+                        device="meta")
+        assert thbk._check(x, spec, cfg.q_stride, hidden)[-1] == hd
+        dims.add((spec["dim"], spec["dim_out"], hd))
+        if spec["q_pool"]:
+            H //= 2
+    assert len(dims) == 7                  # 4 widths, 3 q-pool transitions
 
 
 def test_kernel_operands_follow_the_leaves(trunk):
