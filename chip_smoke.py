@@ -3,11 +3,12 @@
 NVIDIA GPU. Run from the repository root:
 
     python3 chip_smoke.py [--seed 0]
-        [--phases build,kernels,train,train_all,train_cpu,serve,cpu]
+        [--phases build,kernels,train,train_all,train_cpu,serve,cpu,fit]
 
 Phases (all by default):
   build      compile every CUDA kernel from csrc/ (one nvcc per source, all
-             started together)
+             started together) and the data pipeline's host C++ helpers
+             (the RLE codec, the PNG unfilter) with g++
   kernels    each kernel against its plain PyTorch version at the shapes
              the training and serving paths give it, with error, tolerance
              and CUDA-event times: #1 fused_block (12 trunk blocks, one
@@ -87,6 +88,20 @@ Phases (all by default):
   cpu        the first 4 frames of one video on the card and on the CPU in
              float32 (plain versions), with one and with two memory-
              attention heads; low-res logits must agree
+  fit        the port's train CLI (train_torch.py) on a COCO-RLE dataset
+             that the port writes to disk (2 videos x 20 PNG frames of
+             480x854, 7 categories, every PNG row filter), config.yaml at
+             384 px, T=10, B=2, 8 objects, from an npz of the weights: 2
+             epochs of 2 train and 1 validation batches with finite losses,
+             last / top-k checkpoints and index.json, kernels #1-#5 launched
+             (counts at 0 just before the run); a second run resumed from
+             the best checkpoint (bit-exact restore, steps continue from
+             it); the first batch's loss against one CPU step of the CLI in
+             float32; the fit loop's clips/s with the loader's waits and
+             the loader's ms per batch beside the step's; then the
+             single-clip overfit check of tests/test_overfit.py (150 steps,
+             mask prompts, bce, lr 1e-3, Dice of the eval forward) on that
+             test's T=2 clip scaled to 384 px
 
 Weights are ``synthetic_params``: the port's seeded random init moved off
 its constants (every parameter + 0.05 N(0, 1), the memory encoder's CXBlock
@@ -128,7 +143,7 @@ KERNEL_TOL = 2e-2             # of max(1, |plain|): bf16 rounding points differ
 ATTENTION_FLOOR = 0.0
 CPU_REL_L2_TOL = 0.1          # card bf16 vs CPU float32, over 4 frames
 PHASES = ("build", "kernels", "train", "train_all", "train_cpu", "serve",
-          "cpu")
+          "cpu", "fit")
 DEVICE = "cuda"
 FRAMES, OBJECTS, CHUNK = 16, 8, 8   # frames per video, objects, encode chunk
 TINY_GEOMETRY = {0: "window 8, no pad", 1: "q-pool, even window 8",
@@ -2046,6 +2061,244 @@ def _compare_steps(title: str, got, want):
         raise SystemExit(f"{title}: " + "; ".join(bad))
 
 
+# the fit phase: the port's train CLI on a COCO-RLE dataset on disk
+FIT_VIDEOS, FIT_FRAMES, FIT_HW, FIT_CATS = 2, 20, (480, 854), 7
+FIT_EPOCHS, FIT_TRAIN_BATCHES, FIT_VAL_BATCHES = 2, 2, 1
+FIT_REQUIRED = ("fused_block", "fused_memory_encoder",
+                "flash_attention_kproj", "flash_attention_kproj_bwd",
+                "fused_self_block", "fused_self_block_bwd",
+                "fused_tail_block", "fused_tail_block_bwd")
+# the overfit check's image size and object-score bias (overfit_check.py)
+OVERFIT_SIZE, OVERFIT_OBJ_SCORE_BIAS = 384, 10.0
+
+
+def fit_overrides(json_path, npz, device: str = DEVICE) -> list:
+    """``train_torch.py`` overrides of the fit phase: config.yaml at the
+    headline shapes (384 px, T=10, B=2, 8 objects, bf16, trainable memory
+    attention and memory encoder), FIT_EPOCHS epochs of FIT_TRAIN_BATCHES
+    train and FIT_VAL_BATCHES validation batches, every step logged."""
+    return [f"data.train_path={json_path}", f"data.val_path={json_path}",
+            "data.image_size=384", "data.video_clip_length=10",
+            "data.stride=10", "data.batch_size=2",
+            f"data.num_categories={FIT_CATS}", "model.max_objects=8",
+            f"model.checkpoint_path={npz}", "eval.enabled=false",
+            "visualization.enabled=false",
+            f"trainer.max_epochs={FIT_EPOCHS}",
+            f"trainer.limit_train_batches={FIT_TRAIN_BATCHES}",
+            f"trainer.limit_val_batches={FIT_VAL_BATCHES}",
+            "trainer.log_every_n_steps=1", f"device={device}"]
+
+
+def _fit_log(run_dir) -> list:
+    return [json.loads(line) for line in
+            (run_dir / "metrics.jsonl").read_text().splitlines()]
+
+
+def _same_state(a: dict, b: dict, what: str):
+    """Raise unless two state dicts (tensors, ints, None, nested dicts)
+    are equal bit for bit."""
+    if sorted(a) != sorted(b):
+        raise SystemExit(f"resume: {what} keys differ")
+    for k in a:
+        x, y = a[k], b[k]
+        if isinstance(x, dict):
+            _same_state(x, y, f"{what}.{k}")
+        elif isinstance(x, torch.Tensor):
+            if not (x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())):
+                raise SystemExit(f"resume: {what}.{k} differs")
+        elif x != y:
+            raise SystemExit(f"resume: {what}.{k} {x} != {y}")
+
+
+def phase_fit(cfg, seed: int, card: str):
+    """The train CLI (``train_torch.run``) on a synthetic COCO-RLE dataset
+    written by the port (FIT_VIDEOS videos of FIT_FRAMES 480x854 PNG
+    frames, FIT_CATS categories, every PNG row filter), from an npz of
+    ``synthetic_params``: finite losses, ``last``, the top-k directories
+    and ``index.json``, kernels #1-#5 launched in the fit; ``last`` equal
+    bit for bit to the run's final parameters, optimizer state and step; a
+    second run resumed from the first's checkpoints, which starts from the
+    best one's state bit for bit and logs the steps after it; the first
+    batch's loss on the card against one step of the same CLI on the CPU in
+    float32 (TRAIN_CPU_LOSS_TOL); the fit loop's clips/s with the loader's
+    waits, and the loader's ms per batch beside the step's; and
+    ``phase_overfit``."""
+    import os
+    import shutil
+    from pathlib import Path
+    from unittest import mock
+
+    import train_torch
+    from sam2_video_tpu_torch.data.coco import COCOIndex
+    from sam2_video_tpu_torch.data.pipeline import (ClipDataset,
+                                                    ClipDatasetConfig,
+                                                    ClipLoader)
+    from sam2_video_tpu_torch.data.synthetic import make_synthetic_dataset
+    from sam2_video_tpu_torch.training.checkpoint import (Checkpointer,
+                                                          save_params_npz,
+                                                          state_dict_of)
+    from sam2_video_tpu_torch.training import loop
+    from sam2_video_tpu_torch.training.loop import TrainState
+
+    home = Path.cwd()
+    work = home / "outputs" / "chip_smoke_fit" / str(os.getpid())
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    json_path = make_synthetic_dataset(
+        work / "ds", num_videos=FIT_VIDEOS, frames_per_video=FIT_FRAMES,
+        image_hw=FIT_HW, num_categories=FIT_CATS, seed=seed,
+        png_filters=np.arange(FIT_HW[0]) % 5)
+    npz = work / "weights.npz"
+    save_params_npz(synthetic_params(cfg, seed), npz)
+    print(f"fit: dataset of {FIT_VIDEOS} x {FIT_FRAMES} {FIT_HW[0]}x"
+          f"{FIT_HW[1]} frames and weights written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def cli(name, extra=(), device=DEVICE, step_timer=None,
+            wait_timer=None):
+        (work / name).mkdir()
+        os.chdir(work / name)
+        try:
+            run_dir, result = train_torch.run(
+                fit_overrides(json_path, npz, device) + list(extra),
+                step_timer=step_timer, wait_timer=wait_timer)
+        finally:
+            os.chdir(home)
+        return work / name / run_dir, result
+
+    # the state at each checkpoint, kept in memory beside the files
+    saved_states = {}
+    plain_save = Checkpointer.save
+
+    def save(self, state, metric=None, epoch=0):
+        saved_states[int(state.step)] = state_dict_of(state)
+        return plain_save(self, state, metric, epoch)
+
+    steps, waits = [], []
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(Checkpointer, "save", save):
+        run1, res1 = cli("run1", step_timer=steps, wait_timer=waits)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    log1 = _fit_log(run1)
+    losses = [r[k] for r in log1 for k in r if k.endswith("total_loss")]
+    print("fit losses (split, step, total_loss): " + ", ".join(
+        f"({r['split']}, {r['step']}, "
+        f"{r.get('train/total_loss', r.get('val/total_loss')):.6g})"
+        for r in log1), flush=True)
+    if len(losses) != FIT_EPOCHS * (FIT_TRAIN_BATCHES + 1) or not all(
+            np.isfinite(losses)):
+        raise SystemExit(f"fit: losses {losses}")
+    ckpt = run1 / "checkpoints"
+    kept = sorted(p.name for p in ckpt.iterdir())
+    index = json.loads((ckpt / "index.json").read_text())
+    if "last" not in kept or not index or any(
+            r["name"] not in kept for r in index):
+        raise SystemExit(f"fit: checkpoints {kept}, index {index}")
+    print(f"fit: checkpoints {kept}, index.json "
+          + json.dumps([(r["name"], round(r["metric"], 6)) for r in index]),
+          flush=True)
+    _require(counts, FIT_REQUIRED, "fit")
+    ran = [n for n in TWOWAY + FLASH + ("fused_block_trainable_bwd",)
+           if counts[n]]
+    if ran:
+        raise SystemExit(f"fit ran {ran}")
+
+    saved = Checkpointer(ckpt).restore(ckpt / "last", device=DEVICE)
+    _same_state(state_dict_of(TrainState(**saved)),
+                state_dict_of(res1.state), "last checkpoint")
+    # a resumed run starts from the best checkpoint (train.py's
+    # resume_from): the state it starts from is the one saved there, bit
+    # for bit, and its logged steps continue from that checkpoint's step
+    best = index[0]
+    started = []
+    plain_fit = loop.fit
+
+    def fit(state, *a, **kw):
+        started.append(state_dict_of(state))
+        return plain_fit(state, *a, **kw)
+
+    with mock.patch.object(loop, "fit", fit):
+        run2, _ = cli("run2", [f"trainer.resume_from={ckpt}"])
+    _same_state(started[0], saved_states[best["step"]], "resumed state")
+    steps1 = [r["step"] for r in log1 if r["split"] == "train"]
+    steps2 = [r["step"] for r in _fit_log(run2) if r["split"] == "train"]
+    if not steps2 or min(steps2) != best["step"] + 1:
+        raise SystemExit(f"resume: steps {steps2} after the best "
+                         f"checkpoint's step {best['step']}")
+    print(f"fit resume: the last checkpoint restores the final parameters, "
+          f"optimizer state and step {res1.state.step} bit for bit; the "
+          f"resumed run starts from the best checkpoint, {best['name']}, "
+          f"with its parameters, optimizer state and step bit for bit: "
+          f"train steps {steps1} then {steps2}", flush=True)
+
+    cpu, _ = cli("cpu", ["trainer.max_epochs=1",
+                         "trainer.limit_train_batches=1",
+                         "trainer.limit_val_batches=0",
+                         "model.compute_dtype=float32"], device="cpu")
+    card_loss = log1[0]["train/total_loss"]
+    cpu_loss = _fit_log(cpu)[0]["train/total_loss"]
+    rel = abs(card_loss - cpu_loss) / max(abs(cpu_loss), 1e-12)
+    print(f"fit card vs cpu, first batch: loss {card_loss:.6g} vs "
+          f"{cpu_loss:.6g} rel {rel:.4g} (tol {TRAIN_CPU_LOSS_TOL})",
+          flush=True)
+    if not rel <= TRAIN_CPU_LOSS_TOL:
+        raise SystemExit(f"fit card vs cpu: loss rel {rel}")
+
+    loader = ClipLoader(ClipDataset(
+        COCOIndex(json_path, 384, FIT_CATS),
+        ClipDatasetConfig(clip_length=10, stride=10, num_pos_points=2)),
+        batch_size=2, seed=seed)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    loader_ms = 1e3 * (time.perf_counter() - t0) / n
+    # each train step from the request for its batch until its loss is on
+    # the host: the loader's wait, the step and the read; the first is cold
+    B = 2
+    per = [w + t for w, t in zip(waits, steps)]
+    warm = per[1:]
+    step_ms = 1e3 * float(np.median(steps))
+    print(f"fit B={B} T=10 O=8 384px bf16: {len(steps)} train steps; wait "
+          "for the batch + step until its loss is on the host, ms: cold "
+          f"first {1e3 * per[0]:.3f} (wait {1e3 * waits[0]:.3f}), then "
+          + ", ".join(f"{1e3 * t:.3f} (wait {1e3 * w:.3f})"
+                      for t, w in zip(warm, waits[1:]))
+          + f"; fit loop clips/s host-inclusive {B * len(warm) / sum(warm):.3f}"
+          f" over the {len(warm)} warm steps, {B * len(per) / sum(per):.3f} "
+          f"with the cold one; step ms median {step_ms:.3f}; whole CLI run "
+          f"{wall:.1f} s (set-up, validation and checkpoints included, "
+          f"{B * len(per) / wall:.3f} clips/s); loader ms per batch "
+          f"{loader_ms:.3f} ({n} batches of 2 clips, 2 worker threads, cold "
+          f"cache, alone) against step ms {step_ms:.3f}; {card}", flush=True)
+    phase_overfit(seed, DEVICE)
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_overfit(seed: int, device: str) -> None:
+    """The reference's convergence check, tests/test_overfit.py, on the
+    card (``overfit_check.overfit_run``): that test's T=2 clip scaled to
+    OVERFIT_SIZE px, the port's seeded init with the object-score head's
+    last bias at OVERFIT_OBJ_SCORE_BIAS, bf16. It passes when the losses
+    are finite, the last is below 0.1 of the first and below the first
+    three, and the eval forward's tracked-frame Dice is above 0.9 for every
+    category the clip holds (``overfit_check.converged``). The trained
+    forward's Dice and the eval forward's stability scores are printed
+    beside it."""
+    from sam2_video_tpu_torch import overfit_check
+
+    r = overfit_check.overfit_run(seed, device, OVERFIT_SIZE, "bfloat16",
+                                  OVERFIT_OBJ_SCORE_BIAS)
+    ok = overfit_check.converged(r)
+    print(f"overfit on tests/test_overfit.py's clip at {OVERFIT_SIZE} px "
+          + overfit_check.summary(r)
+          + (" PASS" if ok else " did not converge"), flush=True)
+    if not ok:
+        raise SystemExit("overfit: the check did not converge")
+
+
 FUSED_STEPS = 3
 
 
@@ -2141,10 +2394,19 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     if "build" in phases:
+        from sam2_video_tpu_torch.data import host_build
+
         t0 = time.perf_counter()
         logs = kernel_build.build(force=True)
         print(f"build: {len(logs)} kernels in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for name in host_build.SOURCES:
+            if not host_build.build(name, force=True):
+                raise SystemExit(f"build: the host helper {name} did not "
+                                 "build with g++")
+        print("build: host helpers " + ", ".join(
+            str(host_build.lib_path(n).relative_to(host_build.PKG.parent))
+            for n in host_build.SOURCES), flush=True)
         for name, log in logs.items():
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
@@ -2194,6 +2456,8 @@ def main() -> int:
     if "cpu" in phases:
         phase_cpu(params, cfg, args.seed, OBJECTS)
         phase_cpu(params, heads_cfg, args.seed, OBJECTS)
+    if "fit" in phases:
+        phase_fit(cfg, args.seed, card)
 
     # each kernel's launches on its training path (#1-#5: the memory-only
     # step, #6 per geometry class: the all-trainable step, #7 the two-head

@@ -1,11 +1,13 @@
-"""Weight bridge from the JAX package's parameter trees.
+"""Weight bridge to and from the JAX package's parameter trees.
 
 ``from_jax_params`` is the inverse of the JAX converter's layout transform
 (``sam2_video_tpu/training/convert.py`` ``_layout_transform``): the flat
 names stay, conv kernels go HWIO -> OIHW, transposed-conv kernels
-HWIO -> IOHW, and the Hiera pos-embeds NHWC -> NCHW. ``load_npz`` reads the
-single-file dumps written by ``save_params_npz``. Derived entries that are
-not parameters (memory attention's ``_qp``/``_kp``) are not carried.
+HWIO -> IOHW, and the Hiera pos-embeds NHWC -> NCHW. ``to_jax_params`` goes
+back. ``load_npz`` reads the single-file dumps written by the JAX package's
+``save_params_npz`` (and by ``training/checkpoint.py``'s). Derived entries
+that are not parameters (memory attention's ``_qp``/``_kp``) are not
+carried.
 """
 
 from __future__ import annotations
@@ -53,6 +55,29 @@ def _to_torch_layout(name: str, a: np.ndarray) -> np.ndarray:
     if "output_upscaling" in parts:
         return a.transpose(2, 3, 0, 1)        # deconv HWIO -> IOHW
     return a.transpose(3, 2, 0, 1)            # conv HWIO -> OIHW
+
+
+def _to_jax_layout(name: str, a: np.ndarray) -> np.ndarray:
+    """The inverse of ``_to_torch_layout``."""
+    parts = name.split(".")
+    if a.ndim != 4 or parts[-1] == "maskmem_tpos_enc":
+        return a
+    if parts[-1] in ("pos_embed", "pos_embed_window"):
+        return a.transpose(0, 2, 3, 1)        # NCHW -> NHWC
+    if "output_upscaling" in parts:
+        return a.transpose(2, 3, 0, 1)        # deconv IOHW -> HWIO
+    return a.transpose(2, 3, 1, 0)            # conv OIHW -> HWIO
+
+
+def to_jax_params(params) -> dict:
+    """A ParamTree or flat ``state_dict`` -> flat {JAX path: float32 numpy
+    array in JAX layout}, the form the JAX package's ``save_params_npz``
+    writes."""
+    if isinstance(params, ParamTree):
+        params = dict(params.named_parameters())
+    return {name: np.ascontiguousarray(_to_jax_layout(
+                name, t.detach().float().cpu().numpy()))
+            for name, t in params.items() if not _is_derived(name)}
 
 
 def from_jax_params(tree) -> dict:

@@ -1,8 +1,12 @@
-"""Synthetic weights and videos for smoke runs and profiles, made from a
-seed: the port's random init moved off its constants, and a smooth
-background with coloured ellipses drifting across it."""
+"""Synthetic weights, videos and datasets for tests, smoke runs and
+profiles, made from a seed: the port's random init moved off its
+constants, a smooth background with coloured ellipses drifting across it,
+and a COCO-RLE video dataset on disk."""
 
 from __future__ import annotations
+
+import json
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -94,3 +98,65 @@ def example_clip(image_size: int, T: int, O: int, C: int,
                obj_to_cat=torch.from_numpy(obj_to_cat),
                point_coords=torch.from_numpy(coords),
                point_labels=torch.from_numpy(labels))
+
+
+def make_synthetic_dataset(root: str | Path, num_videos: int = 2,
+                           frames_per_video: int = 12, image_hw=(240, 320),
+                           num_categories: int = 3, seed: int = 0,
+                           png_filters=0) -> Path:
+    """A COCO-style video dataset of moving coloured discs, one category
+    each, with RLE annotations: ``images/*.png`` and ``annotations.json``
+    under ``root``; returns the JSON path. The JAX package's
+    ``make_synthetic_dataset`` with the same arguments writes the same JSON
+    and the same pixels (its PNG bytes differ: Pillow filters each row
+    adaptively, ``png_filters`` sets the filter type here, one for every
+    row or one per row)."""
+    from . import image_io
+    from . import rle as rle_mod
+
+    root = Path(root)
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    h, w = image_hw
+    rng = np.random.default_rng(seed)
+
+    images, annotations, ann_id = [], [], 0
+    img_id = 0
+    for v in range(num_videos):
+        centers = rng.uniform(40, min(h, w) - 40, (num_categories, 2))
+        vels = rng.uniform(-4, 4, (num_categories, 2))
+        radii = rng.uniform(14, 30, num_categories)
+        for f in range(frames_per_video):
+            frame = rng.integers(0, 60, (h, w, 3), dtype=np.uint8)
+            yy, xx = np.mgrid[0:h, 0:w]
+            for c in range(num_categories):
+                cy, cx = centers[c] + vels[c] * f
+                cy = float(np.clip(cy, 5, h - 5))
+                cx = float(np.clip(cx, 5, w - 5))
+                mask = ((yy - cy) ** 2 + (xx - cx) ** 2) < radii[c] ** 2
+                color = np.zeros(3, np.uint8)
+                color[c % 3] = 200
+                frame[mask] = color
+                if mask.any():
+                    seg = rle_mod.encode(mask.astype(np.uint8))
+                    annotations.append({
+                        "id": ann_id, "image_id": img_id, "category_id": c,
+                        "segmentation": seg, "area": int(mask.sum()),
+                        "bbox": rle_mod.to_bbox(seg), "iscrowd": 0,
+                    })
+                    ann_id += 1
+            fname = f"vid{v}_frame{f:03d}.png"
+            image_io.write_png(root / "images" / fname, frame, png_filters)
+            images.append({
+                "file_name": fname, "path": str(root / "images" / fname),
+                "height": h, "width": w, "id": img_id,
+                "video_id": f"vid{v}", "is_det_keyframe": True,
+                "order_in_video": f,
+            })
+            img_id += 1
+
+    categories = [{"id": c, "name": f"cat{c}"} for c in range(num_categories)]
+    out = {"images": images, "annotations": annotations,
+           "categories": categories}
+    json_path = root / "annotations.json"
+    json_path.write_text(json.dumps(out))
+    return json_path

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..convert import to_param_tree
+from ..data import image_io
 from ..models import sam2 as sam2_mod
 from ..models.sam2 import SAM2Config
 from ..ops.position_encoding import sine_pe_2d
@@ -279,14 +280,14 @@ class VideoPredictor:
 
     def add_new_mask(self, state: InferenceState, frame_idx: int, obj_id,
                      mask: np.ndarray):
-        """Binary mask at the video resolution, resized to image_size with
-        an antialiased bilinear filter (PIL's BILINEAR) and re-binarised."""
+        """Binary mask at the video resolution, resized to image_size as
+        Pillow's BILINEAR does (``data/image_io.py``, bit for bit) and
+        re-binarised."""
         s = self.cfg.image_size
-        m = torch.from_numpy((np.asarray(mask) > 0).astype(np.float32) * 255.0)
-        m = F.interpolate(m[None, None], size=(s, s), mode="bilinear",
-                          align_corners=False, antialias=True)[0, 0]
+        m = (np.asarray(mask) > 0).astype(np.uint8) * 255
+        m = image_io.resize_bilinear(m, (s, s))
         self._add(state, frame_idx, obj_id,
-                  ("mask", (m.round() > 127).float().numpy(), None))
+                  ("mask", (m > 127).astype(np.float32), None))
 
     def _add(self, state, frame_idx, obj_id, payload):
         if obj_id not in state.obj_order:

@@ -18,13 +18,15 @@ current parameters in every step (the memory encoder's packed kernel
 operands, the compute-dtype casts under autograd), and memory attention's
 permuted projections inside ``forward_train``.
 
-The epoch loop, checkpoints and data parallelism are not ported yet
-(ROADMAP.md, queue 1, items 6 and 8).
+``fit`` is the epoch loop: per-epoch training and validation, metric
+logging, best-validation tracking and checkpoints after each validation.
+Data parallelism is not ported yet (ROADMAP.md, queue 1, item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable
 
 import torch
@@ -142,3 +144,90 @@ def make_eval_step(mcfg: VideoModelConfig, lcfg: LossConfig,
         return metrics
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# The epoch loop (host orchestration)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FitResult:
+    state: TrainState
+    history: list
+    best_val: float
+
+
+def fit(state: TrainState, train_step, eval_step, train_loader, val_loader,
+        max_epochs: int, limit_train_batches: int | None = None,
+        limit_val_batches: int | None = None, log_every: int = 20,
+        logger=None, checkpointer=None, val_check_interval: float = 1.0,
+        step_timer: list | None = None, wait_timer: list | None = None,
+        start_epoch: int = 0) -> FitResult:
+    """Per-epoch training and validation (the JAX package's ``fit``):
+    training metrics every ``log_every`` steps, validation at the end of
+    each epoch or every ``val_check_interval`` of it, a checkpoint after
+    each validation monitored on val/total_loss, and epochs from
+    ``start_epoch``. The loss is read on the host only where a step is
+    logged or timed (``step_timer`` gets each step's seconds, the wait for
+    its loss included), so the loop adds no synchronisation per step.
+    ``wait_timer`` gets the seconds each training batch was waited for,
+    from the request to the train loader until it yielded."""
+    history = []
+    best_val = float("inf")
+
+    def log(split, step, metrics):
+        rec = {"split": split, "step": int(step),
+               **{k: float(v) for k, v in metrics.items()}}
+        history.append(rec)
+        if logger is not None:
+            logger.log(rec)
+
+    def run_val(epoch):
+        nonlocal best_val
+        if val_loader is None:
+            return
+        agg, n = {}, 0
+        for bi, batch in enumerate(val_loader):
+            if limit_val_batches is not None and bi >= limit_val_batches:
+                break
+            m = eval_step(state.params, batch)
+            for k, v in m.items():
+                agg[k] = agg.get(k, 0.0) + float(v)
+            n += 1
+        if n == 0:
+            return
+        m = {f"val/{k}": v / n for k, v in agg.items()}
+        log("val", state.step, m)
+        vloss = m.get(f"val/{CORE_LOSS_KEY}", float("inf"))
+        if checkpointer is not None:
+            checkpointer.save(state, metric=vloss, epoch=epoch)
+        best_val = min(best_val, vloss)
+
+    for epoch in range(start_epoch, max_epochs):
+        nb = len(train_loader)
+        if limit_train_batches is not None:
+            nb = min(nb, limit_train_batches)
+        val_every = (max(1, int(nb * val_check_interval))
+                     if val_check_interval and val_check_interval < 1.0
+                     else None)
+        t_ask = time.perf_counter()
+        for bi, batch in enumerate(train_loader):
+            if limit_train_batches is not None and bi >= limit_train_batches:
+                break
+            t0 = time.perf_counter()
+            if wait_timer is not None:
+                wait_timer.append(t0 - t_ask)
+            state, metrics = train_step(state, batch)
+            if step_timer is not None:
+                float(metrics[CORE_LOSS_KEY])
+                step_timer.append(time.perf_counter() - t0)
+            if state.step % max(log_every, 1) == 0:
+                log("train", state.step,
+                    {f"train/{k}": v for k, v in metrics.items()})
+            if val_every and (bi + 1) % val_every == 0:
+                run_val(epoch)
+            t_ask = time.perf_counter()
+        if not val_every:
+            run_val(epoch)
+    return FitResult(state=state, history=history, best_val=best_val)
