@@ -3,7 +3,7 @@
 NVIDIA GPU. Run from the repository root:
 
     python3 chip_smoke.py [--seed 0]
-        [--phases build,kernels,train,train_all,train_cpu,serve,cpu,fit]
+        [--phases build,kernels,train,train_all,train_cpu,serve,cpu,fit,eval]
 
 Phases (all by default):
   build      compile every CUDA kernel from csrc/ (one nvcc per source, all
@@ -102,6 +102,24 @@ Phases (all by default):
              single-clip overfit check of tests/test_overfit.py (150 steps,
              mask prompts, bce, lr 1e-3, Dice of the eval forward) on that
              test's T=2 clip scaled to 384 px
+  eval       the evaluation path: (a) the predictor at the serve cell's
+             sizes on one 16-frame 480x854 video, every object prompted
+             at frame 8, reverse to frame 0 then forward; then a
+             predictor with max_cond_frames=2, all objects at frame 0 and
+             half again at frame 10 (a partly prompted conditioning frame)
+             and a correction click on tracked frame 5; reverse and
+             forward frames/s, #1 in each encode and #2-#5 in each pass,
+             low-res logits and scores against the same sequences on the
+             CPU in float32 (relative L2 0.1); (b) train_torch.py with
+             eval.enabled=true on the fit phase's dataset cut to 10
+             frames per video, and its npz (one train and one validation
+             batch): predict.json, prompt.pkl and
+             eval/metrics.json with finite Dice / IoU / MAE, #1-#5
+             launched by the eval, its wall and frames/s; the same
+             inference() + evaluate from the best checkpoint under
+             torch.profiler without the probability maps (busy share)
+             and on the CPU in float32 (each frame's probability maps
+             within relative L2 0.1)
 
 Weights are ``synthetic_params``: the port's seeded random init moved off
 its constants (every parameter + 0.05 N(0, 1), the memory encoder's CXBlock
@@ -143,7 +161,7 @@ KERNEL_TOL = 2e-2             # of max(1, |plain|): bf16 rounding points differ
 ATTENTION_FLOOR = 0.0
 CPU_REL_L2_TOL = 0.1          # card bf16 vs CPU float32, over 4 frames
 PHASES = ("build", "kernels", "train", "train_all", "train_cpu", "serve",
-          "cpu", "fit")
+          "cpu", "fit", "eval")
 DEVICE = "cuda"
 FRAMES, OBJECTS, CHUNK = 16, 8, 8   # frames per video, objects, encode chunk
 TINY_GEOMETRY = {0: "window 8, no pad", 1: "q-pool, even window 8",
@@ -2299,6 +2317,272 @@ def phase_overfit(seed: int, device: str) -> None:
         raise SystemExit("overfit: the check did not converge")
 
 
+# the eval phase: the predictor both ways, several conditioning frames, a
+# correction click; then the train CLI's post-fit eval
+EVAL_FRAMES, EVAL_PROMPT_FRAME = 16, 8
+EVAL_REQUIRED = ("fused_memory_encoder", "flash_attention_kproj",
+                 "fused_self_block", "fused_tail_block")
+NO_OBJ_FLOOR = -1000.0        # NO_OBJ placeholder logits (-1024) lie below
+
+
+def _timed_pass(pred, state, reverse: bool, label: str):
+    """One propagation pass with every counter at 0 just before it: the
+    yields, the seconds, and #2-#5 required."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = list(pred.propagate_in_video(state, reverse=reverse))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    _require(read_counts(), EVAL_REQUIRED, label)
+    return out, secs
+
+
+def _eval_sequences(pred, video, centres, on_card: bool):
+    """The eval phase's two predictor sequences on ``video``. (1) Every
+    object prompted at EVAL_PROMPT_FRAME, reverse to frame 0, then
+    forward (the reference's order). (2) A predictor with two
+    conditioning slots (``pred`` is a pair): every object at frame 0,
+    half of them again at frame 10 (a partly prompted conditioning frame:
+    the others' rows consolidated as NO_OBJ placeholders), forward; then
+    a correction click on tracked frame 5 for object 2 (frame 5 becomes a
+    third conditioning frame, consolidated from its tracked rows) and
+    forward again. Returns {label: yields} and {label: seconds}; on the
+    card every pass requires #2-#5 and each init_state #1."""
+    one, two = pred
+    outs, secs = {}, {}
+
+    def init(p, label):
+        reset_counts()
+        t0 = time.perf_counter()
+        state = p.init_state(video)
+        if on_card:
+            torch.cuda.synchronize()
+            _require(read_counts(), ["fused_block"], label)
+        secs[label] = time.perf_counter() - t0
+        return state
+
+    def run(p, state, reverse, label):
+        if on_card:
+            outs[label], secs[label] = _timed_pass(p, state, reverse, label)
+        else:
+            outs[label] = list(p.propagate_in_video(state, reverse=reverse))
+
+    state = init(one, "eval encode")
+    prompt_all(one, state, centres, frame_idx=EVAL_PROMPT_FRAME)
+    run(one, state, True, "eval reverse")
+    run(one, state, False, "eval forward")
+    state = init(two, "eval multi-frame encode")
+    prompt_all(two, state, centres, frame_idx=0)
+    half = len(centres) // 2
+    prompt_all(two, state, centres[:half], frame_idx=10)
+    run(two, state, False, "eval two conditioning frames")
+    cy, cx = centres[2]
+    two.add_new_points_or_box(state, 5, 2, points=[[cx + 3.0, cy]],
+                              labels=[1])
+    run(two, state, False, "eval correction click")
+    return outs, secs
+
+
+def phase_eval_predictor(params, cfg, seed: int, objects: int):
+    """(a) The predictor's eval features on the card at the serve cell's
+    sizes (one 480x854 video of EVAL_FRAMES frames, ``objects`` objects):
+    ``_eval_sequences``, with reverse and forward frames/s; then the same
+    sequences on the CPU in float32 (plain versions, the same weights made
+    again from ``seed``): each pass's low-res logits (outside the NO_OBJ
+    placeholders, which must agree) and scores within relative L2
+    CPU_REL_L2_TOL."""
+    from sam2_video_tpu_torch import VideoPredictor
+
+    video, centres = synthetic_video(seed + 400, EVAL_FRAMES, objects=objects)
+    card = [VideoPredictor(params, cfg, max_objects=objects,
+                           max_cond_frames=n, device=DEVICE) for n in (1, 2)]
+    _eval_sequences(card, video, centres, True)      # warm-up
+    got, secs = _eval_sequences(card, video, centres, True)
+    for label in ("eval reverse", "eval forward",
+                  "eval two conditioning frames", "eval correction click"):
+        n = len(got[label])
+        print(f"{label}: {n} frames of 480x854 -> {cfg.image_size}px, "
+              f"{objects} objects: {n / secs[label]:.2f} frames/s "
+              f"({secs[label]:.3f} s)", flush=True)
+    cpu_cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    cpu_params = synthetic_params(cpu_cfg, seed)
+    cpu = [VideoPredictor(cpu_params, cpu_cfg, max_objects=objects,
+                          max_cond_frames=n, device="cpu") for n in (1, 2)]
+    want, _ = _eval_sequences(cpu, video, centres, False)
+    bad = []
+    for label, ref in want.items():
+        g_out = got[label]
+        if [t for t, *_ in g_out] != [t for t, *_ in ref]:
+            raise SystemExit(f"{label}: frames {[t for t, *_ in g_out]} on "
+                             f"the card, {[t for t, *_ in ref]} on the CPU")
+        a = np.stack([lg for _, _, lg, _ in g_out]).astype(np.float32)
+        b = np.stack([lg for _, _, lg, _ in ref]).astype(np.float32)
+        placeholder = b < NO_OBJ_FLOOR
+        if not np.array_equal(a < NO_OBJ_FLOOR, placeholder):
+            bad.append(f"{label}: NO_OBJ placeholders differ")
+        rel = _rel_l2(torch.from_numpy(a[~placeholder]),
+                      torch.from_numpy(b[~placeholder]))
+        rel_s = _rel_l2(*(torch.from_numpy(np.stack([s for *_, s in out]))
+                          for out in (g_out, ref)))
+        agree = float(((a > 0) == (b > 0)).mean())
+        print(f"{label} card vs cpu float32 ({len(ref)} frames): logits "
+              f"rel_l2 {rel:.4g}, scores rel_l2 {rel_s:.4g} (tol "
+              f"{CPU_REL_L2_TOL}), {int(placeholder.sum())} placeholder "
+              f"logits equal, sign agreement {agree:.4f}", flush=True)
+        if not (rel <= CPU_REL_L2_TOL and rel_s <= CPU_REL_L2_TOL):
+            bad.append(f"{label}: rel_l2 logits {rel}, scores {rel_s}")
+    if bad:
+        raise SystemExit("eval card vs cpu: " + "; ".join(bad))
+
+
+# the train CLI with its post-fit eval: one train and one validation batch
+# on the fit phase's dataset cut to EVAL_CLI_FRAMES frames per video (one
+# clip of T=10 each), to keep the script's time
+EVAL_CLI_FRAMES = 10
+EVAL_CLI_OVERRIDES = ("trainer.max_epochs=1", "trainer.limit_train_batches=1",
+                      "trainer.limit_val_batches=1", "eval.enabled=true",
+                      "eval.probs_out_dir=probs")
+
+
+def phase_eval_cli(cfg, seed: int, card: str):
+    """(b) ``train_torch.py`` with ``eval.enabled=true`` (the fit phase's
+    dataset at EVAL_CLI_FRAMES frames per video, its shapes and npz; one
+    train and one validation batch) writes
+    predict.json, prompt.pkl and eval/metrics.json with finite Dice, IoU
+    and MAE, its eval launching #1-#5 (counters at 0 just before the eval,
+    read just after), with the eval's wall and frames/s; then the same
+    inference() + evaluate from the run's best checkpoint under
+    torch.profiler on the card without the probability maps (busy share,
+    as profile_fit reads it) and, with them, on the CPU in float32: each frame's float16 probability maps within
+    relative L2 CPU_REL_L2_TOL of the CPU's, both runs' metrics
+    printed."""
+    import os
+    import shutil
+    from pathlib import Path
+    from unittest import mock
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import train_torch
+    from sam2_video_tpu_torch.config import load_config, model_config
+    from sam2_video_tpu_torch.data.synthetic import make_synthetic_dataset
+    from sam2_video_tpu_torch.eval.inference import inference
+    from sam2_video_tpu_torch.eval.metrics import evaluate
+    from sam2_video_tpu_torch.eval.predictor import VideoPredictor
+    from sam2_video_tpu_torch.profile_serving import report
+    from sam2_video_tpu_torch.training.checkpoint import (Checkpointer,
+                                                          save_params_npz)
+
+    home = Path.cwd()
+    work = home / "outputs" / "chip_smoke_eval" / str(os.getpid())
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    json_path = make_synthetic_dataset(
+        work / "ds", num_videos=FIT_VIDEOS, frames_per_video=EVAL_CLI_FRAMES,
+        image_hw=FIT_HW, num_categories=FIT_CATS, seed=seed,
+        png_filters=np.arange(FIT_HW[0]) % 5)
+    npz = work / "weights.npz"
+    save_params_npz(synthetic_params(cfg, seed), npz)
+    overrides = fit_overrides(json_path, npz) + list(EVAL_CLI_OVERRIDES)
+
+    frames, timing = [], {}
+    plain_eval = train_torch.post_fit_eval
+    plain_propagate = VideoPredictor.propagate_in_video
+
+    def counted(self, *a, **kw):
+        for out in plain_propagate(self, *a, **kw):
+            frames.append(out[0])
+            yield out
+
+    def timed_eval(*a, **kw):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_eval(*a, **kw)
+        torch.cuda.synchronize()
+        timing["wall"] = time.perf_counter() - t0
+        timing["counts"] = read_counts()
+        return out
+
+    (work / "cli").mkdir()
+    os.chdir(work / "cli")
+    try:
+        with mock.patch.object(train_torch, "post_fit_eval", timed_eval), \
+                mock.patch.object(VideoPredictor, "propagate_in_video",
+                                  counted):
+            run_dir, _ = train_torch.run(overrides)
+    finally:
+        os.chdir(home)
+    ev = work / "cli" / run_dir / "eval"
+    missing = [f for f in ("predict.json", "prompt.pkl", "eval.pkl",
+                           "metrics.json", "probs/meta.json")
+               if not (ev / f).exists()]
+    if missing:
+        raise SystemExit(f"eval CLI: no {missing} in {ev}")
+    metrics = json.loads((ev / "metrics.json").read_text())
+    card_m = {k: metrics[f"eval/{k}"] for k in ("dice", "iou", "mae")}
+    if not all(np.isfinite(v) for v in card_m.values()):
+        raise SystemExit(f"eval CLI: metrics {card_m}")
+    _require(timing["counts"], ("fused_block",) + EVAL_REQUIRED,
+             "post-fit eval")
+    n = len(frames)
+    print(f"eval CLI ({FIT_VIDEOS} videos x {EVAL_CLI_FRAMES} frames of "
+          f"{FIT_HW[0]}x{FIT_HW[1]}, reverse then forward per clip, "
+          f"probability maps written): {n} frames in {timing['wall']:.3f} s "
+          f"of post-fit eval, {n / timing['wall']:.2f} frames/s; metrics "
+          + json.dumps(card_m) + f"; {card}", flush=True)
+
+    tcfg = load_config("config", overrides)
+    sam2_cfg = model_config(tcfg).sam2
+    kw = train_torch.inference_kwargs(tcfg, int(tcfg.get("seed", 42)))
+    ckpt = Checkpointer(work / "cli" / run_dir / "checkpoints")
+    best = ckpt.restore(device=DEVICE)["params"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pred_path, _ = inference(best, sam2_cfg, json_path, work / "prof",
+                                 device=DEVICE,
+                                 **dict(kw, probs_out_dir=None))
+        evaluate(pred_path, json_path, work / "prof" / "eval")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report(prof, f"eval inference() + evaluate under torch.profiler, {n} "
+           "frames, probability maps off (config.yaml's default)", wall,
+           top=8)
+    print(f"eval under torch.profiler, probability maps off: "
+          f"{n / wall:.2f} frames/s", flush=True)
+
+    cpu_cfg = dataclasses.replace(sam2_cfg, compute_dtype="float32")
+    cpu_best = ckpt.restore(device="cpu")["params"]
+    cpu_pred, _ = inference(cpu_best, cpu_cfg, json_path, work / "cpu",
+                            device="cpu", **kw)
+    cpu_m = evaluate(cpu_pred, json_path, work / "cpu" / "eval")["avg_scores"]
+    print("eval metrics card bf16 " + json.dumps(card_m) + ", cpu float32 "
+          + json.dumps({k: float(cpu_m[k]) for k in card_m}), flush=True)
+    got_dir, want_dir = ev / "probs", work / "cpu" / "eval" / "probs"
+    names = sorted(q.name for q in want_dir.glob("*.npz"))
+    if not names or names != sorted(q.name for q in got_dir.glob("*.npz")):
+        raise SystemExit("eval CLI: the card's and the CPU's probability "
+                         "maps cover different frames")
+    rels = []
+    for name in names:
+        g, w = np.load(got_dir / name), np.load(want_dir / name)
+        if not np.array_equal(g["obj_ids"], w["obj_ids"]):
+            raise SystemExit(f"eval CLI {name}: object ids differ")
+        rels.append(_rel_l2(*(torch.from_numpy(x["probs"].astype(np.float32))
+                              for x in (g, w))))
+    worst = int(np.argmax(rels))
+    print(f"eval CLI probability maps card vs cpu float32, {len(rels)} "
+          f"frames: rel_l2 per frame median {np.median(rels):.4g}, max "
+          f"{rels[worst]:.4g} ({names[worst]}) (tol {CPU_REL_L2_TOL})",
+          flush=True)
+    if not max(rels) <= CPU_REL_L2_TOL:
+        raise SystemExit(f"eval CLI: probability maps rel_l2 {max(rels)}")
+    shutil.rmtree(work, ignore_errors=True)
+
+
 FUSED_STEPS = 3
 
 
@@ -2458,6 +2742,9 @@ def main() -> int:
         phase_cpu(params, heads_cfg, args.seed, OBJECTS)
     if "fit" in phases:
         phase_fit(cfg, args.seed, card)
+    if "eval" in phases:
+        phase_eval_predictor(params, cfg, args.seed, OBJECTS)
+        phase_eval_cli(cfg, args.seed, card)
 
     # each kernel's launches on its training path (#1-#5: the memory-only
     # step, #6 per geometry class: the all-trainable step, #7 the two-head

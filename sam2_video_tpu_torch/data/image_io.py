@@ -115,7 +115,8 @@ def unfilter(data: np.ndarray, height: int, stride: int,
 
 def _what(head: bytes) -> str:
     if head.startswith(b"\xff\xd8\xff"):
-        return "a JPEG file (not supported: PNG frames only)"
+        return ("a JPEG file (not supported: PNG frames only; JPEG is "
+                "ROADMAP.md, queue 1, item 5's open gap)")
     if head[:6] in (b"GIF87a", b"GIF89a"):
         return "a GIF file"
     if head[:2] == b"BM":

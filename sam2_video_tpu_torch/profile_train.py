@@ -1,7 +1,7 @@
 """Where the headline train step's device time goes, on one NVIDIA GPU.
 
     python3 -m sam2_video_tpu_torch.profile_train [--trainable mem|all]
-        [--fused-twoway] [--memory-attention-heads N]
+        [--fused-twoway] [--memory-attention-heads N] [--steps N]
 
 Builds the train step of ``bench.py``'s headline configuration in the port
 (SAM2-tiny 384 px, bf16, T=10, O=8, C=7, B=2, point prompts, AdamW lr
@@ -12,8 +12,10 @@ mem+md+pe+ie, whose trunk runs kernel #6 backward); with
 ``--fused-twoway`` the decoder's two-way blocks run kernel #8 forward and
 backward; with ``--memory-attention-heads 2`` memory attention runs two
 heads, whose cross-attention takes the generic flash attention (kernel
-#7) forward and backward in place of kernels #3-#5. Runs one warm-up step, then one step under ``torch.profiler``.
-Prints the step's wall time, the summed device (kernel) time, the device
+#7) forward and backward in place of kernels #3-#5. Runs one warm-up step,
+then ``--steps`` synchronised steps timed on the host clock (their median,
+default 0: none), then one step under ``torch.profiler``. Prints the
+step's wall time, the summed device (kernel) time, the device
 busy share, the kernels that take the most device time and the host
 operations that take the most CPU time (``profile_serving``'s report).
 """
@@ -21,6 +23,7 @@ operations that take the most CPU time (``profile_serving``'s report).
 from __future__ import annotations
 
 import argparse
+import statistics
 import time
 
 import torch
@@ -45,6 +48,7 @@ def main() -> int:
     ap.add_argument("--trainable", choices=sorted(TRAINABLE), default="mem")
     ap.add_argument("--fused-twoway", action="store_true")
     ap.add_argument("--memory-attention-heads", type=int, default=1)
+    ap.add_argument("--steps", type=int, default=0)
     args = ap.parse_args()
     trainable = TRAINABLE[args.trainable]
     if not torch.cuda.is_available():
@@ -68,6 +72,16 @@ def main() -> int:
     batch = example_clip(cfg.image_size, T=T, O=O, C=C, B=B).to("cuda")
     state, _ = step(state, batch)                  # warm-up
     torch.cuda.synchronize()
+    times = []
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if times:
+        print(f"train step ms median {1e3 * statistics.median(times):.3f}"
+              " over " + ", ".join(f"{1e3 * t:.3f}" for t in times),
+              flush=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -21,6 +21,7 @@ tensor, with no floor of 1.
 import copy
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -1154,3 +1155,62 @@ def test_two_head_memory_attention_runs_flash_attention(card):
             fa.flash_attention_kproj.launches,
             mlk.fused_self_block.launches) == (
         before[0] + layers, before[1] + layers, before[2], before[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src, dst", [((96, 96), (384, 384)),
+                                      ((384, 384), (96, 96)),
+                                      ((96, 96), (480, 854))])
+def test_resize_bilinear_repeats_on_the_card(card, src, dst):
+    """resize_bilinear (two interpolation products) forward and backward
+    on the card: the same bits twice, and within 1e-5 of the largest
+    value of the CPU's float32 result (TF32 is off)."""
+    from sam2_video_tpu_torch.ops.resize import resize_bilinear
+
+    gen = torch.Generator().manual_seed(3)
+    x = 4.0 * torch.randn((8, 1) + src, generator=gen)
+    cot = torch.randn((8, 1) + dst, generator=gen)
+    runs = []
+    for dev in ("cpu", "cuda", "cuda"):
+        xd = x.to(dev).detach().requires_grad_(True)
+        y = resize_bilinear(xd, dst)
+        y.backward(cot.to(dev))
+        runs.append((y.detach().cpu(), xd.grad.cpu()))
+    for a, b, want in zip(runs[1], runs[2], runs[0]):
+        assert torch.equal(a, b)
+        assert (a - want).abs().max().item() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_reverse_propagation_launches_the_kernels(card):
+    """The predictor in its usual configuration (use_flash_attention=True)
+    on the card, every object prompted on a middle frame, then reverse to
+    frame 0 and forward: the reference's frame order, and in each pass
+    kernel #2 once per tracked frame (and once for the conditioning frame,
+    encoded in the first pass) and #3-#5 once per tracked frame and
+    memory-attention layer."""
+    from sam2_video_tpu_torch import VideoPredictor
+    from sam2_video_tpu_torch.data.synthetic import (prompt_all,
+                                                     synthetic_video)
+    from sam2_video_tpu_torch.ops import flash_attention as fa
+    from sam2_video_tpu_torch.ops import memattn_layer_kernel as mlk
+
+    cfg, params = card
+    cfg = dataclasses.replace(cfg, use_flash_attention=True)
+    layers = cfg.memory_attention_config.num_layers
+    pred = VideoPredictor(params, cfg, max_objects=4, device="cuda")
+    video, centres = synthetic_video(5, 6, objects=4)
+    state = pred.init_state(video)
+    prompt_all(pred, state, centres, frame_idx=3)
+    counters = (mek.fused_memory_encoder, fa.flash_attention_kproj,
+                mlk.fused_self_block, mlk.fused_tail_block)
+    for reverse, frames, cond in ((True, [3, 2, 1, 0], 1),
+                                  (False, [3, 4, 5], 0)):
+        before = [c.launches for c in counters]
+        out = list(pred.propagate_in_video(state, reverse=reverse))
+        assert [t for t, *_ in out] == frames
+        tracked = len(frames) - 1
+        assert [c.launches - b for c, b in zip(counters, before)] == [
+            tracked + cond] + [tracked * layers] * 3
+        assert all(np.isfinite(lg.astype(np.float32)).all()
+                   for _, _, lg, _ in out)

@@ -130,19 +130,24 @@ def test_logits_to_orig_matches_jax():
 
 
 def test_out_of_slice_features_raise(jax_params):
+    """What the predictor refuses, as the JAX predictor does: fewer than
+    one conditioning slot, and a second prompted frame on a predictor
+    built with one (``ValueError`` naming ``max_cond_frames``). Reverse
+    propagation, ``max_cond_frames > 1`` and re-prompting are served
+    (``tests/test_torch_port_eval.py`` holds them to JAX)."""
     frames = _video()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="max_cond_frames"):
         VideoPredictor(jax_params, TCFG, max_objects=O, device="cpu",
-                       max_cond_frames=2)
+                       max_cond_frames=0)
     # the usual use_flash_attention=True is served (kernels #3-#5; their
     # plain versions on the CPU)
     flash = tsam2.SAM2Config(**{**KW, "use_flash_attention": True})
     pred = VideoPredictor(jax_params, flash, max_objects=O, device="cpu")
     state = pred.init_state(frames[:3])
-    pred.add_new_points_or_box(state, 0, "a", points=POINTS[0], labels=[1])
-    with pytest.raises(NotImplementedError, match="reverse"):
-        next(pred.propagate_in_video(state, reverse=True))
-    list(pred.propagate_in_video(state))
+    pred.add_new_points_or_box(state, 1, "a", points=POINTS[0], labels=[1])
+    assert [t for t, *_ in pred.propagate_in_video(state, reverse=True)] \
+        == [1, 0]
+    assert [t for t, *_ in pred.propagate_in_video(state)] == [1, 2]
     pred.add_new_points_or_box(state, 2, "a", points=POINTS[0], labels=[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="max_cond_frames"):
         next(pred.propagate_in_video(state))

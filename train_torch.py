@@ -1,5 +1,5 @@
 """Training entry point of the PyTorch/CUDA port (the counterpart of
-``train.py`` up to the fit):
+``train.py``):
 
     python train_torch.py [config=best] [data=endovis17] [loss=focal_main] \\
         [optimizer.lr=1e-5] [trainer.max_epochs=3] [device=cpu] ...
@@ -11,6 +11,11 @@ datasets, load or initialise the weights, then fit (training and
 validation, top-k and last checkpoints, JSONL metrics) in
 ``outputs/<date>/<time>/``, which holds ``training.log``,
 ``metrics.jsonl``, ``config.json``, ``summary.json`` and ``checkpoints/``.
+With ``eval.enabled`` (the default) the best checkpoint then runs the
+post-fit inference over ``eval.coco_path`` (reverse and forward
+propagation of every clip) and the evaluation: ``eval/predict.json``,
+``eval/prompt.pkl``, ``eval/eval.pkl`` and ``eval/metrics.json`` (Dice,
+IoU and MAE, with baseline deltas where a baseline is recorded).
 
 Weights: ``model.checkpoint_path`` names an ``.npz`` (JAX names and
 layouts) or a torch SAM2 checkpoint (converted); without one the port's
@@ -32,10 +37,11 @@ NOT_PORTED = "is not ported yet: see ROADMAP.md, queue 1, item {}"
 
 def check_ported(cfg) -> None:
     """Raise for every enabled knob whose code the port lacks."""
-    if bool(cfg.eval.get("enabled", True)):
+    if bool(cfg.eval.get("enabled", True)) and \
+            int(cfg.eval.get("batch_videos", 1)) > 1:
         raise NotImplementedError(
-            "eval.enabled=true (the post-fit inference and evaluation) "
-            + NOT_PORTED.format(7) + "; pass eval.enabled=false")
+            "eval.batch_videos > 1 (the batched predictor) "
+            + NOT_PORTED.format(7) + "; pass eval.batch_videos=1")
     if bool(cfg.visualization.get("enabled", False)):
         raise NotImplementedError(
             "visualization.enabled=true (utils/viz.py) "
@@ -86,6 +92,60 @@ def load_params(cfg, sam2_cfg, seed: int, log):
                 params[k] = v
         log.info("random-initialised memory modules")
     return params
+
+
+def inference_kwargs(cfg, seed: int) -> dict:
+    """The keyword arguments of ``eval/inference.py inference`` that
+    train.py's post-fit eval takes from the config."""
+    return dict(
+        prompt_type=cfg.eval.get("prompt_type", "points"),
+        clip_length=cfg.eval.get("clip_length"),
+        variable_cats=bool(cfg.eval.get("variable_cats", False)),
+        num_points=int(cfg.eval.get("num_points", 1)),
+        num_neg_points=int(cfg.eval.get("num_neg_points", 0)),
+        include_center=bool(cfg.eval.get("include_center", True)),
+        noised_prompt=bool(cfg.eval.get("noised_prompt", False)),
+        noise_intensity=float(cfg.eval.get("noise_intensity", 0.1)),
+        bbox_noise_type=cfg.eval.get("bbox_noise_type", "shift_scale"),
+        grid_spacing=cfg.eval.get("grid_spacing"),
+        probs_out_dir=cfg.eval.get("probs_out_dir"),
+        max_objects=int(cfg.model.get("max_objects", 8)),
+        image_root=cfg.data.get("image_root"), seed=seed,
+        batch_videos=int(cfg.eval.get("batch_videos", 1)))
+
+
+def post_fit_eval(cfg, sam2_cfg, run_dir: Path, params, seed: int,
+                  device, logger, log) -> dict:
+    """train.py's post-fit inference and evaluation with ``params``:
+    ``inference`` over ``eval.coco_path`` with every ``eval.*`` knob,
+    ``evaluate``, the eval/* summary (per category under
+    ``eval.log_per_category``) with the baseline deltas, and
+    ``eval/metrics.json``. Returns the summary."""
+    import json
+
+    from sam2_video_tpu_torch.eval.baseline import compute_baseline_deltas
+    from sam2_video_tpu_torch.eval.inference import inference
+    from sam2_video_tpu_torch.eval.metrics import evaluate
+
+    predict_path, _ = inference(params, sam2_cfg, cfg.eval.coco_path,
+                                run_dir, device=device,
+                                **inference_kwargs(cfg, seed))
+    eval_result = evaluate(predict_path, cfg.eval.coco_path,
+                           run_dir / "eval")
+    avg = eval_result["avg_scores"]
+    log.info(f"eval: dice={avg['dice']:.4f} iou={avg['iou']:.4f} "
+             f"mae={avg['mae']:.4f}")
+    summary = {f"eval/{k}": v for k, v in avg.items()}
+    if bool(cfg.eval.get("log_per_category", False)):
+        for c, sc in eval_result["cat_scores"].items():
+            summary.update({f"eval/cat{c}/{k}": v for k, v in sc.items()})
+    summary.update(compute_baseline_deltas(cfg, avg))
+    logger.summary(summary)
+    (run_dir / "eval" / "metrics.json").write_text(
+        json.dumps({**summary, "avg_scores": avg,
+                    "name": cfg.get("combo", {}).get("name")},
+                   indent=2, default=float))
+    return summary
 
 
 def run(argv=None, step_timer: list | None = None,
@@ -212,6 +272,15 @@ def run(argv=None, step_timer: list | None = None,
         step_timer=step_timer, wait_timer=wait_timer)
     log.info(f"training done; best val loss {result.best_val:.4f}")
     logger.summary({"best_val_loss": result.best_val})
+
+    # ---- post-fit inference + eval, from the best checkpoint ------------
+    if bool(cfg.eval.get("enabled", True)):
+        best = result.state.params
+        if checkpointer is not None and checkpointer.best_path is not None:
+            best = checkpointer.restore(device=device)["params"]
+            log.info(f"reloaded best checkpoint {checkpointer.best_path}")
+        post_fit_eval(cfg, mcfg.sam2, run_dir, best, seed, device, logger,
+                      log)
     logger.close()
     return run_dir, result
 
