@@ -3,7 +3,8 @@
 NVIDIA GPU. Run from the repository root:
 
     python3 chip_smoke.py [--seed 0]
-        [--phases build,kernels,train,train_all,train_cpu,serve,cpu,fit,eval]
+        [--phases build,kernels,train,train_all,train_remat,train_cpu,serve,
+                  cpu,fit,eval]
 
 Phases (all by default):
   build      compile every CUDA kernel from csrc/ (one nvcc per source, all
@@ -15,15 +16,18 @@ Phases (all by default):
              8-frame encode chunk at 384 px; device ms and device
              operations per block beside plain's, a second run
              bit-equal), #2 fused_memory_encoder (8 objects, the same; and
-             checked at 1, 3 and 16 objects and on a 1024 px mask, a 64 x
-             64 grid, MEMENC_SIZES), and, forward and backward (autograd through the
-             plain forward, one random cotangent), #4 fused_self_block and
-             #5 fused_tail_block (8 objects, 576 tokens; also 3 x 784
-             tokens at 448 px and 2 x 36 at 96 px, which the wrappers pad
-             to a multiple of 32; device ms and device operations of one
-             call beside plain's, a second run bit-equal) and #3
-             flash_attention_kproj (Lk 580 and
-             4068 in training, 4096 with two invalid slots in serving; its
+             checked at 1, 3, 16 and 32 objects and on a 1024 px mask, a
+             64 x 64 grid, MEMENC_SIZES), and, forward and backward
+             (autograd through the plain forward, one random cotangent),
+             #4 fused_self_block and #5 fused_tail_block (8 objects, 576
+             tokens; also 32 x 576, the batched predictor's lockstep step,
+             3 x 784 tokens at 448 px and 2 x 36 at 96 px, which the
+             wrappers pad to a multiple of 32; device ms and device
+             operations of one call beside plain's, a second run
+             bit-equal) and #3 flash_attention_kproj (Lk 580 and 4068 in
+             training, 4072 on a full masked ring at T=10,
+             4096 with two invalid slots in serving, at 8 and at 32
+             objects; its
              limit is 2e-2 of max|plain| of each tensor, the others' of
              max(1, max|plain|)); #6, the
              trunk's backward (B1 + B2 of fused_block_trainable), for each
@@ -32,8 +36,10 @@ Phases (all by default):
              max-pool routes by relative L2, POOL_REL_L2); #8
              fused_twoway_block, forward and backward, the decoder's first
              and second block at 8 objects x 8 tokens x 576 keys, 3 x 9
-             x 784 (448 px), 1 x 7 x 576, 16 x 9 x 576 and 2 x 8 x 4096
-             (1024 px), every output and gradient (the three key-bias
+             x 784 (448 px), 1 x 7 x 576, 16 x 9 x 576, 2 x 8 x 4096
+             (1024 px) and 32 x 8 x 576 (a lockstep step of the batched
+             predictor), a second run bit-equal, every output and
+             gradient (the three key-bias
              gradients, zero in exact arithmetic, against float32:
              TWOWAY_ZERO_GRADS), and its device operations per call
              against the plain block's; #7 flash_attention, forward and
@@ -69,6 +75,15 @@ Phases (all by default):
              backward launched), 3 timed steps of each in turns, and the
              memory-only step fused (#8's backward for the input
              gradients)
+  train_remat the all-trainable step (the same shapes, weights and batch)
+             with remat "none", "body", "body_dots", "modules" and with
+             stacked_frame_grads: loss, gradients, peak memory, device ms
+             and kernel launches (the recompute's included) of each;
+             "modules" and stacked_frame_grads against "none" and
+             "body_dots" against "body": loss bit for bit, gradients
+             within REMAT_ORDER_REL_L2 (the same sums in another order);
+             "body" against "none" within the card-vs-CPU limits; "body"'s
+             peak below "none"'s
   train_cpu  one step of a short clip (T=3, O=4, 384 px) on the card (bf16)
              and on the CPU (float32, plain versions), memory-only,
              all-trainable and memory-only with two memory-attention heads:
@@ -101,7 +116,9 @@ Phases (all by default):
              the loader's ms per batch beside the step's; then the
              single-clip overfit check of tests/test_overfit.py (150 steps,
              mask prompts, bce, lr 1e-3, Dice of the eval forward) on that
-             test's T=2 clip scaled to 384 px
+             test's T=2 clip scaled to 384 px; one CLI step with
+             model.use_activation_checkpoint=true (the remat loop), its
+             loss within TRAIN_CPU_LOSS_TOL of the run's first
   eval       the evaluation path: (a) the predictor at the serve cell's
              sizes on one 16-frame 480x854 video, every object prompted
              at frame 8, reverse to frame 0 then forward; then a
@@ -119,7 +136,16 @@ Phases (all by default):
              inference() + evaluate from the best checkpoint under
              torch.profiler without the probability maps (busy share)
              and on the CPU in float32 (each frame's probability maps
-             within relative L2 0.1)
+             within relative L2 0.1); the CLI again with
+             eval.batch_videos=2 (clips of 3 frames, the second video cut
+             to 9: full lockstep groups and one clip left for the
+             sequential path); (c) the batched predictor: 4 clips of 16
+             frames (the first (a)'s), 8 objects each, prompted at frame
+             8, reverse then forward in lockstep, each video against the
+             sequential predictor on the card (logits relative L2 2e-2,
+             scores 1e-2) and the first against (a)'s CPU run (0.1);
+             launches per lockstep frame, grouped video-frames/s beside
+             sequential frames/s, the busy share
 
 Weights are ``synthetic_params``: the port's seeded random init moved off
 its constants (every parameter + 0.05 N(0, 1), the memory encoder's CXBlock
@@ -139,6 +165,7 @@ either it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import subprocess
@@ -160,8 +187,8 @@ KERNEL_TOL = 2e-2             # of max(1, |plain|): bf16 rounding points differ
 # 1: their limit is KERNEL_TOL of max|plain| itself
 ATTENTION_FLOOR = 0.0
 CPU_REL_L2_TOL = 0.1          # card bf16 vs CPU float32, over 4 frames
-PHASES = ("build", "kernels", "train", "train_all", "train_cpu", "serve",
-          "cpu", "fit", "eval")
+PHASES = ("build", "kernels", "train", "train_all", "train_remat",
+          "train_cpu", "serve", "cpu", "fit", "eval")
 DEVICE = "cuda"
 FRAMES, OBJECTS, CHUNK = 16, 8, 8   # frames per video, objects, encode chunk
 TINY_GEOMETRY = {0: "window 8, no pad", 1: "q-pool, even window 8",
@@ -245,8 +272,9 @@ def memory_encoder_cost(mcfg, masks, pix, out, p):
     return flops, _nbytes(masks, pix, out) + weights
 
 
-# kernel #2's other sizes in phase_kernels: (objects, image size)
-MEMENC_SIZES = ((1, 384), (3, 384), (16, 384), (8, 1024))
+# kernel #2's other sizes in phase_kernels: (objects, image size); 32 rows
+# are a lockstep step of the batched predictor (4 videos x 8 objects)
+MEMENC_SIZES = ((1, 384), (3, 384), (16, 384), (32, 384), (8, 1024))
 
 
 def phase_kernels(params, cfg, seed: int, chunk: int, objects: int):
@@ -342,9 +370,11 @@ def phase_kernels(params, cfg, seed: int, chunk: int, objects: int):
         label = (f"fused_memory_encoder O={O} masks{tuple(masks.shape)} "
                  f"max_abs_err={err:.4g} tol={KERNEL_TOL * scale:.4g} "
                  f"same_bits_twice={same}")
-        if O != objects or S != cfg.image_size:
+        if S != cfg.image_size or O not in (objects, 4 * objects):
             print(f"{label} {'OK' if ok else 'FAIL'}", flush=True)
         else:
+            # timed at the paths' rows: the predictor's and train steps'
+            # objects, and a lockstep step of the batched predictor
             t_k = cuda_ms(lambda: mek.fused_memory_encoder(pme, mcfg,
                                                            pix_proj, masks))
             t_p = cuda_ms(lambda: mek.fused_memory_encoder_plain(
@@ -358,6 +388,7 @@ def phase_kernels(params, cfg, seed: int, chunk: int, objects: int):
             print(f"{label} kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
                   f"bound_ms={b:.4f}({by}) {_ops_text(l_k, l_p)} "
                   f"{'OK' if ok else 'FAIL'}", flush=True)
+        if (O, S) == (objects, cfg.image_size):
             rows.append(dict(name="fused_memory_encoder", route="cuda",
                              source="sam2_video_tpu_torch/csrc/"
                                     "memory_encoder.cu",
@@ -488,8 +519,9 @@ def phase_memattn_kernels(params, cfg, seed: int, objects: int):
     """Kernels #4 and #5, forward and backward, against their plain
     versions (backward: autograd through the plain forward with the same
     random cotangent) at the training shapes: 8 objects, 576 tokens; also
-    at 3 objects x 784 tokens (448 px) and 2 x 36 (96 px), which the
-    wrappers pad to a multiple of 32. For kernel and plain version, each
+    at 32 x 576 (a lockstep step of the batched predictor), 3 objects x 784
+    tokens (448 px) and 2 x 36 (96 px), which the wrappers pad to a
+    multiple of 32. For kernel and plain version, each
     way: CUDA-event ms, and the device operations, launches and device ms
     of one call (torch.profiler); a second kernel run must give the same
     bits in every output and gradient. Returns the rows of the JSON line
@@ -516,7 +548,8 @@ def phase_memattn_kernels(params, cfg, seed: int, objects: int):
     rep = "sam2_video_tpu/ops/memattn_layer_kernel.py"
 
     # ---- fused_self_block and fused_tail_block (hidden 2048) at the
-    # training grid (the JSON rows) and at two token counts that are not
+    # training grid (the JSON rows), at 4 x 8 objects (a lockstep step of
+    # the batched predictor) and at two token counts that are not
     # multiples of 32, which the wrappers pad: 28 x 28 (448 px) and 6 x 6
     # (96 px, the synthetic combo)
     names = ["ln1w", "ln1b", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo",
@@ -543,7 +576,7 @@ def phase_memattn_kernels(params, cfg, seed: int, objects: int):
         lin = lambda i: {"weight": w[i], "bias": w[i + 1]}  # noqa: E731
         return lin(0), lin(2), lin(4), lin(6), lin(8)
 
-    for side, nobj in ((F_, O), (28, 3), (6, 2)):
+    for side, nobj in ((F_, O), (F_, 4 * O), (28, 3), (6, 2)):
         Lg = side * side
         cs, sn = axial_rope_table_half(D, side, side, mcfg.rope_theta,
                                        device=dev)
@@ -578,7 +611,7 @@ def phase_memattn_kernels(params, cfg, seed: int, objects: int):
                         (fl, nb + wb))
         _print_row(f"fused_self_block x{tuple(x.shape)} "
                    f"{_ops_text(kops[0], pops[0])}; events:", err, rel, r)
-        if side == F_:
+        if (side, nobj) == (F_, O):
             rows.append(r)
         err, rel = _check_grads(
             [f"self d{n} L={Lg}" for n in ["x"] + names], kg, pg, failures)
@@ -587,7 +620,7 @@ def phase_memattn_kernels(params, cfg, seed: int, objects: int):
                         pb, (fl, nb + wb))
         _print_row(f"fused_self_block backward L={Lg} "
                    f"{_ops_text(kops[1], pops[1])}; events:", err, rel, r)
-        if side == F_:
+        if (side, nobj) == (F_, O):
             rows.append(r)
 
         y, a = rnd(nobj, Lg, D), rnd(nobj, Lg, KV)
@@ -621,7 +654,7 @@ def phase_memattn_kernels(params, cfg, seed: int, objects: int):
                         (fl, nb + wb))
         _print_row(f"fused_tail_block y{tuple(y.shape)} hid={HID} "
                    f"{_ops_text(kops[0], pops[0])}; events:", err, rel, r)
-        if side == F_:
+        if (side, nobj) == (F_, O):
             rows.append(r)
         err, rel = _check_grads(
             [f"tail d{n} L={Lg}" for n in ("y", "a", "wv", "bv", "wo", "bo",
@@ -632,7 +665,7 @@ def phase_memattn_kernels(params, cfg, seed: int, objects: int):
                         pb, (fl, nb + wb))
         _print_row(f"fused_tail_block backward L={Lg} "
                    f"{_ops_text(kops[1], pops[1])}; events:", err, rel, r)
-        if side == F_:
+        if (side, nobj) == (F_, O):
             rows.append(r)
 
     if failures:
@@ -645,7 +678,10 @@ def phase_memattn_kernels(params, cfg, seed: int, objects: int):
 # one slot's), slot side, slots, pointer tokens, masked). The first three
 # are the one-head path's at 384 px (Lk 580, 4068 and 4096, two of seven
 # slots masked by -1e9), the fourth 448 px, where a slot of 784 keys
-# straddles key tiles and the last tile mixes spatial and pointer keys; the
+# straddles key tiles and the last tile mixes spatial and pointer keys; a
+# lockstep step of the batched predictor (4 videos x 8 objects) and a full
+# ring at T=10 (7 slots and 10 pointers, Lk 4072, two slots masked), the
+# shape that the JAX package's scanned frame loop attends every frame; the
 # next three the split rule's edges (kproj_plan) on a small grid (2
 # objects x 100 queries, 12 x 12 slots of 144 keys, so tiles straddle
 # slots too): the most keys without a split (Lk 320, 5 tiles), exactly two
@@ -658,6 +694,8 @@ KPROJ_CASES = (
     ("training, frame 1", 8, None, 24, 1, 4, False),
     ("training, frame 9", 8, None, 24, 7, 36, False),
     ("serving", 8, None, 24, 7, 64, True),
+    ("serving, 4 videos", 32, None, 24, 7, 64, True),
+    ("training ring, masked", 8, None, 24, 7, 40, True),
     ("448 px, frame 9", 3, None, 28, 7, 36, False),
     ("split edge: no split", 2, 100, 12, 2, 32, False),
     ("split edge: two splits exactly", 2, 100, 12, 2, 96, True),
@@ -1380,19 +1418,23 @@ def twoway_cost(O, N, HW, backward: bool, tensors, n_weights: int):
     return O * flops, _nbytes(*tensors) + wbytes
 
 
-def _device_launches(fn) -> tuple[int, int, float]:
+def _device_launches(fn, traces: int = 3,
+                     host_ops: bool = True) -> tuple[int, int, float]:
     """(device operations, kernel launch calls, device ms) of one call of
     ``fn``, from torch.profiler: the device-side events (kernels, copies,
     sets), the host's cudaLaunchKernel calls, and the sum of the device
     events' durations (no host time in it). A trace now and then misses a
-    device event, so of three traces the one with the most counts."""
+    device event, so of ``traces`` traces the one with the most counts.
+    Without ``host_ops`` the trace leaves out the host's operator events,
+    which are most of a train step's trace and of its processing time."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = ([ProfilerActivity.CPU] if host_ops else []) + [
+        ProfilerActivity.CUDA]
     best = (-1, 0, 0.0)
-    for _ in range(3):
+    for _ in range(traces):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             fn()
             torch.cuda.synchronize()
         avgs = prof.key_averages()
@@ -1406,9 +1448,10 @@ def _device_launches(fn) -> tuple[int, int, float]:
 
 
 # (O, N, HW): 384 px, 448 px, one object (7 token rows), 144 token rows
-# (more than one 64-row tile), 1024 px
+# (more than one 64-row tile), 1024 px, a lockstep step of the batched
+# predictor (4 videos x 8 objects)
 TWOWAY_SHAPES = ((8, 8, 576), (3, 9, 784), (1, 7, 576), (16, 9, 576),
-                 (2, 8, 4096))
+                 (2, 8, 4096), (32, 8, 576))
 TWOWAY = ("fused_twoway_block", "fused_twoway_block_bwd")
 # Kernel #8: each attention's key-bias gradient is zero in exact
 # arithmetic (adding q . bk to every logit of a query leaves its softmax
@@ -1428,9 +1471,10 @@ ZERO_GRAD_RATIO = 3.0
 def phase_twoway_kernels(params, cfg, seed: int):
     """Kernel #8 forward and backward against the plain bf16 block
     (backward: autograd through the plain forward with the same random
-    cotangent), the decoder's first block (first=True) and second, at the
-    slice's shape (8 objects, 8 tokens, 576 image keys) and a ragged one
-    (3 objects, 9 tokens, 784 keys: 448 px): both outputs and the
+    cotangent), the decoder's first block (first=True) and second, at
+    TWOWAY_SHAPES (the slice's shape, 8 objects, 8 tokens, 576 image keys;
+    ragged ones; 32 objects, a lockstep step): a second kernel run gives
+    the same bits, and both outputs and the
     gradients of queries, keys, qpe, kpe and every weight within
     KERNEL_TOL of max(1, max|plain|), the key-bias gradients against
     float32 (TWOWAY_ZERO_GRADS). The MLP's hidden activation (ReLU'd)
@@ -1442,7 +1486,7 @@ def phase_twoway_kernels(params, cfg, seed: int):
     kernel with its packed operands, the plain block with bf16 weight
     copies. Device launches of one call, kernel against plain.
     Returns the JSON rows (the slice's shape, second block; the worst error
-    of all four cases)."""
+    of all cases)."""
     from sam2_video_tpu_torch.ops import common as nn
     from sam2_video_tpu_torch.ops import twoway_kernel as twk
 
@@ -1485,6 +1529,10 @@ def phase_twoway_kernels(params, cfg, seed: int):
                     hidden = twk.relu_hidden(outs[0]).clone()
                     grads = torch.autograd.grad(outs, w + xl, cots,
                                                 retain_graph=True)
+                    again = run()
+                    _twice_same(f"twoway O={O} N={N} HW={HW} first={first}",
+                                outs, grads, (again, torch.autograd.grad(
+                                    again, w + xl, cots)), failures)
                 else:
                     with twk.PlainReluMask(None) as rec:
                         outs = run()
@@ -2265,6 +2313,17 @@ def phase_fit(cfg, seed: int, card: str):
           flush=True)
     if not rel <= TRAIN_CPU_LOSS_TOL:
         raise SystemExit(f"fit card vs cpu: loss rel {rel}")
+    remat, _ = cli("remat", ["trainer.max_epochs=1",
+                             "trainer.limit_train_batches=1",
+                             "trainer.limit_val_batches=0",
+                             "model.use_activation_checkpoint=true"])
+    remat_loss = _fit_log(remat)[0]["train/total_loss"]
+    rel = abs(remat_loss - card_loss) / max(abs(card_loss), 1e-12)
+    print(f"fit with model.use_activation_checkpoint=true (remat body), "
+          f"first batch: loss {remat_loss:.6g} vs {card_loss:.6g} without "
+          f"it, rel {rel:.4g} (tol {TRAIN_CPU_LOSS_TOL})", flush=True)
+    if not (np.isfinite(remat_loss) and rel <= TRAIN_CPU_LOSS_TOL):
+        raise SystemExit(f"fit with remat: loss {remat_loss}, rel {rel}")
 
     loader = ClipLoader(ClipDataset(
         COCOIndex(json_path, 384, FIT_CATS),
@@ -2416,30 +2475,178 @@ def phase_eval_predictor(params, cfg, seed: int, objects: int):
         if [t for t, *_ in g_out] != [t for t, *_ in ref]:
             raise SystemExit(f"{label}: frames {[t for t, *_ in g_out]} on "
                              f"the card, {[t for t, *_ in ref]} on the CPU")
-        a = np.stack([lg for _, _, lg, _ in g_out]).astype(np.float32)
-        b = np.stack([lg for _, _, lg, _ in ref]).astype(np.float32)
-        placeholder = b < NO_OBJ_FLOOR
-        if not np.array_equal(a < NO_OBJ_FLOOR, placeholder):
-            bad.append(f"{label}: NO_OBJ placeholders differ")
-        rel = _rel_l2(torch.from_numpy(a[~placeholder]),
-                      torch.from_numpy(b[~placeholder]))
-        rel_s = _rel_l2(*(torch.from_numpy(np.stack([s for *_, s in out]))
-                          for out in (g_out, ref)))
-        agree = float(((a > 0) == (b > 0)).mean())
-        print(f"{label} card vs cpu float32 ({len(ref)} frames): logits "
-              f"rel_l2 {rel:.4g}, scores rel_l2 {rel_s:.4g} (tol "
-              f"{CPU_REL_L2_TOL}), {int(placeholder.sum())} placeholder "
-              f"logits equal, sign agreement {agree:.4f}", flush=True)
-        if not (rel <= CPU_REL_L2_TOL and rel_s <= CPU_REL_L2_TOL):
-            bad.append(f"{label}: rel_l2 logits {rel}, scores {rel_s}")
+        bad += _logits_close(
+            f"{label} card vs cpu float32 ({len(ref)} frames)",
+            *((np.stack([lg for _, _, lg, _ in out]),
+               np.stack([sc for *_, sc in out])) for out in (g_out, ref)),
+            CPU_REL_L2_TOL, score_rel=CPU_REL_L2_TOL)
     if bad:
         raise SystemExit("eval card vs cpu: " + "; ".join(bad))
+    return want
+
+
+def _logits_close(label, got, want, rel_tol, score_atol=None,
+                  score_rel=None):
+    """Low-res logits [frames, objects, 1, h, w] within relative L2
+    ``rel_tol`` outside the NO_OBJ placeholders, which must agree; scores
+    [frames, objects] within ``score_atol`` absolute or ``score_rel``
+    relative L2. Returns the failures."""
+    a, sa = (np.asarray(x, np.float32) for x in got)
+    b, sb = (np.asarray(x, np.float32) for x in want)
+    placeholder = b < NO_OBJ_FLOOR
+    bad = []
+    if not np.array_equal(a < NO_OBJ_FLOOR, placeholder):
+        bad.append(f"{label}: NO_OBJ placeholders differ")
+    rel = _rel_l2(torch.from_numpy(a[~placeholder]),
+                  torch.from_numpy(b[~placeholder]))
+    s_err = (float(np.abs(sa - sb).max()) if score_atol is not None
+             else _rel_l2(torch.from_numpy(sa), torch.from_numpy(sb)))
+    s_tol = score_atol if score_atol is not None else score_rel
+    print(f"{label}: logits rel_l2 {rel:.4g} (tol {rel_tol}), scores "
+          f"{'max abs' if score_atol is not None else 'rel_l2'} "
+          f"{s_err:.4g} (tol {s_tol}), {int(placeholder.sum())} "
+          f"placeholder logits equal, sign agreement "
+          f"{float(((a > 0) == (b > 0)).mean()):.4f}", flush=True)
+    if not (rel <= rel_tol and s_err <= s_tol):
+        bad.append(f"{label}: logits rel_l2 {rel}, scores {s_err}")
+    return bad
+
+
+# the batched predictor: EVAL_GROUP clips tracked in lockstep
+EVAL_GROUP = 4
+# each video's logits against the card's sequential run: the same kernels
+# at 4x the rows, where kernel #3 may split the keys otherwise (kproj_plan)
+# and so round otherwise, through 16 frames of bf16 memory
+BATCHED_REL_L2, BATCHED_SCORE_ATOL = 2e-2, 1e-2
+
+
+def phase_eval_batched(params, cfg, seed: int, objects: int, cpu_run):
+    """(c) The batched predictor (``eval/batched_predictor.py``) on
+    EVAL_GROUP clips of EVAL_FRAMES 480x854 frames (the first is (a)'s),
+    ``objects`` objects each, every object prompted at EVAL_PROMPT_FRAME,
+    reverse to frame 0 then forward in lockstep (a warm-up group, then a
+    timed one): #1 in the group's encode and #2-#5 in each pass (their
+    launches per lockstep frame printed); each video's low-res logits
+    within relative L2 BATCHED_REL_L2 and its scores within
+    BATCHED_SCORE_ATOL of the card's sequential predictor on that clip in
+    this call, NO_OBJ placeholders equal; the first video within
+    CPU_REL_L2_TOL of (a)'s CPU float32 run (``cpu_run``); grouped
+    video-frames/s (G x frames / wall) beside the sequential frames/s; and
+    the busy share of one group's passes under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sam2_video_tpu_torch import VideoPredictor
+    from sam2_video_tpu_torch.eval.batched_predictor import \
+        BatchedVideoPredictor
+    from sam2_video_tpu_torch.profile_serving import report
+
+    G = EVAL_GROUP
+    clips = [synthetic_video(seed + 400 + 100 * g, EVAL_FRAMES,
+                             objects=objects) for g in range(G)]
+    frames = np.stack([v for v, _ in clips])
+    bat = BatchedVideoPredictor(params, cfg, max_objects=objects,
+                                group_size=G, device=DEVICE)
+    seq = VideoPredictor(params, cfg, max_objects=objects, device=DEVICE)
+
+    def group(timed: bool):
+        secs, passes = {}, {}
+        reset_counts()
+        t0 = time.perf_counter()
+        state = bat.init_group(frames)
+        torch.cuda.synchronize()
+        secs["encode"] = time.perf_counter() - t0
+        if timed:
+            _require(read_counts(), ["fused_block"], "batched encode")
+        for g, (_, centres) in enumerate(clips):
+            for o, (cy, cx) in enumerate(centres):
+                bat.add_new_points_or_box(state, g, EVAL_PROMPT_FRAME, o,
+                                          points=[[cx, cy]], labels=[1])
+        for reverse in (True, False):
+            label = f"batched {'reverse' if reverse else 'forward'}"
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            passes[reverse] = list(bat.propagate_in_group(state,
+                                                          reverse=reverse))
+            torch.cuda.synchronize()
+            secs[label] = time.perf_counter() - t0
+            if timed:
+                counts = read_counts()
+                _require(counts, EVAL_REQUIRED, label)
+                tracked = len(passes[reverse]) - 1
+                print(f"{label}: launches per lockstep frame (G={G} x "
+                      f"{objects} objects) " + ", ".join(
+                          f"{k} {counts[k] / tracked:g}"
+                          for k in EVAL_REQUIRED), flush=True)
+        return passes, secs
+
+    group(False)                                      # warm-up
+    passes, secs = group(True)
+    seq_runs, seq_secs = [], 0.0
+    for video, centres in clips:
+        state = seq.init_state(video)
+        prompt_all(seq, state, centres, frame_idx=EVAL_PROMPT_FRAME)
+        run = {}
+        for reverse in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run[reverse] = list(seq.propagate_in_video(state,
+                                                       reverse=reverse))
+            torch.cuda.synchronize()
+            seq_secs += time.perf_counter() - t0
+        seq_runs.append(run)
+    n = sum(len(p) for p in passes.values())
+    grouped = G * n / (secs["batched reverse"] + secs["batched forward"])
+    print(f"eval batched G={G} x {EVAL_FRAMES} frames of 480x854 -> "
+          f"{cfg.image_size}px, {objects} objects: encode "
+          f"{secs['encode']:.3f} s, reverse {secs['batched reverse']:.3f} s,"
+          f" forward {secs['batched forward']:.3f} s: {grouped:.2f} "
+          f"video-frames/s grouped, {G * n / seq_secs:.2f} frames/s "
+          f"sequential on the same clips ({seq_secs:.3f} s)", flush=True)
+
+    bad = []
+    for reverse in (True, False):
+        way = "reverse" if reverse else "forward"
+        got = passes[reverse]
+        for g in range(G):
+            want = seq_runs[g][reverse]
+            if [t for t, *_ in got] != [t for t, *_ in want]:
+                raise SystemExit(f"batched {way}: frames differ from the "
+                                 "sequential run")
+            bad += _logits_close(
+                f"batched {way} video {g} vs sequential on the card",
+                (np.stack([lg[g] for _, _, lg, _ in got]),
+                 np.stack([sc[g] for *_, sc in got])),
+                (np.stack([lg for _, _, lg, _ in want]),
+                 np.stack([sc for *_, sc in want])),
+                BATCHED_REL_L2, score_atol=BATCHED_SCORE_ATOL)
+        ref = cpu_run[f"eval {way}"]
+        bad += _logits_close(
+            f"batched {way} video 0 vs cpu float32",
+            (np.stack([lg[0] for _, _, lg, _ in got]),
+             np.stack([sc[0] for *_, sc in got])),
+            (np.stack([lg for _, _, lg, _ in ref]),
+             np.stack([sc for *_, sc in ref])),
+            CPU_REL_L2_TOL, score_rel=CPU_REL_L2_TOL)
+    if bad:
+        raise SystemExit("eval batched: " + "; ".join(bad))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        group(False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report(prof, f"eval batched G={G}: encode, prompts and both passes "
+           "under torch.profiler", wall, top=6)
 
 
 # the train CLI with its post-fit eval: one train and one validation batch
 # on the fit phase's dataset cut to EVAL_CLI_FRAMES frames per video (one
 # clip of T=10 each), to keep the script's time
 EVAL_CLI_FRAMES = 10
+EVAL_CLI_CLIP = 3         # the grouped run's clips: 3 + 3 + 3 + 1 and 3 x 3
 EVAL_CLI_OVERRIDES = ("trainer.max_epochs=1", "trainer.limit_train_batches=1",
                       "trainer.limit_val_batches=1", "eval.enabled=true",
                       "eval.probs_out_dir=probs")
@@ -2454,9 +2661,14 @@ def phase_eval_cli(cfg, seed: int, card: str):
     read just after), with the eval's wall and frames/s; then the same
     inference() + evaluate from the run's best checkpoint under
     torch.profiler on the card without the probability maps (busy share,
-    as profile_fit reads it) and, with them, on the CPU in float32: each frame's float16 probability maps within
-    relative L2 CPU_REL_L2_TOL of the CPU's, both runs' metrics
-    printed."""
+    as profile_fit reads it) and, with them, on the CPU in float32: each
+    frame's float16 probability maps within relative L2 CPU_REL_L2_TOL of
+    the CPU's, both runs' metrics printed. Then the CLI again with the
+    grouped eval (``eval.batch_videos=2``, clips of EVAL_CLI_CLIP frames,
+    the second video cut to 9 frames so that full groups form and one
+    clip is left for the sequential path, no probability maps): finite
+    metrics, lockstep and sequential frames both run, #1-#5 launched, its
+    frames/s."""
     import os
     import shutil
     from pathlib import Path
@@ -2467,6 +2679,8 @@ def phase_eval_cli(cfg, seed: int, card: str):
     import train_torch
     from sam2_video_tpu_torch.config import load_config, model_config
     from sam2_video_tpu_torch.data.synthetic import make_synthetic_dataset
+    from sam2_video_tpu_torch.eval.batched_predictor import \
+        BatchedVideoPredictor
     from sam2_video_tpu_torch.eval.inference import inference
     from sam2_video_tpu_torch.eval.metrics import evaluate
     from sam2_video_tpu_torch.eval.predictor import VideoPredictor
@@ -2580,6 +2794,64 @@ def phase_eval_cli(cfg, seed: int, card: str):
           flush=True)
     if not max(rels) <= CPU_REL_L2_TOL:
         raise SystemExit(f"eval CLI: probability maps rel_l2 {max(rels)}")
+
+    # the CLI again with the grouped eval: its second video cut to 9
+    # frames, so that clips of EVAL_CLI_CLIP frames form full groups of
+    # two and leave one clip of each video for the sequential path
+    data = json.loads(Path(json_path).read_text())
+    cut = {im["id"] for im in data["images"]
+           if im["video_id"] == data["images"][-1]["video_id"]
+           and im["order_in_video"] == EVAL_CLI_FRAMES - 1}
+    data["images"] = [im for im in data["images"] if im["id"] not in cut]
+    data["annotations"] = [a for a in data["annotations"]
+                           if a["image_id"] not in cut]
+    cut_json = work / "ds" / "annotations_cut.json"
+    cut_json.write_text(json.dumps(data))
+    lockstep, sequential = [], []
+    plain_group = BatchedVideoPredictor.propagate_in_group
+
+    def grouped(self, *a, **kw):
+        for out in plain_group(self, *a, **kw):
+            lockstep.append(len(out[1]))
+            yield out
+
+    def counted_seq(self, *a, **kw):
+        for out in plain_propagate(self, *a, **kw):
+            sequential.append(out[0])
+            yield out
+
+    (work / "cli_grouped").mkdir()
+    os.chdir(work / "cli_grouped")
+    try:
+        with mock.patch.object(train_torch, "post_fit_eval", timed_eval), \
+                mock.patch.object(VideoPredictor, "propagate_in_video",
+                                  counted_seq), \
+                mock.patch.object(BatchedVideoPredictor,
+                                  "propagate_in_group", grouped):
+            run_dir, _ = train_torch.run(overrides + [
+                "eval.batch_videos=2", f"eval.clip_length={EVAL_CLI_CLIP}",
+                f"eval.coco_path={cut_json}", "eval.probs_out_dir=null"])
+    finally:
+        os.chdir(home)
+    ev = work / "cli_grouped" / run_dir / "eval"
+    metrics = json.loads((ev / "metrics.json").read_text())
+    grouped_m = {k: metrics[f"eval/{k}"] for k in ("dice", "iou", "mae")}
+    if not all(np.isfinite(v) for v in grouped_m.values()) or \
+            not lockstep or not sequential:
+        raise SystemExit(f"eval CLI grouped: metrics {grouped_m}, "
+                         f"{len(lockstep)} lockstep and {len(sequential)} "
+                         "sequential frames")
+    _require(timing["counts"], ("fused_block",) + EVAL_REQUIRED,
+             "grouped post-fit eval")
+    frames_done = sum(lockstep) + len(sequential)
+    print(f"eval CLI grouped (eval.batch_videos=2, clip_length "
+          f"{EVAL_CLI_CLIP}, videos of {EVAL_CLI_FRAMES} and "
+          f"{EVAL_CLI_FRAMES - 1} frames, probability maps off): "
+          f"{len(lockstep)} lockstep frames of 2 clips each and "
+          f"{len(sequential)} sequential frames of the clips left over, "
+          f"{frames_done} frames in {timing['wall']:.3f} s of post-fit eval, "
+          f"{frames_done / timing['wall']:.2f} frames/s; metrics "
+          + json.dumps(grouped_m) + f"; {card}", flush=True)
     shutil.rmtree(work, ignore_errors=True)
 
 
@@ -2658,6 +2930,106 @@ def phase_train_fused(cfg, seed: int):
     return counts, ms["fused"]
 
 
+# the all-trainable step in each rematerialisation mode
+REMAT_MODES = (("none", dict(use_activation_checkpoint=False)),
+               ("body", dict(remat_mode="body")),
+               ("body_dots", dict(remat_mode="body_dots")),
+               ("modules", dict(remat_mode="modules")),
+               ("stacked_frame_grads", dict(use_activation_checkpoint=False,
+                                            stacked_frame_grads=True)))
+# modes that run the same forward as their reference ("modules" and
+# stacked_frame_grads as "none", "body_dots" as "body"): the loss must be
+# equal bit for bit. Their gradients add the same frame contributions in
+# another order (the checkpoint's recompute builds the backward's nodes
+# later; stacked views sum them in one reduction), partly in bf16 (the
+# compute-dtype weight copies, whose frame gradients autograd adds in
+# bf16): each top-level entry within this relative L2. A frame's gradient
+# lost or counted twice moves an entry by ~1/9.
+REMAT_ORDER_REL_L2 = 1e-2
+REMAT_SAME = {"modules": "none", "stacked_frame_grads": "none",
+              "body_dots": "body"}
+REMAT_COUNTED = ("fused_block", "fused_memory_encoder",
+                 "flash_attention_kproj", "flash_attention_kproj_bwd",
+                 "fused_self_block", "fused_self_block_bwd",
+                 "fused_tail_block", "fused_tail_block_bwd")
+
+
+def phase_train_remat(cfg, seed: int):
+    """The all-trainable headline step (384 px, bf16, T=10, O=8, C=7, B=2,
+    the same weights and batch) in each of REMAT_MODES: its first step's
+    loss and gradients, the kernels' launches in it (the recompute's
+    included), its peak memory (``max_memory_allocated`` after
+    ``reset_peak_memory_stats``) and then its device ms per step
+    (torch.profiler). "modules" and stacked_frame_grads against "none" and
+    "body_dots" against "body": loss bit for bit, gradients within
+    REMAT_ORDER_REL_L2; "body" against "none" within the card-vs-CPU
+    limits (the same loop, each frame under a checkpoint); "body"'s peak below
+    "none"'s and its forward kernels launched more often (the
+    recompute)."""
+    runs = {}
+    start = synthetic_params(cfg, seed)     # every mode starts from a copy
+    for name, kw in REMAT_MODES:
+        t0 = time.perf_counter()
+        c = dataclasses.replace(cfg, **kw)
+        params = copy.deepcopy(start).to(DEVICE)
+        state, step, batch = _train_setup(c, params, DEVICE, TRAIN_T,
+                                          TRAIN_O, TRAIN_C, TRAIN_B,
+                                          TRAINABLE_ALL)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        state, m, grads = step.with_grads(state, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = read_counts()
+        ops, launches, dev_ms = _device_launches(lambda: step(state, batch),
+                                                 traces=1, host_ops=False)
+        loss = float(m["total_loss"])
+        runs[name] = (loss, {n: g.detach().float().cpu()
+                             for n, g in grads.items()}, peak, counts)
+        print(f"train_remat {name}: loss {loss:.9g}, peak memory "
+              f"{peak:.3f} GiB, device ms per step {dev_ms:.3f} "
+              f"({ops} device operations, {launches} launches); kernel "
+              "launches in one step: " + ", ".join(
+                  f"{k} {counts[k]}" for k in REMAT_COUNTED)
+              + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+        if not np.isfinite(loss):
+            raise SystemExit(f"train_remat {name}: loss {loss}")
+        del params, state, step, batch, grads
+    bad = []
+    for name, ref in REMAT_SAME.items():
+        (lg, gg, *_), (lr, gr, *_) = runs[name], runs[ref]
+        worst, unequal = 0.0, 0
+        for top in sorted({n.split(".")[0] for n in gr}):
+            names = [n for n in gr if n.split(".")[0] == top]
+            a = torch.cat([gg[n].flatten() for n in names])
+            b = torch.cat([gr[n].flatten() for n in names])
+            unequal += sum(not torch.equal(gg[n], gr[n]) for n in names)
+            if float(b.norm()) > 0:
+                worst = max(worst, float((a - b).norm() / b.norm()))
+            elif float(a.norm()) > 0:
+                worst = float("inf")
+        print(f"train_remat {name} vs {ref}: loss {lg:.9g} vs {lr:.9g} "
+              f"(equal: {lg == lr}); {unequal} of {len(gr)} gradients not "
+              f"bit-equal, worst top-level rel_l2 {worst:.4g} (tol "
+              f"{REMAT_ORDER_REL_L2})", flush=True)
+        if lg != lr or not worst <= REMAT_ORDER_REL_L2:
+            bad.append(f"{name} vs {ref}: loss {lg} vs {lr}, rel_l2 "
+                       f"{worst}")
+    _compare_steps("train_remat body (a checkpoint per frame) vs none",
+                   runs["body"][:2], runs["none"][:2])
+    body, none = runs["body"], runs["none"]
+    if not body[2] < none[2]:
+        bad.append(f"body's peak {body[2]:.3f} GiB is not below none's "
+                   f"{none[2]:.3f} GiB")
+    if not body[3]["flash_attention_kproj"] > \
+            none[3]["flash_attention_kproj"]:
+        bad.append("body launched #3 forward no more often than none: "
+                   "nothing was recomputed")
+    if bad:
+        raise SystemExit("train_remat: " + "; ".join(bad))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2676,6 +3048,15 @@ def main() -> int:
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    started = last = time.perf_counter()
+
+    def lap(name):
+        """The seconds a phase took, and the run's so far."""
+        nonlocal last
+        now = time.perf_counter()
+        print(f"phase {name}: {now - last:.1f} s (run {now - started:.1f} "
+              "s)", flush=True)
+        last = now
 
     if "build" in phases:
         from sam2_video_tpu_torch.data import host_build
@@ -2695,6 +3076,7 @@ def main() -> int:
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
+        lap("build")
 
     # the usual configuration; training turns rematerialisation off
     cfg = sam2_mod.SAM2Config(backbone="tiny", image_size=384,
@@ -2714,12 +3096,14 @@ def main() -> int:
         rows += phase_twoway_kernels(params, cfg, args.seed)
         rows += phase_flash_kernels(args.seed)
         rows += phase_presets(cfg, args.seed)
+        lap("kernels")
     heads_cfg = dataclasses.replace(cfg, memory_attention_num_heads=HEADS)
     launches = {}
     if "train" in phases:
         launches, _ = phase_train(cfg, args.seed)
         heads, _ = phase_train(heads_cfg, args.seed)
         launches.update({k: heads[k] for k in FLASH})
+        lap("train")
     if "train_all" in phases:
         trained_all, _ = phase_train_all(cfg, args.seed)
         fused, _ = phase_train_fused(cfg, args.seed)
@@ -2727,8 +3111,13 @@ def main() -> int:
             k: v for k, v in trained_all.items()
             if k.startswith("fused_block_trainable_bwd")},
             **{k: fused[k] for k in TWOWAY}}
+        lap("train_all")
+    if "train_remat" in phases:
+        phase_train_remat(cfg, args.seed)
+        lap("train_remat")
     if "train_cpu" in phases:
         phase_train_cpu(cfg, args.seed)
+        lap("train_cpu")
     if "serve" in phases:
         served = phase_serve(params, cfg, args.seed, FRAMES, OBJECTS)
         served_fused = phase_serve_fused(params, cfg, args.seed, CHUNK,
@@ -2737,14 +3126,19 @@ def main() -> int:
                                          OBJECTS)
         launches = {**served, **{k: served_fused[k] for k in TWOWAY},
                     **{k: served_heads[k] for k in FLASH}, **launches}
+        lap("serve")
     if "cpu" in phases:
         phase_cpu(params, cfg, args.seed, OBJECTS)
         phase_cpu(params, heads_cfg, args.seed, OBJECTS)
+        lap("cpu")
     if "fit" in phases:
         phase_fit(cfg, args.seed, card)
+        lap("fit")
     if "eval" in phases:
-        phase_eval_predictor(params, cfg, args.seed, OBJECTS)
+        cpu_run = phase_eval_predictor(params, cfg, args.seed, OBJECTS)
+        phase_eval_batched(params, cfg, args.seed, OBJECTS, cpu_run)
         phase_eval_cli(cfg, args.seed, card)
+        lap("eval")
 
     # each kernel's launches on its training path (#1-#5: the memory-only
     # step, #6 per geometry class: the all-trainable step, #7 the two-head

@@ -11,9 +11,14 @@ propagation in reverse and then forward, the forward pass overwriting
 
 An ``InferenceRunner`` holds the predictor and the dataset; frames are
 read once per clip on the host (PNG, ``data/image_io.py``) and encoded on
-the device. The clips run one after another: tracking several clips in
-lockstep (``batch_videos > 1``, the JAX package's
-``BatchedVideoPredictor``) is not ported yet.
+the device. With ``batch_videos`` G > 1 the runner first schedules every
+video's clips and extracts their prompts (resetting the object count per
+video), then tracks each full group of G clips that share length,
+resolution and prompt frame in lockstep (``eval/batched_predictor.py``);
+the clips that fill no group run one after another on the sequential
+predictor. The prompt noise is then drawn group by group, video by video
+and object by object, then for the leftover clips, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -30,15 +35,12 @@ import torch
 from ..data import image_io
 from ..data import rle as rle_mod
 from ..models.sam2 import SAM2Config
+from .batched_predictor import BatchedVideoPredictor
 from .noise import PromptObjNoiseAdder
 from .predictor import VideoPredictor, logits_to_orig
 from .utils import (ClipRange, PromptInfo, PromptObj, init_grid, mask_to_bbox,
                     mask_to_masks, mask_to_points)
 
-BATCHED_NOT_PORTED = (
-    "eval.batch_videos > 1 (clips tracked in lockstep by the batched "
-    "predictor) is not ported yet: see ROADMAP.md, queue 1, item 7; pass "
-    "batch_videos=1")
 DECODE_THREADS = 8
 
 
@@ -56,7 +58,9 @@ class InferenceConfig:
     grid_spacing: int | None = None
     max_objects: int = 8
     seed: int = 0
-    batch_videos: int = 1              # 1 only (BATCHED_NOT_PORTED)
+    # >1: that many same-shape clips tracked in lockstep per device step
+    # (BatchedVideoPredictor); clips that fill no group run sequentially
+    batch_videos: int = 1
     # conditioning slots of the predictor; raise it for clips that prompt
     # more than one frame
     max_cond_frames: int = 1
@@ -96,8 +100,6 @@ class InferenceRunner:
     def __init__(self, params, sam2_cfg: SAM2Config, cfg: InferenceConfig,
                  coco_path, eval_dir, image_root: str | None = None,
                  device: str | torch.device = "cuda"):
-        if cfg.batch_videos > 1:
-            raise NotImplementedError(BATCHED_NOT_PORTED)
         self.coco = _CocoView(coco_path)
         self.cfg = cfg
         self.eval_dir = Path(eval_dir)
@@ -107,6 +109,7 @@ class InferenceRunner:
                                         max_objects=cfg.max_objects,
                                         max_cond_frames=cfg.max_cond_frames,
                                         device=device)
+        self._batched_pred = None
         self.obj_count = 0
         self.prompt_info: list[PromptInfo] = []
         self.rng = np.random.default_rng(cfg.seed)
@@ -328,11 +331,132 @@ class InferenceRunner:
                 frames, clip_prompts, clip_range, probs_out_dir))
         return video_segments
 
+    # -- grouped (lockstep) processing --------------------------------------
+
+    def _collect_clip_jobs(self):
+        """Every video's clip schedule and prompts, as ``process_video``
+        makes them (the object count reset per video), as one list of
+        (video_id, frames, clip_prompts, clip_range) jobs."""
+        prompt_type = _NORMALIZE_PROMPT[self.cfg.prompt_type]
+        jobs = []
+        for video_id in self.coco.video_ids:
+            self.obj_count = 0
+            frames = self.coco.frames_of(video_id)
+            if self.cfg.variable_cats:
+                gen = self._merge_prompts(
+                    self._prompts_by_categories(frames, prompt_type),
+                    self._prompts_by_clip_length(frames, prompt_type,
+                                                 self.cfg.clip_length))
+            else:
+                gen = self._prompts_by_clip_length(frames, prompt_type,
+                                                   self.cfg.clip_length)
+            for clip_prompts, clip_range in gen:
+                self.prompt_info.extend(clip_prompts)
+                jobs.append((video_id, frames, clip_prompts, clip_range))
+        return jobs
+
+    def _job_group_key(self, job):
+        """Clips group together when they share length, prompt frame
+        (relative to the clip) and resolution; a clip prompted on several
+        frames, or with no object or more than max_objects, groups with
+        none (None)."""
+        _, frames, clip_prompts, cr = job
+        if len(clip_prompts) != 1:
+            return None
+        if not 0 < len(clip_prompts[0].prompt_objs) <= self.cfg.max_objects:
+            return None
+        f0 = frames[0]
+        return (cr.end_idx - cr.start_idx + 1,
+                clip_prompts[0].frame_idx - cr.start_idx,
+                f0["height"], f0["width"])
+
+    def _process_group(self, jobs, all_segments, probs_out_dir):
+        """One full group of clips through the BatchedVideoPredictor,
+        reverse and then forward."""
+        G = len(jobs)
+        if self._batched_pred is None or self._batched_pred.group_size != G:
+            self._batched_pred = BatchedVideoPredictor(
+                self.predictor.params, self.predictor.cfg,
+                max_objects=self.cfg.max_objects, group_size=G,
+                device=self.predictor.device)
+        pred = self._batched_pred
+        clip_frames = [frames[cr.start_idx: cr.end_idx + 1]
+                       for _, frames, _, cr in jobs]
+        state = pred.init_group(np.stack([self._load_frames(cf)
+                                          for cf in clip_frames]))
+        for g, (_, _, clip_prompts, cr) in enumerate(jobs):
+            info = clip_prompts[0]
+            rel = info.frame_idx - cr.start_idx
+            for obj in info.prompt_objs:
+                if self.noise is not None:
+                    obj = self.noise.add_noise_to_obj(obj, info.prompt_type)
+                    if obj is None:
+                        continue
+                if info.prompt_type == "points":
+                    pred.add_new_points_or_box(state, g, rel, obj.obj_id,
+                                               points=obj.points,
+                                               labels=obj.pos_or_neg_label)
+                elif info.prompt_type == "bbox":
+                    pred.add_new_points_or_box(state, g, rel, obj.obj_id,
+                                               box=obj.bbox)
+                else:
+                    pred.add_new_mask(state, g, rel, obj.obj_id, obj.mask)
+
+        want_probs = probs_out_dir is not None
+        for reverse in (True, False):
+            for rel_idx, obj_ids, logits, score in \
+                    pred.propagate_in_group(state, reverse=reverse):
+                for g, (video_id, _, _, cr) in enumerate(jobs):
+                    n = len(obj_ids[g])
+                    mask, probs = logits_to_orig(logits[g, :n],
+                                                 state.orig_hw,
+                                                 want_probs=want_probs)
+                    if want_probs:
+                        self._maybe_write_probs(probs_out_dir,
+                                                clip_frames[g][rel_idx],
+                                                obj_ids[g], probs)
+                    all_segments.setdefault(video_id, {})[
+                        rel_idx + cr.start_idx] = {
+                        oid: {"mask": mask[i], "score": float(score[g, i])}
+                        for i, oid in enumerate(obj_ids[g])}
+
+    def _run_grouped(self, probs_out_dir):
+        """Every full group of ``batch_videos`` clips in lockstep, in the
+        order of their keys' first clips, then the clips left over one by
+        one."""
+        groups: dict = {}
+        leftovers = []
+        for job in self._collect_clip_jobs():
+            key = self._job_group_key(job)
+            if key is None:
+                leftovers.append(job)
+            else:
+                groups.setdefault(key, []).append(job)
+        all_segments: dict = {}
+        G = self.cfg.batch_videos
+        for members in groups.values():
+            for i in range(0, len(members), G):
+                chunk = members[i: i + G]
+                if len(chunk) == G:
+                    self._process_group(chunk, all_segments, probs_out_dir)
+                else:
+                    leftovers.extend(chunk)
+        for video_id, frames, clip_prompts, cr in leftovers:
+            all_segments.setdefault(video_id, {}).update(
+                self._process_clip(frames, clip_prompts, cr, probs_out_dir))
+        for video_id in self.coco.video_ids:
+            all_segments.setdefault(video_id, {})
+        return all_segments
+
     def run(self, save_video_list=None, probs_out_dir=None):
         if probs_out_dir is not None and not Path(probs_out_dir).is_absolute():
             probs_out_dir = self.eval_dir / probs_out_dir
-        all_segments = {video_id: self.process_video(video_id, probs_out_dir)
-                        for video_id in self.coco.video_ids}
+        if self.cfg.batch_videos > 1:
+            all_segments = self._run_grouped(probs_out_dir)
+        else:
+            all_segments = {video_id: self.process_video(video_id,
+                                                         probs_out_dir)
+                            for video_id in self.coco.video_ids}
         predict_path, prompt_path = self.save_as_coco_format(
             all_segments, save_video_list)
         if probs_out_dir is not None:

@@ -127,6 +127,20 @@ def resize_frames(frames: torch.Tensor, size: int) -> torch.Tensor:
     return out.clamp(0, 255).to(torch.uint8)
 
 
+def point_prompt(points, labels, box, orig_hw, size: int):
+    """The ("points", coords, labels) payload of a click or box prompt:
+    (x, y) at the video resolution scaled to ``size``; a box is its two
+    corners with labels 2 and 3."""
+    if box is not None:
+        points = np.asarray(box, np.float32).reshape(2, 2)
+        labels = [2, 3]
+    h, w = orig_hw
+    pts = np.asarray(points, np.float32).reshape(-1, 2).copy()
+    pts[:, 0] *= size / w
+    pts[:, 1] *= size / h
+    return "points", pts, np.asarray(labels, np.int32).reshape(-1)
+
+
 def logits_to_orig(logits: np.ndarray, orig_hw, want_probs: bool = False):
     """Low-res logits [n, 1, h', w'] -> (mask bool [n, 1, h, w], probs f16
     or None): bilinear upsample (align_corners=False, no antialias), then
@@ -139,10 +153,32 @@ def logits_to_orig(logits: np.ndarray, orig_hw, want_probs: bool = False):
     return masks, probs
 
 
-class VideoPredictor:
-    def __init__(self, params, cfg: SAM2Config, max_objects: int = 8,
-                 encode_chunk: int = 8, max_cond_frames: int = 1,
-                 device: str | torch.device = "cuda"):
+def non_overlap_per_video(masks: torch.Tensor, n_obj: int) -> torch.Tensor:
+    """``apply_non_overlapping_constraints`` over each video's ``n_obj``
+    rows of [G * n_obj, 1, H, W] logits: a pixel keeps the logit of its
+    video's highest-scoring object and the others are clamped to -10. At
+    G = 1 it is the model's own constraint, bit for bit."""
+    if n_obj == 1:
+        return masks
+    g = masks.reshape((-1, n_obj) + tuple(masks.shape[1:]))
+    rows = torch.arange(n_obj, device=masks.device)[None, :, None, None,
+                                                     None]
+    keep = g.argmax(dim=1, keepdim=True) == rows
+    return torch.where(keep, g, g.clamp(max=-10.0)).reshape(masks.shape)
+
+
+class FrameSteps:
+    """The device steps and the memory-slot selection of a predictor over
+    ``group_size`` videos of ``max_objects`` object rows each: one video
+    for ``VideoPredictor``, G for the lockstep ``BatchedVideoPredictor``
+    (``eval/batched_predictor.py``). Every step runs [G * O, ...] rows;
+    ``_rows`` expands a frame's features to them, and the one operation
+    across a frame's objects, the non-overlap constraint before memory
+    encoding, runs per video (``non_overlap_per_video``)."""
+
+    def __init__(self, params, cfg: SAM2Config, max_objects: int,
+                 encode_chunk: int, max_cond_frames: int,
+                 device: str | torch.device, group_size: int = 1):
         """``params``: a ParamTree, a flat state_dict keyed by the JAX
         paths (torch layout), or a nested JAX parameter tree."""
         self.device = torch.device(device)
@@ -154,7 +190,8 @@ class VideoPredictor:
         self.max_objects = max_objects
         self.encode_chunk = encode_chunk
         self.max_cond_frames = max_cond_frames
-        HW, C = cfg.num_spatial_tokens, cfg.d_model
+        rows, HW, C = group_size * max_objects, cfg.num_spatial_tokens, \
+            cfg.d_model
         # each conditioning slot past the first adds a spatial slot and a
         # pointer row
         self._layout = sam2_mod.MemoryLayout(
@@ -165,42 +202,45 @@ class VideoPredictor:
             tokens_per_ptr=cfg.ptr_tokens_per_obj)
         self._curr_pos = sine_pe_2d(cfg.feat_size, cfg.feat_size, C).reshape(
             HW, C).to(self.device)
-        self._zero_slot = torch.zeros((max_objects, HW, cfg.mem_dim),
+        self._zero_slot = torch.zeros((rows, HW, cfg.mem_dim),
                                       dtype=cfg.dtype(), device=self.device)
-        self._zero_ptr = torch.zeros((max_objects, C), device=self.device)
+        self._zero_ptr = torch.zeros((rows, C), device=self.device)
         self._mem_pos_flat = None
 
     # -- device steps -------------------------------------------------------
 
-    @torch.no_grad()
-    def _encode(self, images_u8: torch.Tensor):
-        out = sam2_mod.forward_image(self.params, self.cfg, images_u8)
-        return tuple(out["backbone_fpn"])
-
-    def _broadcast(self, x: torch.Tensor) -> torch.Tensor:
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """One video's frame tensor -> its O object rows."""
         return x[None].expand((self.max_objects,) + tuple(x.shape))
+
+    def _encode_memory(self, feats, masks, score_logits):
+        """The new memory [rows, HW, mem_dim] and its position encoding."""
+        cfg = self.cfg
+        if cfg.non_overlap_masks_for_mem_enc:
+            masks = non_overlap_per_video(masks, self.max_objects)
+        mem, mem_pos = sam2_mod.encode_new_memory(self.params, cfg, feats,
+                                                  masks, score_logits)
+        return mem.reshape(feats.shape[0], -1, cfg.mem_dim), mem_pos
 
     @torch.no_grad()
     def _prompt_step(self, s0, s1, s16, point_coords, point_labels,
                      multimask: bool):
         cfg, p = self.cfg, self.params
-        feats = self._broadcast(s16)
-        hr = (self._broadcast(s0), self._broadcast(s1))
+        feats = self._rows(s16)
         pix = feats + p["no_mem_embed"].reshape(1, 1, 1, -1).to(feats.dtype)
         out = sam2_mod.forward_sam_heads(
             p, cfg, pix, point_coords=point_coords,
-            point_labels=point_labels, high_res_features=hr,
+            point_labels=point_labels,
+            high_res_features=(self._rows(s0), self._rows(s1)),
             multimask_output=multimask, training=False)
-        mem, mem_pos = sam2_mod.encode_new_memory(
-            p, cfg, feats, out["high_res_masks"], out["object_score_logits"],
-            apply_non_overlap=cfg.non_overlap_masks_for_mem_enc)
-        return out, mem.reshape(self.max_objects, -1, cfg.mem_dim), mem_pos
+        return (out,) + self._encode_memory(feats, out["high_res_masks"],
+                                            out["object_score_logits"])
 
     @torch.no_grad()
     def _mask_prompt_step(self, s0, s1, s16, mask_inputs):
         cfg, p = self.cfg, self.params
-        feats = self._broadcast(s16)
-        hr = (self._broadcast(s0), self._broadcast(s1))
+        feats = self._rows(s16)
+        hr = (self._rows(s0), self._rows(s1))
         if cfg.use_mask_input_as_output_without_sam:
             out = sam2_mod.use_mask_as_output(p, cfg, feats, hr,
                                               mask_inputs[..., None],
@@ -211,47 +251,166 @@ class VideoPredictor:
             out = sam2_mod.forward_sam_heads(
                 p, cfg, pix, mask_inputs=mask_inputs[..., None],
                 high_res_features=hr, training=False)
-        mem, mem_pos = sam2_mod.encode_new_memory(
-            p, cfg, feats, out["high_res_masks"], out["object_score_logits"],
-            apply_non_overlap=cfg.non_overlap_masks_for_mem_enc)
-        return out, mem.reshape(self.max_objects, -1, cfg.mem_dim), mem_pos
+        return (out,) + self._encode_memory(feats, out["high_res_masks"],
+                                            out["object_score_logits"])
 
-    def _fuse(self, s16, memory):
-        """Memory-conditioned features [O, Fs, Fs, C] of one frame;
-        ``memory`` is ``_assemble_memory``'s tuple."""
+    def _fuse(self, feats, memory):
+        """Memory-conditioned features [rows, Fs, Fs, C] of one frame's
+        per-row features ``feats`` [rows, Fs, Fs, C]; ``memory`` is
+        ``_assemble_memory``'s tuple."""
         cfg = self.cfg
-        O, HW, C, Fs = (self.max_objects, cfg.num_spatial_tokens,
-                        cfg.d_model, cfg.feat_size)
+        rows, Fs, _, C = feats.shape
         mem_slots, spatial_valid, tpos_index, ptr_rows, ptr_valid, \
             ptr_tpos, t_diff_max = memory
         spatial_mem = torch.stack([s.float() for s in mem_slots])
         obj_ptrs = (torch.stack([r.float() for r in ptr_rows]) if ptr_rows
-                    else self._zero_ptr[None, :0].expand(0, O, C))
-        curr = s16.reshape(1, HW, C).expand(O, HW, C)
+                    else feats.new_zeros((0, rows, C), dtype=torch.float32))
         fused = sam2_mod.fuse_memory(
-            self.params, cfg, self._layout, curr, self._curr_pos,
-            spatial_mem, spatial_valid, self._mem_pos_flat, tpos_index,
-            obj_ptrs, ptr_valid, ptr_tpos, t_diff_max=float(t_diff_max))
-        return fused.reshape(O, Fs, Fs, C)
+            self.params, cfg, self._layout, feats.reshape(rows, Fs * Fs, C),
+            self._curr_pos, spatial_mem, spatial_valid, self._mem_pos_flat,
+            tpos_index, obj_ptrs, ptr_valid, ptr_tpos,
+            t_diff_max=float(t_diff_max))
+        return fused.reshape(rows, Fs, Fs, C)
 
     @torch.no_grad()
     def _track_step(self, s0, s1, s16, memory, orig_hw, n_obj: int):
-        """Memory fusion -> SAM heads -> memory encoding for one frame."""
-        cfg, p = self.cfg, self.params
-        O, HW = self.max_objects, cfg.num_spatial_tokens
-        fused = self._fuse(s16, memory)
-        hr = (self._broadcast(s0), self._broadcast(s1))
-        out = sam2_mod.forward_sam_heads(p, cfg, fused, high_res_features=hr,
-                                         multimask_output=False,
-                                         training=False)
-        mem, _ = sam2_mod.encode_new_memory(
-            p, cfg, self._broadcast(s16), out["high_res_masks"],
-            out["object_score_logits"],
-            apply_non_overlap=cfg.non_overlap_masks_for_mem_enc)
-        packed, score = self._pack(out["low_res_masks"], orig_hw, n_obj)
-        return (out["obj_ptr"], mem.reshape(O, HW, cfg.mem_dim),
-                out["low_res_masks"].half(), out["object_score_logits"],
-                packed, score)
+        """Memory fusion -> SAM heads -> memory encoding for one frame:
+        (SAM outputs, new memory, ``_pack`` of the first ``n_obj`` rows of
+        each video)."""
+        feats = self._rows(s16)
+        out = sam2_mod.forward_sam_heads(
+            self.params, self.cfg, self._fuse(feats, memory),
+            high_res_features=(self._rows(s0), self._rows(s1)),
+            multimask_output=False, training=False)
+        mem, _ = self._encode_memory(feats, out["high_res_masks"],
+                                     out["object_score_logits"])
+        return (out, mem) + self._pack(out["low_res_masks"], orig_hw, n_obj)
+
+    def _pack(self, lowres, orig_hw, n_obj: int):
+        """Low-res logits of each video's first ``n_obj`` rows as float16
+        [G * n_obj, 1, h, w], and their scores [G * n_obj]: the mean
+        sigmoid over the original-resolution upsample."""
+        shape = tuple(lowres.shape[1:])
+        sel = lowres.reshape((-1, self.max_objects) + shape)[:, :n_obj]
+        sel = sel.reshape((-1,) + shape).float()
+        up = resize_bilinear(sel, tuple(orig_hw))
+        return sel.half(), torch.sigmoid(up).mean(dim=(1, 2, 3))
+
+    def _assemble_memory(self, state, mem_bank, cond_outputs, frame_idx,
+                         reverse: bool = False):
+        """Memory-slot selection (sam2_base.py:549-675, eval rules): the
+        first ``max_cond_frames`` slots the temporally closest conditioning
+        frames at temporal position 0; the other M-1 slots the frames of
+        the r-stride rule (mirrored in reverse), an unselected conditioning
+        frame taking its slot like a tracked one; pointer rows the selected
+        conditioning frames' in the past (the future in reverse), then the
+        tracked and unselected frames behind ``frame_idx``."""
+        cfg, dev = self.cfg, self.device
+        M = cfg.num_maskmem
+        n_cond = self.max_cond_frames
+        r = max(cfg.memory_temporal_stride_for_eval, 1)
+
+        budget = n_cond
+        if cfg.max_cond_frames_in_attn > 0:
+            budget = min(budget, cfg.max_cond_frames_in_attn)
+        if budget == 1 and len(cond_outputs) > 1:
+            # select_closest_cond_frames limits to 2 or more: one slot takes
+            # the nearest frame, one before it first
+            t = max((t for t in cond_outputs if t < frame_idx), default=None)
+            if t is None:
+                t = min(t for t in cond_outputs if t >= frame_idx)
+            selected = {t: cond_outputs[t]}
+            unselected = {k: v for k, v in cond_outputs.items() if k != t}
+        else:
+            selected, unselected = select_closest_cond_frames(
+                frame_idx, cond_outputs,
+                budget if len(cond_outputs) > 1 else -1)
+
+        slots, valid = [], []
+        sel_frames = list(selected)
+        for i in range(n_cond):
+            if i < len(sel_frames):
+                slots.append(selected[sel_frames[i]].mem)
+                valid.append(True)
+            else:
+                slots.append(self._zero_slot)
+                valid.append(False)
+        for t_pos in range(1, M):
+            t_rel = M - t_pos
+            if t_rel == 1:
+                prev = frame_idx + 1 if reverse else frame_idx - 1
+            elif reverse:
+                prev = -(-(frame_idx + 2) // r) * r + (t_rel - 2) * r
+            else:
+                prev = ((frame_idx - 2) // r) * r - (t_rel - 2) * r
+            if prev in selected:
+                entry = None
+            elif prev in unselected:
+                entry = unselected[prev].mem
+            else:
+                e = mem_bank.get(prev)
+                entry = e.mem if e is not None else None
+            slots.append(self._zero_slot if entry is None else entry)
+            valid.append(entry is not None)
+        tpos_index = [M - 1] * n_cond + [M - t_pos - 1
+                                         for t_pos in range(1, M)]
+
+        P = self._layout.num_ptrs
+        ptr_rows = [self._zero_ptr] * P
+        pvalid = np.zeros((P,), bool)
+        ptpos = np.zeros((P,), np.float32)
+        t_diff_max = 1
+        if P > 0:
+            max_ptrs = min(state.num_frames, cfg.max_obj_ptrs_in_encoder)
+            sign = -1.0 if reverse else 1.0
+            idx = 0
+            for t, co in selected.items():
+                include = (t >= frame_idx if reverse else t <= frame_idx) \
+                    or not cfg.only_obj_ptrs_in_the_past_for_eval
+                if include and idx < P:
+                    ptr_rows[idx] = co.ptr
+                    pvalid[idx] = True
+                    ptpos[idx] = ((frame_idx - t) * sign
+                                  if cfg.use_signed_tpos_enc_to_obj_ptrs
+                                  else abs(frame_idx - t))
+                    idx += 1
+            for t_diff in range(1, max_ptrs):
+                t = frame_idx + t_diff if reverse else frame_idx - t_diff
+                if t < 0 or t >= state.num_frames:
+                    break
+                if t in selected:
+                    continue
+                if t in unselected:
+                    row = unselected[t].ptr
+                else:
+                    e = mem_bank.get(t)
+                    row = e.ptr if e is not None else None
+                if row is not None and idx < P:
+                    ptr_rows[idx] = row
+                    pvalid[idx] = True
+                    ptpos[idx] = t_diff
+                    idx += 1
+            t_diff_max = max(max_ptrs - 1, 1)
+        return (tuple(slots), torch.as_tensor(valid, device=dev),
+                torch.as_tensor(tpos_index, device=dev), tuple(ptr_rows),
+                torch.from_numpy(pvalid).to(dev),
+                torch.from_numpy(ptpos).to(dev), t_diff_max)
+
+
+class VideoPredictor(FrameSteps):
+    def __init__(self, params, cfg: SAM2Config, max_objects: int = 8,
+                 encode_chunk: int = 8, max_cond_frames: int = 1,
+                 device: str | torch.device = "cuda"):
+        """``params`` as for ``FrameSteps``."""
+        super().__init__(params, cfg, max_objects, encode_chunk,
+                         max_cond_frames, device)
+
+    # -- device steps -------------------------------------------------------
+
+    @torch.no_grad()
+    def _encode(self, images_u8: torch.Tensor):
+        out = sam2_mod.forward_image(self.params, self.cfg, images_u8)
+        return tuple(out["backbone_fpn"])
 
     @torch.no_grad()
     def _correction_step(self, s0, s1, s16, memory, point_coords,
@@ -260,38 +419,25 @@ class VideoPredictor:
         is_init_cond_frame=False): memory-conditioned features, the clicks
         and the frame's previous low-res logits [O, S/4, S/4, 1] as the
         dense prompt."""
-        cfg, p = self.cfg, self.params
-        fused = self._fuse(s16, memory)
-        hr = (self._broadcast(s0), self._broadcast(s1))
+        feats = self._rows(s16)
         out = sam2_mod.forward_sam_heads(
-            p, cfg, fused, point_coords=point_coords,
-            point_labels=point_labels, mask_inputs=prev_logits,
-            high_res_features=hr, multimask_output=multimask, training=False)
-        mem, mem_pos = sam2_mod.encode_new_memory(
-            p, cfg, self._broadcast(s16), out["high_res_masks"],
-            out["object_score_logits"],
-            apply_non_overlap=cfg.non_overlap_masks_for_mem_enc)
-        return out, mem.reshape(self.max_objects, -1, cfg.mem_dim), mem_pos
+            self.params, self.cfg, self._fuse(feats, memory),
+            point_coords=point_coords, point_labels=point_labels,
+            mask_inputs=prev_logits,
+            high_res_features=(self._rows(s0), self._rows(s1)),
+            multimask_output=multimask, training=False)
+        return (out,) + self._encode_memory(feats, out["high_res_masks"],
+                                            out["object_score_logits"])
 
     @torch.no_grad()
     def _consolidate_mem(self, s16, lowres, score_logits):
         """A conditioning frame's memory encoded again from its
         cross-object consolidated low-res logits, upsampled to the image
         size."""
-        cfg, S = self.cfg, self.cfg.image_size
+        S = self.cfg.image_size
         hr_masks = resize_bilinear(lowres.float(), (S, S))
-        mem, _ = sam2_mod.encode_new_memory(
-            self.params, cfg, self._broadcast(s16), hr_masks, score_logits,
-            apply_non_overlap=cfg.non_overlap_masks_for_mem_enc)
-        return mem.reshape(self.max_objects, -1, cfg.mem_dim)
-
-    @staticmethod
-    def _pack(lowres, orig_hw, n_obj: int):
-        """Low-res logits of the real objects as float16, and the score:
-        mean sigmoid over the original-resolution upsample."""
-        sel = lowres[:n_obj].float()
-        up = resize_bilinear(sel, tuple(orig_hw))
-        return sel.half(), torch.sigmoid(up).mean(dim=(1, 2, 3))
+        return self._encode_memory(self._rows(s16), hr_masks,
+                                   score_logits)[0]
 
     # -- public API ---------------------------------------------------------
 
@@ -308,24 +454,10 @@ class VideoPredictor:
         return InferenceState(num_frames=T, orig_hw=(H, W), feats=feats,
                               prompts={}, obj_order=[])
 
-    def _scale_points(self, points, orig_hw):
-        h, w = orig_hw
-        s = self.cfg.image_size
-        pts = np.asarray(points, np.float32).reshape(-1, 2).copy()
-        pts[:, 0] *= s / w
-        pts[:, 1] *= s / h
-        return pts
-
     def add_new_points_or_box(self, state: InferenceState, frame_idx: int,
                               obj_id, points=None, labels=None, box=None):
-        if box is not None:
-            pts = self._scale_points(
-                np.asarray(box, np.float32).reshape(2, 2), state.orig_hw)
-            lbl = np.asarray([2, 3], np.int32)
-        else:
-            pts = self._scale_points(points, state.orig_hw)
-            lbl = np.asarray(labels, np.int32).reshape(-1)
-        self._add(state, frame_idx, obj_id, ("points", pts, lbl))
+        self._add(state, frame_idx, obj_id, point_prompt(
+            points, labels, box, state.orig_hw, self.cfg.image_size))
 
     def add_new_mask(self, state: InferenceState, frame_idx: int, obj_id,
                      mask: np.ndarray):
@@ -504,109 +636,10 @@ class VideoPredictor:
                 memory = self._assemble_memory(state, mem_bank, cond_outputs,
                                                t, reverse)
                 s0, s1, s16 = (x[t] for x in state.feats)
-                obj_ptr, new_mem, lowres, oscore, packed, score = \
-                    self._track_step(s0, s1, s16, memory, state.orig_hw,
-                                     n_obj)
-                mem_bank[t] = TrackedOutput(mem=new_mem, ptr=obj_ptr,
-                                            lowres=lowres, score=oscore)
+                out, new_mem, packed, score = self._track_step(
+                    s0, s1, s16, memory, state.orig_hw, n_obj)
+                mem_bank[t] = TrackedOutput(
+                    mem=new_mem, ptr=out["obj_ptr"],
+                    lowres=out["low_res_masks"].half(),
+                    score=out["object_score_logits"])
             yield (t, obj_ids, packed.cpu().numpy(), score.cpu().numpy())
-
-    def _assemble_memory(self, state, mem_bank, cond_outputs, frame_idx,
-                         reverse: bool = False):
-        """Memory-slot selection (sam2_base.py:549-675, eval rules): the
-        first ``max_cond_frames`` slots the temporally closest conditioning
-        frames at temporal position 0; the other M-1 slots the frames of
-        the r-stride rule (mirrored in reverse), an unselected conditioning
-        frame taking its slot like a tracked one; pointer rows the selected
-        conditioning frames' in the past (the future in reverse), then the
-        tracked and unselected frames behind ``frame_idx``."""
-        cfg, dev = self.cfg, self.device
-        M = cfg.num_maskmem
-        n_cond = self.max_cond_frames
-        r = max(cfg.memory_temporal_stride_for_eval, 1)
-
-        budget = n_cond
-        if cfg.max_cond_frames_in_attn > 0:
-            budget = min(budget, cfg.max_cond_frames_in_attn)
-        if budget == 1 and len(cond_outputs) > 1:
-            # select_closest_cond_frames limits to 2 or more: one slot takes
-            # the nearest frame, one before it first
-            t = max((t for t in cond_outputs if t < frame_idx), default=None)
-            if t is None:
-                t = min(t for t in cond_outputs if t >= frame_idx)
-            selected = {t: cond_outputs[t]}
-            unselected = {k: v for k, v in cond_outputs.items() if k != t}
-        else:
-            selected, unselected = select_closest_cond_frames(
-                frame_idx, cond_outputs,
-                budget if len(cond_outputs) > 1 else -1)
-
-        slots, valid = [], []
-        sel_frames = list(selected)
-        for i in range(n_cond):
-            if i < len(sel_frames):
-                slots.append(selected[sel_frames[i]].mem)
-                valid.append(True)
-            else:
-                slots.append(self._zero_slot)
-                valid.append(False)
-        for t_pos in range(1, M):
-            t_rel = M - t_pos
-            if t_rel == 1:
-                prev = frame_idx + 1 if reverse else frame_idx - 1
-            elif reverse:
-                prev = -(-(frame_idx + 2) // r) * r + (t_rel - 2) * r
-            else:
-                prev = ((frame_idx - 2) // r) * r - (t_rel - 2) * r
-            if prev in selected:
-                entry = None
-            elif prev in unselected:
-                entry = unselected[prev].mem
-            else:
-                e = mem_bank.get(prev)
-                entry = e.mem if e is not None else None
-            slots.append(self._zero_slot if entry is None else entry)
-            valid.append(entry is not None)
-        tpos_index = [M - 1] * n_cond + [M - t_pos - 1
-                                         for t_pos in range(1, M)]
-
-        P = self._layout.num_ptrs
-        ptr_rows = [self._zero_ptr] * P
-        pvalid = np.zeros((P,), bool)
-        ptpos = np.zeros((P,), np.float32)
-        t_diff_max = 1
-        if P > 0:
-            max_ptrs = min(state.num_frames, cfg.max_obj_ptrs_in_encoder)
-            sign = -1.0 if reverse else 1.0
-            idx = 0
-            for t, co in selected.items():
-                include = (t >= frame_idx if reverse else t <= frame_idx) \
-                    or not cfg.only_obj_ptrs_in_the_past_for_eval
-                if include and idx < P:
-                    ptr_rows[idx] = co.ptr
-                    pvalid[idx] = True
-                    ptpos[idx] = ((frame_idx - t) * sign
-                                  if cfg.use_signed_tpos_enc_to_obj_ptrs
-                                  else abs(frame_idx - t))
-                    idx += 1
-            for t_diff in range(1, max_ptrs):
-                t = frame_idx + t_diff if reverse else frame_idx - t_diff
-                if t < 0 or t >= state.num_frames:
-                    break
-                if t in selected:
-                    continue
-                if t in unselected:
-                    row = unselected[t].ptr
-                else:
-                    e = mem_bank.get(t)
-                    row = e.ptr if e is not None else None
-                if row is not None and idx < P:
-                    ptr_rows[idx] = row
-                    pvalid[idx] = True
-                    ptpos[idx] = t_diff
-                    idx += 1
-            t_diff_max = max(max_ptrs - 1, 1)
-        return (tuple(slots), torch.as_tensor(valid, device=dev),
-                torch.as_tensor(tpos_index, device=dev), tuple(ptr_rows),
-                torch.from_numpy(pvalid).to(dev),
-                torch.from_numpy(ptpos).to(dev), t_diff_max)

@@ -2,13 +2,19 @@
 the parameter tree, and the pieces of the tracking recurrence that the
 streaming predictor drives: image encoding, the SAM heads, memory encoding
 and memory fusion over a fixed-shape memory bank (invalid slots masked by
-an additive attention bias)."""
+an additive attention bias).
+
+Activation checkpoints: in training, with a remat mode other than "none",
+the mask decoder, the memory encoder and the memory attention each run
+under ``torch.utils.checkpoint`` (``remat``), where the JAX package wraps
+``_decode``, ``_enc`` and ``_attend`` in ``jax.checkpoint``."""
 
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..data.coco import IMAGENET_MEAN, IMAGENET_STD
 from ..ops import common as nn
@@ -85,6 +91,8 @@ class SAM2Config:
     remat_mode: str = ""
     compute_dtype: str = "bfloat16"
     use_flash_attention: bool = True
+    # the JAX package's lax.scan unroll factor; the port's frame loop is a
+    # Python loop, so it is accepted and changes nothing
     scan_unroll: int = 0
     stacked_frame_grads: bool = False
     memory_bank_dtype: str = "float32"
@@ -268,6 +276,19 @@ def derive(tree: dict, cfg: SAM2Config, modules=None) -> dict:
     return tree
 
 
+def remat(cfg: SAM2Config, training: bool, fn, *args):
+    """``fn(*args)``, under a non-reentrant activation checkpoint when
+    training with a remat mode other than "none" and gradients on (the JAX
+    package's per-module ``jax.checkpoint``): its activations are not kept
+    but computed again in the backward. The forward draws no random
+    numbers, so no RNG state is saved."""
+    if training and cfg.resolved_remat_mode() != "none" and \
+            torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 # ---------------------------------------------------------------------------
 # Image encoding
 # ---------------------------------------------------------------------------
@@ -339,11 +360,16 @@ def forward_sam_heads(p, cfg: SAM2Config, backbone_features,
                                                pe_cfg)
     hrf = (tuple(high_res_features) if cfg.use_high_res_features_in_sam
            else None)
+
+    def decode(feats, sparse_e, dense_e, hr):
+        return mask_decoder_mod.apply(
+            p["sam_mask_decoder"], md_cfg, feats, image_pe, sparse_e,
+            dense_e, multimask_output=multimask_output,
+            high_res_features=hr, training=training)
+
     low_res_multimasks, ious, sam_output_tokens, object_score_logits = \
-        mask_decoder_mod.apply(
-            p["sam_mask_decoder"], md_cfg, backbone_features.to(dt),
-            image_pe, sparse, dense, multimask_output=multimask_output,
-            high_res_features=hrf, training=training)
+        remat(cfg, training, decode, backbone_features.to(dt), sparse, dense,
+              hrf)
 
     if cfg.pred_obj_scores:
         is_obj_appearing = object_score_logits > 0               # [B, 1]
@@ -453,10 +479,15 @@ def encode_new_memory(p, cfg: SAM2Config, pix_feat, high_res_masks,
                     + cfg.sigmoid_bias_for_mem_enc)
     mask_nhwc = mask_for_mem.permute(0, 2, 3, 1).to(cfg.dtype())
     forward_only = (not training) or cfg.detach_memory_bank
+
+    def enc(pf, m):
+        return memory_encoder_mod.apply(
+            p["memory_encoder"], cfg.memory_encoder_config, pf, m,
+            allow_fused=forward_only)
+
     with torch.set_grad_enabled(torch.is_grad_enabled() and not forward_only):
-        mem, pos = memory_encoder_mod.apply(
-            p["memory_encoder"], cfg.memory_encoder_config,
-            pix_feat.to(cfg.dtype()), mask_nhwc, allow_fused=forward_only)
+        mem, pos = remat(cfg, training, enc, pix_feat.to(cfg.dtype()),
+                         mask_nhwc)
     if cfg.no_obj_embed_spatial:
         is_obj = (object_score_logits > 0).to(mem.dtype)          # [B, 1]
         mem = mem + (1.0 - is_obj[:, :, None, None]) * \
@@ -504,13 +535,14 @@ def memory_layout(cfg: SAM2Config, num_frames: int) -> MemoryLayout:
 def fuse_memory(p, cfg: SAM2Config, layout: MemoryLayout,
                 curr_feat, curr_pos, spatial_mem, spatial_valid,
                 mem_pos_spatial, tpos_index, obj_ptrs, ptr_valid, ptr_tpos,
-                t_diff_max=None):
+                t_diff_max=None, training=False):
     """Memory attention over the fixed-shape bank.
 
     curr_feat [O, HW, C]; curr_pos [HW, C]; spatial_mem [M, O, HW, mem_dim]
     (slot 0 the conditioning frame); spatial_valid [M] bool or None;
     mem_pos_spatial [HW, mem_dim]; tpos_index [M] long; obj_ptrs [P, O, C];
-    ptr_valid [P] bool or None; ptr_tpos [P] float. Returns [O, HW, C]."""
+    ptr_valid [P] bool or None; ptr_tpos [P] float. Returns [O, HW, C].
+    ``training`` only decides the activation checkpoint (``remat``)."""
     M, O, HW, mem_dim = spatial_mem.shape
     C = cfg.d_model
     dt = cfg.dtype()
@@ -548,8 +580,12 @@ def fuse_memory(p, cfg: SAM2Config, layout: MemoryLayout,
                 (ptr_valid.repeat_interleave(tpp) if ptr_valid is not None
                  else torch.ones(P * tpp, dtype=torch.bool, device=dev))])
 
-    return memory_attention_mod.apply(
-        p["memory_attention"], cfg.memory_attention_config,
-        curr_feat.to(dt), memory.to(dt), curr_pos[None].to(dt),
-        memory_pos.to(dt), feat_hw=(cfg.feat_size, cfg.feat_size),
-        num_spatial_k=layout.num_spatial_tokens, key_valid=token_valid)
+    def attend(cf, mem, mem_p):
+        return memory_attention_mod.apply(
+            p["memory_attention"], cfg.memory_attention_config, cf, mem,
+            curr_pos[None].to(dt), mem_p,
+            feat_hw=(cfg.feat_size, cfg.feat_size),
+            num_spatial_k=layout.num_spatial_tokens, key_valid=token_valid)
+
+    return remat(cfg, training, attend, curr_feat.to(dt), memory.to(dt),
+                 memory_pos.to(dt))

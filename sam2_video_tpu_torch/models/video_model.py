@@ -1,22 +1,45 @@
 """Video training forward (counterpart of
 ``sam2_video_tpu/models/video_model.py``): prompt frame 0, then track
-frames 1 .. T-1 over the memory bank.
+frames 1 .. T-1 over the memory bank. The memory bank is cut with
+``.detach()`` where the JAX package has ``stop_gradient``
+(``detach_memory_bank``).
 
-Only the static-prefix unrolled loop is ported (remat_mode "none",
-scan_unroll 0, the JAX package's default training path): frame t attends
-its valid memory prefix (1 + min(t - 1, num_maskmem - 1) spatial slots and
-1 + min(t - 1, P - 1) pointers, newest first), so no slot is masked. The
-memory bank is cut with ``.detach()`` where the JAX package has
-``stop_gradient`` (``detach_memory_bank``). The ``lax.scan`` /
-rematerialised loop and ``stacked_frame_grads`` raise
-``NotImplementedError`` (ROADMAP.md, queue 1, item 4).
+One frame loop, for every rematerialisation mode: frame t attends its
+valid memory prefix (1 + min(t - 1, num_maskmem - 1) spatial slots and
+1 + min(t - 1, P - 1) pointers, newest first), so no slot is masked.
+
+- "modules" checkpoints the mask decoder, memory encoder and memory
+  attention one by one (``models/sam2.py`` ``remat``).
+- "body" runs each tracked frame's body (memory fusion, SAM heads, memory
+  encoding) under one non-reentrant activation checkpoint, with the
+  per-module checkpoints off inside it (nested, they would recompute
+  twice); frame 0 keeps them.
+- "body_dots" is "body" under a selective checkpoint that keeps the
+  outputs of ``aten.mm`` / ``aten.addmm`` (``DOTS_SAVED``, the counterpart
+  of JAX's ``dots_with_no_batch_dims_saveable``) and recomputes the rest:
+  batched products and convolutions, and the hand-written kernels, which
+  run through ctypes and which the policy never sees.
+- ``stacked_frame_grads`` gives each tracked frame its own view of every
+  parameter outside the image encoder (``a.expand(T - 1, ...).unbind(0)``):
+  the forward is unchanged, and each weight's frame gradients are stacked
+  once and summed once instead of accumulated frame by frame.
+
+The JAX package runs "body" and "body_dots" (and ``scan_unroll > 0``) as a
+``lax.scan`` over fixed-shape ring buffers, every frame attending the
+whole ring with its invalid slots masked by a -1e9 key bias. That shape
+is a constraint of ``lax.scan``, not of the model: a masked key adds an
+exact zero, so the prefix gives the same numbers, and a Python loop needs
+no fixed shape. ``scan_unroll`` is accepted and changes nothing here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..data.types import VideoClip
 from ..ops import common as nn
@@ -25,12 +48,10 @@ from . import memory_attention as memory_attention_mod
 from . import sam2 as sam2_mod
 from .sam2 import SAM2Config
 
-SCAN_NOT_PORTED = (
-    "the lax.scan / rematerialised frame loop (remat_mode other than "
-    "'none', or scan_unroll > 0) is not ported: see ROADMAP.md, queue 1, "
-    "item 4; build the config with use_activation_checkpoint=False")
-STACKED_NOT_PORTED = (
-    "stacked_frame_grads is not ported: see ROADMAP.md, queue 1, item 4")
+# the products whose outputs "body_dots" keeps. Not aten.empty: the
+# kernels allocate their outputs with it and write into them, so a kept
+# buffer would be overwritten on the recompute.
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +73,28 @@ def _broadcast_obj(x: torch.Tensor, num_objects: int) -> torch.Tensor:
     return x[None].expand((num_objects,) + tuple(x.shape))
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _frame_views(tree: dict, n: int) -> list:
+    """``n`` trees over ``tree`` (a nested dict) in which every tensor
+    outside the image encoder that requires grad is one slice of
+    ``a.expand(n, *a.shape).unbind(0)``: the same values, a gradient
+    stacked over the n uses and summed once."""
+    def views(x):
+        if isinstance(x, dict):
+            sub = {k: views(v) for k, v in x.items()}
+            return [{k: v[i] for k, v in sub.items()} for i in range(n)]
+        if isinstance(x, torch.Tensor) and x.requires_grad:
+            return list(x.expand(n, *x.shape).unbind(0))
+        return [x] * n
+
+    heads = views({k: v for k, v in tree.items() if k != "image_encoder"})
+    return [{**tree, **h} for h in heads]
+
+
 def forward_train(params, mcfg: VideoModelConfig, clip: VideoClip,
                   training: bool = True):
     """The tracking forward over one clip. ``params`` is a ParamTree or its
@@ -60,11 +103,6 @@ def forward_train(params, mcfg: VideoModelConfig, clip: VideoClip,
     [T, C, ...] (high_res_multimasks, ious, object_score_logits,
     high_res_masks)."""
     cfg = mcfg.sam2
-    remat = cfg.resolved_remat_mode() if training else "none"
-    if remat != "none" or cfg.scan_unroll != 0:
-        raise NotImplementedError(SCAN_NOT_PORTED)
-    if training and cfg.stacked_frame_grads:
-        raise NotImplementedError(STACKED_NOT_PORTED)
     T, O = clip.num_frames, clip.num_objects
     HW, F, C = cfg.num_spatial_tokens, cfg.feat_size, cfg.d_model
     dev = clip.images.device
@@ -121,53 +159,80 @@ def forward_train(params, mcfg: VideoModelConfig, clip: VideoClip,
     if T == 1:
         return _finalize({k: v[None] for k, v in outs[0].items()}, clip)
 
-    # ---- 3. frames 1 .. T-1 over the valid memory prefix
+    # ---- 3. frames 1 .. T-1
     layout = sam2_mod.memory_layout(cfg, T)
     R = cfg.num_maskmem - 1
     Pn = max(layout.num_ptrs - 1, 0)
     mm_track = _use_multimask(cfg, False, 0)
     # the pointer tpos normaliser is the whole clip's pointer budget
     t_diff_max = max(layout.num_ptrs - 1, 1)
+    remat_mode = cfg.resolved_remat_mode() if training else "none"
+    body_cfg = (dataclasses.replace(cfg, use_activation_checkpoint=False,
+                                    remat_mode="none")
+                if remat_mode in ("body", "body_dots") else cfg)
+
+    def frame_step(fp, layout_t, t, spatial_mem, tpos_index, obj_ptrs,
+                   ptr_tpos):
+        """One tracked frame: fuse memory, SAM heads, encode new memory."""
+        curr = _broadcast_obj(s16[t].reshape(HW, C), O)
+        fused = sam2_mod.fuse_memory(
+            fp, body_cfg, layout_t, curr, curr_pos, spatial_mem, None,
+            mem_pos, tpos_index, obj_ptrs, None, ptr_tpos,
+            t_diff_max=t_diff_max, training=training).reshape(O, F, F, C)
+        hr = (_broadcast_obj(s0[t], O), _broadcast_obj(s1[t], O))
+        out_t = sam2_mod.forward_sam_heads(
+            fp, body_cfg, fused, high_res_features=hr,
+            multimask_output=mm_track, training=training)
+        new_mem, _ = sam2_mod.encode_new_memory(
+            fp, body_cfg, _broadcast_obj(s16[t], O), out_t["high_res_masks"],
+            out_t["object_score_logits"], training=training,
+            apply_non_overlap=cfg.non_overlap_masks_for_mem_enc)
+        new_mem = new_mem.reshape(O, HW, cfg.mem_dim).to(bank_dt)
+        return new_mem, out_t["obj_ptr"].to(bank_dt), _loss_outputs(out_t)
+
+    step = frame_step
+    if remat_mode in ("body", "body_dots"):
+        context = (functools.partial(create_selective_checkpoint_contexts,
+                                     _dots_policy)
+                   if remat_mode == "body_dots"
+                   else torch.utils.checkpoint.noop_context_fn)
+
+        def step(*args):
+            return checkpoint(frame_step, *args, use_reentrant=False,
+                              preserve_rng_state=False, context_fn=context)
+
+    # the bank as lists, newest first, so slot j holds the frame j + 1
+    # steps back and the tpos index is j
+    frame_p = (_frame_views(p, T - 1) if training and cfg.stacked_frame_grads
+               else [p] * (T - 1))
     mem_list, ptr_list = [], []
     for t in range(1, T):
         n_slots = min(t - 1, R)
         spatial_mem = torch.stack([cond_mem] + mem_list[:n_slots])
-        tpos_index = torch.tensor([cfg.num_maskmem - 1] + list(range(n_slots)),
-                                  dtype=torch.long, device=dev)
+        tpos_index = torch.tensor(
+            [cfg.num_maskmem - 1] + list(range(n_slots)),
+            dtype=torch.long, device=dev)
         if Pn > 0:
             n_ptr = min(t - 1, Pn)
             obj_ptrs = torch.stack([cond_ptr] + ptr_list[:n_ptr])
-            ptr_tpos = torch.tensor([float(t)] + [float(i + 1)
-                                                  for i in range(n_ptr)],
-                                    dtype=torch.float32, device=dev)
+            ptr_tpos = torch.tensor(
+                [float(t)] + [float(i + 1) for i in range(n_ptr)],
+                dtype=torch.float32, device=dev)
             lay_ptrs = 1 + n_ptr
         else:
             obj_ptrs = torch.zeros((0, O, C), device=dev)
             ptr_tpos = torch.zeros((0,), device=dev)
             lay_ptrs = 0
         layout_t = sam2_mod.MemoryLayout(
-            num_maskmem=1 + n_slots, tokens_per_slot=HW, num_ptrs=lay_ptrs,
-            tokens_per_ptr=layout.tokens_per_ptr)
-
-        curr = _broadcast_obj(s16[t].reshape(HW, C), O)
-        fused = sam2_mod.fuse_memory(
-            p, cfg, layout_t, curr, curr_pos, spatial_mem, None, mem_pos,
-            tpos_index, obj_ptrs, None, ptr_tpos,
-            t_diff_max=t_diff_max).reshape(O, F, F, C)
-        hr = (_broadcast_obj(s0[t], O), _broadcast_obj(s1[t], O))
-        out_t = sam2_mod.forward_sam_heads(
-            p, cfg, fused, high_res_features=hr, multimask_output=mm_track,
-            training=training)
-        new_mem, _ = sam2_mod.encode_new_memory(
-            p, cfg, _broadcast_obj(s16[t], O), out_t["high_res_masks"],
-            out_t["object_score_logits"], training=training,
-            apply_non_overlap=cfg.non_overlap_masks_for_mem_enc)
-        new_mem = new_mem.reshape(O, HW, cfg.mem_dim).to(bank_dt)
+            num_maskmem=1 + n_slots, tokens_per_slot=HW,
+            num_ptrs=lay_ptrs, tokens_per_ptr=layout.tokens_per_ptr)
+        new_mem, new_ptr, outs_t = step(frame_p[t - 1], layout_t, t,
+                                        spatial_mem, tpos_index, obj_ptrs,
+                                        ptr_tpos)
         mem_list = [detach(new_mem)] + mem_list[:R - 1]
         if Pn > 0:
-            ptr_list = [detach(out_t["obj_ptr"].to(bank_dt))] + \
-                ptr_list[:Pn - 1]
-        outs.append(_loss_outputs(out_t))
+            ptr_list = [detach(new_ptr)] + ptr_list[:Pn - 1]
+        outs.append(outs_t)
 
     per_obj = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
     return _finalize(per_obj, clip)

@@ -2,12 +2,15 @@
 repository root:
 
     python3 -m sam2_video_tpu_torch.profile_eval [--probs] [--host]
+        [--batch-videos G] [--clip-length L]
 
 Writes the fit phase's dataset of ``chip_smoke.py`` (2 synthetic videos of
 20 PNG frames at 480x854, 7 categories) under ``outputs/profile_eval/``
 and runs ``eval/inference.py inference`` and ``evaluate`` over it with
 ``synthetic_params`` weights (config.yaml's eval: point prompts, the
-whole video one clip, reverse then forward): once to warm up, then once
+whole video one clip, or clips of ``--clip-length`` frames, reverse then
+forward; ``--batch-videos G`` tracks G clips of one shape in lockstep,
+``eval.batch_videos``): once to warm up, then once
 under ``torch.profiler`` (``profile_serving``'s report: wall, device
 time, busy share, the kernels and host operations that take the most
 time) or, with ``--host``, under ``cProfile`` (the host functions that
@@ -41,6 +44,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--probs", action="store_true")
     ap.add_argument("--host", action="store_true")
+    ap.add_argument("--batch-videos", type=int, default=1)
+    ap.add_argument("--clip-length", type=int, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval: no CUDA device")
@@ -56,6 +61,7 @@ def main() -> int:
     cfg = sam2_mod.SAM2Config(image_size=384, use_activation_checkpoint=False)
     params = synthetic_params(cfg, SEED)
     kw = dict(max_objects=8, probs_out_dir="probs" if args.probs else None,
+              batch_videos=args.batch_videos, clip_length=args.clip_length,
               device="cuda")
 
     def run(name):
@@ -64,10 +70,14 @@ def main() -> int:
 
     run("warmup")
     torch.cuda.synchronize()
-    n = VIDEOS * (FRAMES + 1)          # frame 0 in reverse, then forward
+    # each clip prompted on its first frame: that frame in reverse, then
+    # forward
+    clip = args.clip_length or FRAMES
+    n = VIDEOS * (FRAMES + -(-FRAMES // clip))
     label = (f"eval inference() + evaluate, {VIDEOS} videos x {FRAMES} "
-             f"frames of {HW[0]}x{HW[1]}, 8 objects max, probability maps "
-             f"{'on' if args.probs else 'off'}")
+             f"frames of {HW[0]}x{HW[1]} in clips of {clip}, "
+             f"batch_videos={args.batch_videos}, 8 objects max, probability "
+             f"maps {'on' if args.probs else 'off'}")
     if args.host:
         prof = cProfile.Profile()
         t0 = time.perf_counter()

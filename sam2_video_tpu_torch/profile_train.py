@@ -2,6 +2,7 @@
 
     python3 -m sam2_video_tpu_torch.profile_train [--trainable mem|all]
         [--fused-twoway] [--memory-attention-heads N] [--steps N]
+        [--remat-mode none|body|body_dots|modules] [--stacked-frame-grads]
 
 Builds the train step of ``bench.py``'s headline configuration in the port
 (SAM2-tiny 384 px, bf16, T=10, O=8, C=7, B=2, point prompts, AdamW lr
@@ -12,12 +13,18 @@ mem+md+pe+ie, whose trunk runs kernel #6 backward); with
 ``--fused-twoway`` the decoder's two-way blocks run kernel #8 forward and
 backward; with ``--memory-attention-heads 2`` memory attention runs two
 heads, whose cross-attention takes the generic flash attention (kernel
-#7) forward and backward in place of kernels #3-#5. Runs one warm-up step,
+#7) forward and backward in place of kernels #3-#5; ``--remat-mode``
+picks the frame loop's activation checkpoints (``none`` by default;
+``body`` / ``body_dots`` a checkpoint per frame; ``modules`` a checkpoint
+per module) and
+``--stacked-frame-grads`` the per-frame parameter views. Runs one warm-up
+step,
 then ``--steps`` synchronised steps timed on the host clock (their median,
 default 0: none), then one step under ``torch.profiler``. Prints the
 step's wall time, the summed device (kernel) time, the device
 busy share, the kernels that take the most device time and the host
-operations that take the most CPU time (``profile_serving``'s report).
+operations that take the most CPU time (``profile_serving``'s report),
+and the profiled step's peak device memory.
 """
 
 from __future__ import annotations
@@ -49,6 +56,9 @@ def main() -> int:
     ap.add_argument("--fused-twoway", action="store_true")
     ap.add_argument("--memory-attention-heads", type=int, default=1)
     ap.add_argument("--steps", type=int, default=0)
+    ap.add_argument("--remat-mode", default="none",
+                    choices=["none", "body", "body_dots", "modules"])
+    ap.add_argument("--stacked-frame-grads", action="store_true")
     args = ap.parse_args()
     trainable = TRAINABLE[args.trainable]
     if not torch.cuda.is_available():
@@ -58,7 +68,8 @@ def main() -> int:
 
     cfg = sam2_mod.SAM2Config(image_size=384, compute_dtype="bfloat16",
                               use_flash_attention=True,
-                              use_activation_checkpoint=False,
+                              remat_mode=args.remat_mode,
+                              stacked_frame_grads=args.stacked_frame_grads,
                               fused_twoway=args.fused_twoway,
                               memory_attention_num_heads=(
                                   args.memory_attention_heads))
@@ -82,6 +93,7 @@ def main() -> int:
         print(f"train step ms median {1e3 * statistics.median(times):.3f}"
               " over " + ", ".join(f"{1e3 * t:.3f}" for t in times),
               flush=True)
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -90,8 +102,11 @@ def main() -> int:
         wall = time.perf_counter() - t0
     report(prof, f"train step B={B} T={T} O={O} trainable "
            f"{'+'.join(trainable)} fused_twoway={args.fused_twoway} "
-           f"memory_attention_heads={args.memory_attention_heads}", wall,
-           top=16)
+           f"memory_attention_heads={args.memory_attention_heads} "
+           f"remat_mode={args.remat_mode} "
+           f"stacked_frame_grads={args.stacked_frame_grads}", wall, top=16)
+    print(f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
+          "GiB", flush=True)
     print(f"loss {float(metrics['total_loss']):.6g}", flush=True)
     print(torch.cuda.get_device_name(0), flush=True)
     return 0

@@ -1214,3 +1214,99 @@ def test_reverse_propagation_launches_the_kernels(card):
             tracked + cond] + [tracked * layers] * 3
         assert all(np.isfinite(lg.astype(np.float32)).all()
                    for _, _, lg, _ in out)
+
+
+@pytest.mark.cuda
+def test_batched_predictor_matches_sequential_on_the_card(card):
+    """Two clips tracked in lockstep (eval/batched_predictor.py, 8 kernel
+    rows a step) against the sequential predictor on each clip, both on
+    the card in the usual configuration, prompted at frame 3, reverse then
+    forward: each video's low-res logits within relative L2 2e-2 outside
+    the NO_OBJ placeholders, which must agree, and its scores within 1e-2
+    (chip_smoke.py's limits: kernel #3 may split the keys of 8 rows
+    otherwise than of 4, so the bf16 roundings differ)."""
+    from sam2_video_tpu_torch import VideoPredictor
+    from sam2_video_tpu_torch.data.synthetic import (prompt_all,
+                                                     synthetic_video)
+    from sam2_video_tpu_torch.eval.batched_predictor import \
+        BatchedVideoPredictor
+
+    cfg, params = card
+    cfg = dataclasses.replace(cfg, use_flash_attention=True)
+    clips = [synthetic_video(20 + g, 6, objects=4) for g in range(2)]
+    bat = BatchedVideoPredictor(params, cfg, max_objects=4, group_size=2,
+                                device="cuda")
+    state = bat.init_group(np.stack([v for v, _ in clips]))
+    for g, (_, centres) in enumerate(clips):
+        for o, (cy, cx) in enumerate(centres):
+            bat.add_new_points_or_box(state, g, 3, o, points=[[cx, cy]],
+                                      labels=[1])
+    got = [list(bat.propagate_in_group(state, reverse=r))
+           for r in (True, False)]
+    seq = VideoPredictor(params, cfg, max_objects=4, device="cuda")
+    for g, (video, centres) in enumerate(clips):
+        s = seq.init_state(video)
+        prompt_all(seq, s, centres, frame_idx=3)
+        for gp in got:
+            wp = list(seq.propagate_in_video(s, reverse=gp[-1][0] < 3))
+            assert [y[0] for y in gp] == [y[0] for y in wp]
+            a = np.stack([lg[g] for _, _, lg, _ in gp]).astype(np.float32)
+            b = np.stack([lg for _, _, lg, _ in wp]).astype(np.float32)
+            keep = b >= -1000.0
+            assert np.array_equal(a >= -1000.0, keep)
+            rel = np.linalg.norm(a[keep] - b[keep]) / np.linalg.norm(b[keep])
+            assert rel <= 2e-2, (g, rel)
+            sa = np.stack([sc[g] for *_, sc in gp])
+            sb = np.stack([sc for *_, sc in wp])
+            assert np.abs(sa - sb).max() <= 1e-2, g
+
+
+@pytest.mark.cuda
+def test_remat_body_step_matches_none_on_the_card(card):
+    """The all-trainable step (384 px, bf16, T=4, O=4, B=1) with remat
+    "body" (each tracked frame under a checkpoint: kernels #3-#5 forward
+    twice and backward) against "none" from the same weights and clip:
+    loss within 5e-2 relative and each
+    trainable top-level entry's gradient within relative L2 0.1 (0.2 for
+    a bare embedding), chip_smoke.py's card-vs-CPU limits; #3's forward
+    launched more often under "body" (the recompute)."""
+    from sam2_video_tpu_torch.data.synthetic import example_clip
+    from sam2_video_tpu_torch.models.video_model import VideoModelConfig
+    from sam2_video_tpu_torch.ops import flash_attention as fa
+    from sam2_video_tpu_torch.training.loop import (TrainState,
+                                                    make_train_step)
+    from sam2_video_tpu_torch.training.losses import LossConfig
+    from sam2_video_tpu_torch.training.optimizer import make_optimizer
+
+    cfg, _ = card
+    trainable = ["memory_attention", "memory_encoder", "mask_decoder",
+                 "prompt_encoder", "image_encoder"]
+    out = {}
+    for mode in ("none", "body"):
+        c = dataclasses.replace(cfg, use_flash_attention=True,
+                                remat_mode=mode)
+        params = synthetic_params(c, seed=0).to("cuda")
+        tx = make_optimizer(params, {"lr": 1e-4, "type": "AdamW"},
+                            {"enabled": False}, total_steps=10,
+                            trainable_modules=trainable)
+        step = make_train_step(VideoModelConfig(sam2=c), LossConfig(), tx,
+                               trainable_modules=trainable, device="cuda")
+        before = fa.flash_attention_kproj.launches
+        _, m, grads = step.with_grads(
+            TrainState.create(params, tx),
+            example_clip(384, T=4, O=4, C=2, B=1).to("cuda"))
+        out[mode] = (float(m["total_loss"]),
+                     {n: g.float().cpu() for n, g in grads.items()},
+                     fa.flash_attention_kproj.launches - before)
+    (lb, gb, kb), (ln, gn, kn) = out["body"], out["none"]
+    assert np.isfinite(lb) and abs(lb - ln) <= 5e-2 * abs(ln)
+    assert kb > kn > 0
+    for top in sorted({n.split(".")[0] for n in gn}):
+        names = [n for n in gn if n.split(".")[0] == top]
+        a = torch.cat([gb[n].flatten() for n in names])
+        b = torch.cat([gn[n].flatten() for n in names])
+        if float(b.norm()) == 0.0:
+            assert float(a.norm()) == 0.0, top
+            continue
+        tol = 0.1 if len(names) > 1 else 0.2
+        assert float((a - b).norm() / b.norm()) <= tol, top

@@ -11,7 +11,9 @@
   port's init (prefixes, nested dicts, a missing, an unexpected and a
   mismatched tensor, the strict raise), and ``load_finetuned``'s three
   cases;
-- the CLI's NotImplementedError for each knob that is not ported;
+- the CLI's NotImplementedError for each knob that is not ported, and one
+  step of the CLI with each knob that now is (the grouped post-fit eval,
+  the rematerialised frame loop);
 - the slice as a whole: JAX ``train.main`` and ``train_torch.main`` with
   ``device=cpu`` on one synthetic dataset (1 video, 64 px, T=2, float32,
   the same npz, 2 train steps and 1 validation batch, or one after each
@@ -208,22 +210,46 @@ def test_load_finetuned_matches_jax(jp, tmp_path, monkeypatch, case):
             tconvert.load_finetuned(to_param_tree(jp), "md2.torch")
 
 
+# the items whose knobs now run, with the overrides that exercise them
+PORTED = {7: ["eval.batch_videos=2"], 4: []}
+
+
 @pytest.mark.parametrize("override,item", [
     ("eval.enabled=true", 7), ("visualization.enabled=true", 9),
     ("trainer.devices=2", 8), ("trainer.distributed.enabled=true", 8),
     ("model.use_activation_checkpoint=true", 4)])
-def test_cli_raises_for_what_is_not_ported(override, item):
-    """Each knob whose code is not ported raises, naming its ROADMAP item;
-    of the post-fit eval (item 7) only the batched predictor is left,
-    ``eval.batch_videos > 1``."""
+def test_cli_raises_for_what_is_not_ported(override, item, tmp_path,
+                                           monkeypatch):
+    """Each knob whose code is not ported raises, naming its ROADMAP item.
+    Items 7 (the grouped post-fit eval, ``eval.batch_videos=2``) and 4 (the
+    rematerialised frame loop) are ported: their knobs run instead, one
+    train step on the CPU (64 px, T=2) and, for item 7, the eval, whose
+    two clips of one shape form one lockstep group."""
     import train_torch
 
     off = ["eval.enabled=false", "visualization.enabled=false",
            "device=cpu"]
-    extra = ["eval.batch_videos=2"] if override == "eval.enabled=true" \
-        else []
-    with pytest.raises(NotImplementedError, match=f"queue 1, item {item}"):
-        train_torch.main(off + [override] + extra)
+    if item not in PORTED:
+        with pytest.raises(NotImplementedError,
+                           match=f"queue 1, item {item}"):
+            train_torch.main(off + [override])
+        return
+    data = make_synthetic_dataset(tmp_path / "ds", num_videos=2,
+                                  frames_per_video=2, image_hw=(96, 128),
+                                  num_categories=2)
+    monkeypatch.chdir(tmp_path)
+    run_dir, result = train_torch.run(off + [override] + PORTED[item] + [
+        f"data.train_path={data}", f"data.val_path={data}",
+        "data.image_size=64", "data.num_categories=2",
+        "data.video_clip_length=2", "data.stride=2", "data.batch_size=1",
+        "model.compute_dtype=float32", "model.max_objects=4",
+        "trainer.max_epochs=1", "trainer.limit_train_batches=1",
+        "trainer.limit_val_batches=0", "trainer.log_every_n_steps=1",
+        "trainer.enable_checkpointing=false"])
+    (rec,) = _log(tmp_path / run_dir)
+    assert result.state.step == 1 and np.isfinite(rec["train/total_loss"])
+    if item == 7:
+        assert (tmp_path / run_dir / "eval" / "metrics.json").exists()
 
 
 def test_cli_needs_a_card_unless_told_cpu(monkeypatch):

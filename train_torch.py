@@ -37,11 +37,6 @@ NOT_PORTED = "is not ported yet: see ROADMAP.md, queue 1, item {}"
 
 def check_ported(cfg) -> None:
     """Raise for every enabled knob whose code the port lacks."""
-    if bool(cfg.eval.get("enabled", True)) and \
-            int(cfg.eval.get("batch_videos", 1)) > 1:
-        raise NotImplementedError(
-            "eval.batch_videos > 1 (the batched predictor) "
-            + NOT_PORTED.format(7) + "; pass eval.batch_videos=1")
     if bool(cfg.visualization.get("enabled", False)):
         raise NotImplementedError(
             "visualization.enabled=true (utils/viz.py) "
@@ -52,11 +47,6 @@ def check_ported(cfg) -> None:
         raise NotImplementedError(
             "data-parallel training (trainer.devices > 1 or "
             "trainer.distributed.enabled) " + NOT_PORTED.format(8))
-    if bool(cfg.model.get("use_activation_checkpoint", False)):
-        raise NotImplementedError(
-            "model.use_activation_checkpoint=true (the rematerialised frame "
-            "loop) " + NOT_PORTED.format(4)
-            + "; pass model.use_activation_checkpoint=false")
 
 
 def load_params(cfg, sam2_cfg, seed: int, log):
