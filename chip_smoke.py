@@ -4,7 +4,7 @@ NVIDIA GPU. Run from the repository root:
 
     python3 chip_smoke.py [--seed 0]
         [--phases build,kernels,train,train_all,train_remat,train_cpu,serve,
-                  cpu,fit,eval]
+                  cpu,fit,eval,ddp]
 
 Phases (all by default):
   build      compile every CUDA kernel from csrc/ (one nvcc per source, all
@@ -146,6 +146,20 @@ Phases (all by default):
              scores 1e-2) and the first against (a)'s CPU run (0.1);
              launches per lockstep frame, grouped video-frames/s beside
              sequential frames/s, the busy share
+  ddp        data-parallel training through train_torch.py at the fit
+             phase's shapes (4 train steps and 2 validation batches of 2
+             clips, centre-point prompts, a training GIF every 2 steps):
+             the plain run; (a) trainer.distributed.enabled=true under
+             torchrun's variables, a world of one under NCCL, its
+             metrics.jsonl and last checkpoint bit-equal to the plain run's;
+             (b) trainer.devices=2, two ranks sharing the card under gloo
+             (train_torch.launch), the train losses within 1e-3 of the plain
+             run's, the final trainable parameters within relative L2 1e-3
+             and bit-equal between the ranks, checkpoints and the post-fit
+             eval from rank 0 alone, #1-#5 launched on each rank; (c) every
+             GIF's frame count, size and delay from its own blocks; each
+             layout's step ms, gradient all-reduce ms per step and fit
+             clips/s
 
 Weights are ``synthetic_params``: the port's seeded random init moved off
 its constants (every parameter + 0.05 N(0, 1), the memory encoder's CXBlock
@@ -188,7 +202,7 @@ KERNEL_TOL = 2e-2             # of max(1, |plain|): bf16 rounding points differ
 ATTENTION_FLOOR = 0.0
 CPU_REL_L2_TOL = 0.1          # card bf16 vs CPU float32, over 4 frames
 PHASES = ("build", "kernels", "train", "train_all", "train_remat",
-          "train_cpu", "serve", "cpu", "fit", "eval")
+          "train_cpu", "serve", "cpu", "fit", "eval", "ddp")
 DEVICE = "cuda"
 FRAMES, OBJECTS, CHUNK = 16, 8, 8   # frames per video, objects, encode chunk
 TINY_GEOMETRY = {0: "window 8, no pad", 1: "q-pool, even window 8",
@@ -3030,6 +3044,345 @@ def phase_train_remat(cfg, seed: int):
         raise SystemExit("train_remat: " + "; ".join(bad))
 
 
+
+# ---------------------------------------------------------------------------
+# The ddp phase: data-parallel training through train_torch.py
+# ---------------------------------------------------------------------------
+
+DDP_RANKS = 2
+DDP_LOSS_RTOL = 1e-3          # 2 ranks against 1 process: float32 sums
+DDP_PARAM_REL_L2 = 1e-3       # the final trainable parameters, the same
+DDP_VIZ_EVERY = 2             # a GIF every 2 steps: steps 2 and 4
+DDP_VIZ_FRAMES = 4            # visualization.max_length's default
+# centre-point prompts only: no random draw, whose seed depends on the
+# rank (ClipLoader), so every layout sees the same prompts
+DDP_OVERRIDES = ("model.num_pos_points=1", "visualization.enabled=true",
+                 f"visualization.train_every_n_steps={DDP_VIZ_EVERY}")
+
+
+def gif_blocks(path) -> tuple:
+    """(width, height, frames, delays in 1/100 s) from a GIF89a's own
+    blocks (the card's machine has no Pillow)."""
+    import struct
+
+    b = path.read_bytes()
+    if b[:6] != b"GIF89a":
+        raise SystemExit(f"{path}: not a GIF89a")
+    w, h = struct.unpack("<HH", b[6:10])
+    i = 13 + (3 * (2 << (b[10] & 7)) if b[10] & 0x80 else 0)
+    frames, delays = 0, []
+
+    def skip_sub_blocks(i):
+        while b[i]:
+            i += b[i] + 1
+        return i + 1
+
+    while b[i] != 0x3B:
+        if b[i] == 0x21:                        # an extension
+            if b[i + 1] == 0xF9:
+                delays.append(struct.unpack("<H", b[i + 4:i + 6])[0])
+            i = skip_sub_blocks(i + 2)
+        elif b[i] == 0x2C:                      # an image
+            if struct.unpack("<HHHH", b[i + 1:i + 9]) != (0, 0, w, h):
+                raise SystemExit(f"{path}: frame {frames} is not full-size")
+            flags = b[i + 9]
+            i += 10 + (3 * (2 << (flags & 7)) if flags & 0x80 else 0)
+            i = skip_sub_blocks(i + 1)          # the LZW code size first
+            frames += 1
+        else:
+            raise SystemExit(f"{path}: unknown block 0x{b[i]:02x} at {i}")
+    return w, h, frames, delays
+
+
+class _ReduceTimer:
+    """``parallel/dist.py all_reduce_mean`` with CUDA events around the
+    gradient calls (the metrics' calls pass untimed): from the moment the
+    backward's work ends on the stream until the averaged gradients are
+    back on it, flattening and unflattening included."""
+
+    def __init__(self, plain):
+        self.plain, self.events = plain, []
+
+    def __call__(self, tensors, group=None):
+        if "total_loss" in tensors:
+            return self.plain(tensors, group)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.plain(tensors, group)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def ms(self) -> list:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def _ddp_train(argv, run_name=None) -> dict:
+    """``train_torch.run`` with its step and wait timers, the gradient
+    all-reduce timed, and the launch counters at 0 just before it; returns
+    the run's directory, result, counts and times."""
+    from unittest import mock
+
+    import train_torch
+    from sam2_video_tpu_torch.parallel import dist as dist_mod
+
+    steps, waits = [], []
+    timer = _ReduceTimer(dist_mod.all_reduce_mean)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(dist_mod, "all_reduce_mean", timer):
+        run_dir, result = train_torch.run(argv, step_timer=steps,
+                                          wait_timer=waits,
+                                          run_name=run_name)
+    return {"run_dir": run_dir, "result": result, "counts": read_counts(),
+            "steps": steps, "waits": waits, "reduce_ms": timer.ms(),
+            "wall": time.perf_counter() - t0}
+
+
+def _trainable(params) -> dict:
+    return {n: t.detach().float().cpu() for n, t in params.named_parameters()
+            if n.split(".")[0] in TRAINABLE}
+
+
+def _ddp_rank(argv, run_name):
+    """A rank of phase_ddp's two (``train_torch.launch``'s ``rank_fn``):
+    trains as ``_ddp_train`` does and saves its counts, times and final
+    trainable parameters beside its logs (``ddp_rank<r>.pt``)."""
+    import os
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = _ddp_train(argv, run_name)
+    rank = int(os.environ["RANK"])
+    torch.save({"rank": rank, "counts": out["counts"], "steps": out["steps"],
+                "waits": out["waits"], "reduce_ms": out["reduce_ms"],
+                "device": str(next(iter(dict(
+                    out["result"].state.params.named_parameters()).values()))
+                    .device),
+                "params": _trainable(out["result"].state.params)},
+               out["run_dir"] / f"ddp_rank{rank}.pt")
+
+
+def _ddp_timing(label, steps, waits, reduce_ms, clips, card):
+    """Print a layout's step ms, all-reduce ms per step and fit clips/s
+    (global clips over the warm steps' waits and steps)."""
+    per = [w + t for w, t in zip(waits, steps)][1:]
+    cps = clips * len(per) / sum(per)
+    red = (f"{float(np.median(reduce_ms)):.3f} (median of {len(reduce_ms)}: "
+           + ", ".join(f"{x:.3f}" for x in reduce_ms) + ")"
+           if reduce_ms else "none")
+    print(f"ddp {label}: step ms median {1e3 * float(np.median(steps)):.3f}"
+          f" ({', '.join(f'{1e3 * t:.3f}' for t in steps)}); all-reduce ms "
+          f"per step {red}; fit clips/s {cps:.3f} over the {len(per)} warm "
+          f"steps (global batch {clips}); {card}", flush=True)
+    return cps
+
+
+def phase_ddp(cfg, seed: int, card: str):
+    """Data parallelism through ``train_torch.py`` at the fit phase's
+    headline shapes (384 px, T=10, O=8, global batch 2, bf16, memory-only,
+    ``fit_overrides``: 4 train steps and 2 validation batches), centre-point
+    prompts and a GIF every DDP_VIZ_EVERY steps in every layout:
+
+    - the plain single-process run;
+    - (a) ``trainer.distributed.enabled=true`` under torchrun's variables,
+      a world of one under NCCL (in this process): its metrics.jsonl and
+      its last checkpoint bit-equal to the plain run's;
+    - (b) ``trainer.devices=2``: two ranks sharing the card under gloo
+      (``train_torch.launch``, spawned), one clip each, with the post-fit
+      eval: the train losses within DDP_LOSS_RTOL of the plain run's at
+      every step, the final trainable parameters within DDP_PARAM_REL_L2
+      (relative L2) and bit-equal between the ranks, checkpoints and
+      ``eval/metrics.json`` from rank 0 alone, kernels #1-#5 launched on
+      each rank (counts at 0 just before each rank's run);
+    - (c) the GIFs of every run: DDP_VIZ_FRAMES full-size 2x2 frames at
+      JAX's delay, read from the GIF's own blocks.
+
+    Each layout's step ms, all-reduce ms per step and fit clips/s are
+    printed beside the card's name and power limit."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    import train_torch
+    from sam2_video_tpu_torch.data.synthetic import make_synthetic_dataset
+    from sam2_video_tpu_torch.parallel import dist as dist_mod
+    from sam2_video_tpu_torch.training.checkpoint import (Checkpointer,
+                                                          save_params_npz,
+                                                          state_dict_of)
+    from sam2_video_tpu_torch.training.loop import TrainState
+
+    home = Path.cwd()
+    work = home / "outputs" / "chip_smoke_ddp" / str(os.getpid())
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    json_path = make_synthetic_dataset(
+        work / "ds", num_videos=FIT_VIDEOS, frames_per_video=FIT_FRAMES,
+        image_hw=FIT_HW, num_categories=FIT_CATS, seed=seed)
+    npz = work / "weights.npz"
+    save_params_npz(synthetic_params(cfg, seed), npz)
+    argv = fit_overrides(json_path, npz) + list(DDP_OVERRIDES)
+    B = 2
+
+    def cli(name, extra=(), env=None, launched=False):
+        (work / name).mkdir()
+        os.chdir(work / name)
+        saved = {k: os.environ.get(k) for k in env or {}}
+        os.environ.update(env or {})
+        try:
+            if launched:
+                run_dir = train_torch.launch(argv + list(extra), DDP_RANKS,
+                                             rank_fn=_ddp_rank)
+                return {"run_dir": work / name / run_dir}
+            out = _ddp_train(argv + list(extra))
+            out["run_dir"] = work / name / out["run_dir"]
+            return out
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            os.chdir(home)
+
+    plain = cli("plain")
+    if plain["reduce_ms"]:
+        raise SystemExit("ddp: the plain run reduced gradients")
+    _require(plain["counts"], FIT_REQUIRED, "ddp plain")
+    log0 = _fit_log(plain["run_dir"])
+    losses0 = [(r["split"], r["step"], r.get("train/total_loss",
+                                             r.get("val/total_loss")))
+               for r in log0]
+    print("ddp plain losses (split, step, total_loss): " + ", ".join(
+        f"({a}, {b}, {c:.9g})" for a, b, c in losses0), flush=True)
+    _ddp_timing("plain, 1 process", plain["steps"], plain["waits"], [], B,
+                card)
+
+    # (a) a world of one under NCCL, through torchrun's variables
+    world1 = cli("world1", ["trainer.distributed.enabled=true"],
+                 env=dist_mod.rank_env(0, 1, dist_mod.free_port()))
+    if torch.distributed.is_initialized():
+        raise SystemExit("ddp (a): the process group outlived the run")
+    log1 = _fit_log(world1["run_dir"])
+    strip = [{k: v for k, v in r.items() if k != "_time"} for r in log0]
+    if [{k: v for k, v in r.items() if k != "_time"} for r in log1] != strip:
+        raise SystemExit(f"ddp (a): metrics.jsonl differs from the plain "
+                         f"run's: {log1} vs {log0}")
+    last = [Checkpointer(r["run_dir"] / "checkpoints").restore(
+        r["run_dir"] / "checkpoints" / "last", device=DEVICE)
+        for r in (plain, world1)]
+    _same_state(state_dict_of(TrainState(**last[1])),
+                state_dict_of(TrainState(**last[0])), "ddp (a) last")
+    _require(world1["counts"], FIT_REQUIRED, "ddp (a)")
+    if len(world1["reduce_ms"]) != len(world1["steps"]):
+        raise SystemExit("ddp (a): not one gradient all-reduce a step")
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    if (f"rank 0/1, backend {backend}, device {DEVICE}"
+            not in (world1["run_dir"] / "training.log").read_text()):
+        raise SystemExit(f"ddp (a): not a world of one under {backend}")
+    print(f"ddp (a) trainer.distributed.enabled=true, world 1, {backend}: "
+          f"metrics.jsonl ({len(log1)} records, train and val losses and "
+          "every metric) and the last checkpoint (parameters, optimizer "
+          "state, step) bit-equal to the plain run's", flush=True)
+    _ddp_timing(f"(a) world 1, {backend}", world1["steps"], world1["waits"],
+                world1["reduce_ms"], B, card)
+
+    # (b) two ranks sharing the card under gloo
+    t0 = time.perf_counter()
+    run2 = cli("ranks2", [f"trainer.devices={DDP_RANKS}",
+                          "eval.enabled=true"], launched=True)["run_dir"]
+    wall = time.perf_counter() - t0
+    rank_dirs = [run2] + [run2 / f"proc{r}" for r in range(1, DDP_RANKS)]
+    ranks = [torch.load(d / f"ddp_rank{r}.pt")
+             for r, d in enumerate(rank_dirs)]
+    for r, d in zip(ranks, rank_dirs):
+        _require(r["counts"], FIT_REQUIRED, f"ddp (b) rank {r['rank']}")
+        if (f"rank {r['rank']}/{DDP_RANKS}, backend gloo"
+                not in (d / "training.log").read_text()):
+            raise SystemExit(f"ddp (b): rank {r['rank']} not under gloo")
+    if {r["device"] for r in ranks} != {"cuda:0" if DEVICE == "cuda"
+                                        else "cpu"}:
+        raise SystemExit(f"ddp (b): devices {[r['device'] for r in ranks]}")
+    log2 = _fit_log(run2)
+    bad = []
+    if [(r["split"], r["step"]) for r in log2] != [
+            (a, b) for a, b, _ in losses0]:
+        bad.append(f"records {[(r['split'], r['step']) for r in log2]}")
+    rels = []
+    for r, (split, step, want) in zip(log2, losses0):
+        got = r[f"{split}/total_loss"]
+        rels.append(abs(got - want) / max(abs(want), 1e-12))
+        if split == "train" and not rels[-1] <= DDP_LOSS_RTOL:
+            bad.append(f"{split} step {step}: loss {got} vs {want}")
+    names = sorted(ranks[0]["params"])
+    for r in ranks[1:]:
+        for n in names:
+            if not torch.equal(r["params"][n], ranks[0]["params"][n]):
+                bad.append(f"rank {r['rank']} {n} differs from rank 0's")
+    got = torch.cat([ranks[0]["params"][n].reshape(-1) for n in names])
+    want_p = _trainable(plain["result"].state.params)
+    want = torch.cat([want_p[n].reshape(-1) for n in names])
+    start_p = _trainable(synthetic_params(cfg, seed))
+    start = torch.cat([start_p[n].reshape(-1) for n in names])
+    rel = float((got - want).norm() / want.norm())
+    upd = float((got - want).norm() / (want - start).norm())
+    if not rel <= DDP_PARAM_REL_L2:
+        bad.append(f"parameters rel L2 {rel}")
+    ckpts = sorted(p.relative_to(run2).as_posix()
+                   for p in run2.rglob("checkpoints"))
+    evals = sorted(p.relative_to(run2).as_posix()
+                   for p in run2.rglob("eval/metrics.json"))
+    if ckpts != ["checkpoints"] or evals != ["eval/metrics.json"]:
+        bad.append(f"checkpoints {ckpts}, eval {evals}")
+    avg = json.loads((run2 / "eval" / "metrics.json").read_text())[
+        "avg_scores"]
+    if not all(np.isfinite(avg[k]) for k in ("dice", "iou", "mae")):
+        bad.append(f"eval {avg}")
+    print(f"ddp (b) trainer.devices={DDP_RANKS}, gloo, both ranks on "
+          f"{ranks[0]['device']}: losses rel to the plain run's (train limit "
+          f"{DDP_LOSS_RTOL}) " + ", ".join(
+              f"({s}, {t}) {x:.3g}" for (s, t, _), x in zip(losses0, rels))
+          + f"; final trainable parameters rel L2 {rel:.3g} (limit "
+          f"{DDP_PARAM_REL_L2}; of the update {upd:.3g}), the ranks' "
+          f"bit-equal: {not any('differs' in b for b in bad)}; checkpoints "
+          f"{ckpts} and {evals} from rank 0 alone, eval dice "
+          f"{avg['dice']:.4f}; launches per rank " + "; ".join(
+              f"rank {r['rank']} " + json.dumps(
+                  {k: r["counts"][k] for k in FIT_REQUIRED})
+              for r in ranks) + f"; launcher wall {wall:.1f} s", flush=True)
+    if bad:
+        raise SystemExit("ddp (b): " + "; ".join(bad))
+    _ddp_timing(f"(b) {DDP_RANKS} ranks sharing the card, gloo",
+                ranks[0]["steps"], ranks[0]["waits"], ranks[0]["reduce_ms"],
+                B, card)
+    for r in ranks[1:]:
+        _ddp_timing(f"(b) rank {r['rank']}", r["steps"], r["waits"],
+                    r["reduce_ms"], B, card)
+
+    # (c) the GIFs of every run
+    size = 2 * int(cfg.image_size)
+    gifs = sorted(work.rglob("viz/*.gif"))
+    steps = sorted({p.name for p in gifs})
+    want_steps = [f"step{s:06d}.gif" for s in range(
+        DDP_VIZ_EVERY, FIT_EPOCHS * FIT_TRAIN_BATCHES + 1, DDP_VIZ_EVERY)]
+    dirs = sorted({p.parent.parent.relative_to(work).as_posix()
+                   for p in gifs})
+    if steps != want_steps or len(gifs) != len(want_steps) * (2 + DDP_RANKS):
+        raise SystemExit(f"ddp (c): GIFs {steps} in {dirs}")
+    for p in gifs:
+        w, h, n, delays = gif_blocks(p)
+        if (w, h, n) != (size, size, DDP_VIZ_FRAMES) or delays != [50] * n:
+            raise SystemExit(f"ddp (c) {p}: {w}x{h}, {n} frames, delays "
+                             f"{delays}")
+    print(f"ddp (c) visualization: {len(gifs)} GIFs ({', '.join(steps)} in "
+          f"each of {len(dirs)} run directories), each {DDP_VIZ_FRAMES} "
+          f"frames of {size}x{size} at 50/100 s", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3139,6 +3492,9 @@ def main() -> int:
         phase_eval_batched(params, cfg, args.seed, OBJECTS, cpu_run)
         phase_eval_cli(cfg, args.seed, card)
         lap("eval")
+    if "ddp" in phases:
+        phase_ddp(cfg, args.seed, card)
+        lap("ddp")
 
     # each kernel's launches on its training path (#1-#5: the memory-only
     # step, #6 per geometry class: the all-trainable step, #7 the two-head

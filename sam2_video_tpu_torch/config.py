@@ -12,8 +12,9 @@ the resolved tree. It supports:
 
 ``configs/`` holds copies of the JAX package's YAML files (``config``,
 ``best``, ``overfit``, ``memory_overfit``, ``eval_pipeline_test``,
-``data/*``, ``losses/*``), byte for byte but one comment line of
-``config.yaml`` that named the reference by a path on another machine.
+``data/*``, ``losses/*``, the ``combo/<dataset>/<n>`` selections of
+``combo=...``), byte for byte but one comment line of ``config.yaml``
+that named the reference by a path on another machine.
 """
 
 from __future__ import annotations

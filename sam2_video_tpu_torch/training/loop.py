@@ -20,7 +20,17 @@ permuted projections inside ``forward_train``.
 
 ``fit`` is the epoch loop: per-epoch training and validation, metric
 logging, best-validation tracking and checkpoints after each validation.
-Data parallelism is not ported yet (ROADMAP.md, queue 1, item 8).
+
+Data parallelism (``parallel/dist.py``): given a process group, the train
+step averages the trainable gradients over the ranks in one flattened
+bucket before the optimizer update, so the clip by global norm and the
+``grad_norm`` metric see the global gradient, as the JAX package's
+sharded-autodiff mean gives it. The model is not wrapped in
+``DistributedDataParallel``: its reducer hooks the leaves' ``AccumulateGrad``
+nodes, which the step's ``torch.autograd.grad`` never reaches. The eval
+step averages each batch's metrics over the ranks, and ``fit`` averages
+the training metrics where it logs them, on every rank at the same steps,
+so the loop adds no synchronisation per step.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from ..data.types import VideoClipBatch
 from ..models import sam2 as sam2_mod
 from ..models.video_model import VideoModelConfig, forward_train
 from ..ops import common as nn
+from ..parallel import dist as dist_mod
 from .losses import CORE_LOSS_KEY, LossConfig, compute_loss
 from .optimizer import apply_updates, top_level_label
 
@@ -71,10 +82,13 @@ def batched_loss_fn(mcfg: VideoModelConfig, lcfg: LossConfig,
 
 def make_train_step(mcfg: VideoModelConfig, lcfg: LossConfig, tx,
                     trainable_modules=None,
-                    device: str | torch.device = "cuda") -> Callable:
+                    device: str | torch.device = "cuda",
+                    group=None) -> Callable:
     """``trainable_modules`` names MODULE_MAPPING entries (bare top-level
     parameters always train); None trains everything. The state's
-    parameters must already be on ``device``; the batch is moved there."""
+    parameters must already be on ``device``; the batch is moved there.
+    With a process ``group`` the gradients are averaged over its ranks
+    before the update; the returned metrics are this rank's."""
     dev = torch.device(device)
     frozen_encoder = (trainable_modules is not None
                       and "image_encoder" not in trainable_modules)
@@ -114,6 +128,8 @@ def make_train_step(mcfg: VideoModelConfig, lcfg: LossConfig, tx,
                  for n, t, g in zip(train_names, leaves, grads)}
         for t in leaves:
             t.requires_grad_(False)
+        if group is not None:
+            grads = dist_mod.all_reduce_mean(grads, group)
         with torch.no_grad():
             updates, opt_state = tx.update(grads, state.opt_state, named)
             apply_updates(named, updates)
@@ -132,8 +148,10 @@ def make_train_step(mcfg: VideoModelConfig, lcfg: LossConfig, tx,
 
 
 def make_eval_step(mcfg: VideoModelConfig, lcfg: LossConfig,
-                   device: str | torch.device = "cuda") -> Callable:
-    """(params, batch) -> dict of scalar metrics, without gradient."""
+                   device: str | torch.device = "cuda",
+                   group=None) -> Callable:
+    """(params, batch) -> dict of scalar metrics, without gradient; with a
+    process ``group``, averaged over its ranks."""
     dev = torch.device(device)
     loss_fn = batched_loss_fn(mcfg, lcfg, training=False)
 
@@ -141,6 +159,8 @@ def make_eval_step(mcfg: VideoModelConfig, lcfg: LossConfig,
     def step(params: nn.ParamTree, batch: VideoClipBatch):
         _, metrics = loss_fn(sam2_mod.prepare(params, mcfg.sam2),
                              batch.to(dev))
+        if group is not None:
+            metrics = dist_mod.all_reduce_mean(metrics, group)
         return metrics
 
     return step
@@ -163,16 +183,22 @@ def fit(state: TrainState, train_step, eval_step, train_loader, val_loader,
         limit_val_batches: int | None = None, log_every: int = 20,
         logger=None, checkpointer=None, val_check_interval: float = 1.0,
         step_timer: list | None = None, wait_timer: list | None = None,
-        start_epoch: int = 0) -> FitResult:
+        viz_fn=None, viz_every_n_steps: int = 0, start_epoch: int = 0,
+        group=None) -> FitResult:
     """Per-epoch training and validation (the JAX package's ``fit``):
     training metrics every ``log_every`` steps, validation at the end of
     each epoch or every ``val_check_interval`` of it, a checkpoint after
-    each validation monitored on val/total_loss, and epochs from
-    ``start_epoch``. The loss is read on the host only where a step is
-    logged or timed (``step_timer`` gets each step's seconds, the wait for
-    its loss included), so the loop adds no synchronisation per step.
-    ``wait_timer`` gets the seconds each training batch was waited for,
-    from the request to the train loader until it yielded."""
+    each validation monitored on val/total_loss, ``viz_fn(params, batch,
+    step)`` every ``viz_every_n_steps`` steps (the training GIFs), and
+    epochs from ``start_epoch``. The loss is read on the host only where a
+    step is logged or timed (``step_timer`` gets each step's seconds, the
+    wait for its loss included), so the loop adds no synchronisation per
+    step. ``wait_timer`` gets the seconds each training batch was waited
+    for, from the request to the train loader until it yielded. With a
+    process ``group`` the logged training metrics are averaged over its
+    ranks (every rank must call ``fit`` with the same loaders' lengths and
+    limits, so that all take part in the same collectives); ``logger`` and
+    ``checkpointer`` are rank 0's alone."""
     history = []
     best_val = float("inf")
 
@@ -223,8 +249,13 @@ def fit(state: TrainState, train_step, eval_step, train_loader, val_loader,
                 float(metrics[CORE_LOSS_KEY])
                 step_timer.append(time.perf_counter() - t0)
             if state.step % max(log_every, 1) == 0:
+                if group is not None:
+                    metrics = dist_mod.all_reduce_mean(metrics, group)
                 log("train", state.step,
                     {f"train/{k}": v for k, v in metrics.items()})
+            if (viz_fn is not None and viz_every_n_steps > 0
+                    and state.step % viz_every_n_steps == 0):
+                viz_fn(state.params, batch, state.step)
             if val_every and (bi + 1) % val_every == 0:
                 run_val(epoch)
             t_ask = time.perf_counter()

@@ -17,6 +17,10 @@ PORTED = ["best.yaml", "config.yaml", "data/cholecseg8k.yaml",
           "eval_pipeline_test.yaml", "losses/dice_main.yaml",
           "losses/equal.yaml", "losses/focal_main.yaml",
           "memory_overfit.yaml", "overfit.yaml"]
+# the combo selections (configs/combo/<dataset>/<n>.yaml), as many as the
+# JAX package has
+COMBOS = sorted(str(p.relative_to(jconfig.CONFIG_DIR))
+                for p in jconfig.CONFIG_DIR.glob("combo/*/*.yaml"))
 BASES = ["config", "best", "overfit", "memory_overfit", "eval_pipeline_test"]
 OVERRIDES = [
     [], ["data=endovis17"], ["data=endovis18", "model.prompt_type=mask"],
@@ -35,12 +39,13 @@ CONFIG_YAML_LINE = 6
 
 
 def test_yaml_copies_are_byte_equal():
-    """Every copy byte for byte, but config.yaml's comment line
-    CONFIG_YAML_LINE, which names the reference without a machine path."""
+    """Every copy byte for byte (the combo files too), but config.yaml's
+    comment line CONFIG_YAML_LINE, which names the reference without a
+    machine path."""
     ours = sorted(str(p.relative_to(tconfig.CONFIG_DIR))
                   for p in tconfig.CONFIG_DIR.rglob("*.yaml"))
-    assert ours == PORTED
-    for name in PORTED:
+    assert COMBOS and ours == sorted(PORTED + COMBOS)
+    for name in PORTED + COMBOS:
         got = (tconfig.CONFIG_DIR / name).read_bytes()
         want = (jconfig.CONFIG_DIR / name).read_bytes()
         if name == "config.yaml":

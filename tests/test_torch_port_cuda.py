@@ -1310,3 +1310,40 @@ def test_remat_body_step_matches_none_on_the_card(card):
             continue
         tol = 0.1 if len(names) > 1 else 0.2
         assert float((a - b).norm() / b.norm()) <= tol, top
+
+
+@pytest.mark.cuda
+def test_world_of_one_under_nccl_is_the_identity(card, monkeypatch):
+    """``parallel/dist.py`` on the card under NCCL at world 1: the mean of
+    one rank and the broadcast from it leave every bit as it was (what
+    chip_smoke.py's ddp (a) relies on for a run bit-equal to one without
+    distribution)."""
+    from sam2_video_tpu_torch.parallel import dist as tdist
+
+    for k, v in tdist.rank_env(0, 1, tdist.free_port()).items():
+        monkeypatch.setenv(k, v)
+    assert tdist.maybe_initialize_distributed({"enabled": True}, "cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = {"w": torch.randn(1000, 7, device="cuda", generator=g),
+             "b": torch.randn(3, device="cuda", generator=g)}
+        y = tdist.all_reduce_mean(x)
+        assert all(y[k].is_cuda and torch.equal(x[k], y[k]) for k in x)
+        before = {k: v.clone() for k, v in x.items()}
+        tdist.broadcast_params(x)
+        assert all(torch.equal(before[k], x[k]) for k in x)
+        tdist.barrier()
+    finally:
+        tdist.destroy()
+
+
+@pytest.mark.cuda
+def test_dryrun_two_ranks_share_the_card(card, capfd):
+    """The data-parallel dry run: two ranks on the one card under gloo,
+    the loss falling and the ranks' parameters equal."""
+    from sam2_video_tpu_torch.parallel import dryrun
+
+    assert dryrun.main(["--ranks", "2"]) == 0
+    out = capfd.readouterr().out
+    assert "dryrun(2 ranks, gloo, cuda:0)" in out, out

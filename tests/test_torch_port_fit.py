@@ -11,9 +11,9 @@
   port's init (prefixes, nested dicts, a missing, an unexpected and a
   mismatched tensor, the strict raise), and ``load_finetuned``'s three
   cases;
-- the CLI's NotImplementedError for each knob that is not ported, and one
-  step of the CLI with each knob that now is (the grouped post-fit eval,
-  the rematerialised frame loop);
+- one step of the CLI with each knob that once raised NotImplementedError
+  (the grouped post-fit eval, the training GIFs, two gloo ranks, a
+  distributed world of one, the rematerialised frame loop);
 - the slice as a whole: JAX ``train.main`` and ``train_torch.main`` with
   ``device=cpu`` on one synthetic dataset (1 video, 64 px, T=2, float32,
   the same npz, 2 train steps and 1 validation batch, or one after each
@@ -210,8 +210,13 @@ def test_load_finetuned_matches_jax(jp, tmp_path, monkeypatch, case):
             tconvert.load_finetuned(to_param_tree(jp), "md2.torch")
 
 
-# the items whose knobs now run, with the overrides that exercise them
-PORTED = {7: ["eval.batch_videos=2"], 4: []}
+# every knob that once raised, with the overrides that exercise it
+PORTED = {"eval.enabled=true": ["eval.batch_videos=2"],
+          "visualization.enabled=true": [
+              "visualization.train_every_n_steps=1"],
+          "trainer.devices=2": ["data.batch_size=2"],
+          "trainer.distributed.enabled=true": [],
+          "model.use_activation_checkpoint=true": []}
 
 
 @pytest.mark.parametrize("override,item", [
@@ -220,36 +225,48 @@ PORTED = {7: ["eval.batch_videos=2"], 4: []}
     ("model.use_activation_checkpoint=true", 4)])
 def test_cli_raises_for_what_is_not_ported(override, item, tmp_path,
                                            monkeypatch):
-    """Each knob whose code is not ported raises, naming its ROADMAP item.
-    Items 7 (the grouped post-fit eval, ``eval.batch_videos=2``) and 4 (the
-    rematerialised frame loop) are ported: their knobs run instead, one
-    train step on the CPU (64 px, T=2) and, for item 7, the eval, whose
-    two clips of one shape form one lockstep group."""
+    """The knobs of ROADMAP queue 1 items 4, 7, 8 and 9 once raised
+    ``NotImplementedError`` here; all are ported, so each runs one train
+    step on the CPU (64 px, T=2): item 7 with the grouped post-fit eval
+    (``eval.batch_videos=2``, the two clips of one shape form one lockstep
+    group), item 9 writing the step's GIF, item 8 as two gloo ranks
+    (``trainer.devices=2``, one clip each, rank 1 logging under
+    ``proc1/``) and as a world of one under torchrun's variables
+    (``trainer.distributed.enabled=true``), item 4 with the
+    rematerialised frame loop."""
     import train_torch
+    from sam2_video_tpu_torch.parallel import dist as tdist
 
-    off = ["eval.enabled=false", "visualization.enabled=false",
-           "device=cpu"]
-    if item not in PORTED:
-        with pytest.raises(NotImplementedError,
-                           match=f"queue 1, item {item}"):
-            train_torch.main(off + [override])
-        return
     data = make_synthetic_dataset(tmp_path / "ds", num_videos=2,
                                   frames_per_video=2, image_hw=(96, 128),
                                   num_categories=2)
     monkeypatch.chdir(tmp_path)
-    run_dir, result = train_torch.run(off + [override] + PORTED[item] + [
-        f"data.train_path={data}", f"data.val_path={data}",
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    if override == "trainer.distributed.enabled=true":
+        for k, v in tdist.rank_env(0, 1, tdist.free_port()).items():
+            monkeypatch.setenv(k, v)
+    off = [o for o in ("eval.enabled=false", "visualization.enabled=false")
+           if o.split("=")[0] != override.split("=")[0]]
+    run_dir, result = train_torch.run(off + [
+        "device=cpu", f"data.train_path={data}", f"data.val_path={data}",
         "data.image_size=64", "data.num_categories=2",
         "data.video_clip_length=2", "data.stride=2", "data.batch_size=1",
         "model.compute_dtype=float32", "model.max_objects=4",
         "trainer.max_epochs=1", "trainer.limit_train_batches=1",
         "trainer.limit_val_batches=0", "trainer.log_every_n_steps=1",
-        "trainer.enable_checkpointing=false"])
+        "trainer.enable_checkpointing=false", override] + PORTED[override])
     (rec,) = _log(tmp_path / run_dir)
-    assert result.state.step == 1 and np.isfinite(rec["train/total_loss"])
+    assert rec["step"] == 1 and np.isfinite(rec["train/total_loss"])
+    assert not torch.distributed.is_initialized()
+    if override == "trainer.devices=2":
+        assert result is None
+        assert (tmp_path / run_dir / "proc1" / "training.log").exists()
+    else:
+        assert result.state.step == 1
     if item == 7:
         assert (tmp_path / run_dir / "eval" / "metrics.json").exists()
+    if item == 9:
+        assert (tmp_path / run_dir / "viz" / "step000001.gif").exists()
 
 
 def test_cli_needs_a_card_unless_told_cpu(monkeypatch):
