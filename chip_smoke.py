@@ -4,12 +4,12 @@ NVIDIA GPU. Run from the repository root:
 
     python3 chip_smoke.py [--seed 0]
         [--phases build,kernels,train,train_all,train_remat,train_cpu,serve,
-                  cpu,fit,eval,ddp]
+                  cpu,fit,jpeg,eval,ddp]
 
 Phases (all by default):
   build      compile every CUDA kernel from csrc/ (one nvcc per source, all
              started together) and the data pipeline's host C++ helpers
-             (the RLE codec, the PNG unfilter) with g++
+             (the RLE codec, the PNG unfilter, the JPEG decoder) with g++
   kernels    each kernel against its plain PyTorch version at the shapes
              the training and serving paths give it, with error, tolerance
              and CUDA-event times: #1 fused_block (12 trunk blocks, one
@@ -119,6 +119,19 @@ Phases (all by default):
              test's T=2 clip scaled to 384 px; one CLI step with
              model.use_activation_checkpoint=true (the remat loop), its
              loss within TRAIN_CPU_LOSS_TOL of the run's first
+  jpeg       JPEG frames: (a) every committed fixture
+             (sam2_video_tpu_torch/data/fixtures/jpeg) decoded by the C++
+             helper, which must build, to its digest of Pillow's
+             convert("RGB") (digests.json); (b) the median decode ms per
+             frame of the 240x320 video frames and of the 480x854 fixture
+             beside the PNG reader on the same pixels, with the host's CPU;
+             (c) train_torch.py with the fit phase's overrides at T=4, B=2
+             (3 train steps, one validation batch) on the JPEG video
+             dataset, then twice on a PNG copy of its decoded frames: the
+             losses equal bit for bit when the two PNG runs are, else
+             within TRAIN_CPU_LOSS_TOL; clips/s, loader waits and the
+             loader's ms per batch on both; (d) kernels #1-#5 launched in
+             the JPEG run
   eval       the evaluation path: (a) the predictor at the serve cell's
              sizes on one 16-frame 480x854 video, every object prompted
              at frame 8, reverse to frame 0 then forward; then a
@@ -202,7 +215,7 @@ KERNEL_TOL = 2e-2             # of max(1, |plain|): bf16 rounding points differ
 ATTENTION_FLOOR = 0.0
 CPU_REL_L2_TOL = 0.1          # card bf16 vs CPU float32, over 4 frames
 PHASES = ("build", "kernels", "train", "train_all", "train_remat",
-          "train_cpu", "serve", "cpu", "fit", "eval", "ddp")
+          "train_cpu", "serve", "cpu", "fit", "jpeg", "eval", "ddp")
 DEVICE = "cuda"
 FRAMES, OBJECTS, CHUNK = 16, 8, 8   # frames per video, objects, encode chunk
 TINY_GEOMETRY = {0: "window 8, no pad", 1: "q-pool, even window 8",
@@ -2390,6 +2403,187 @@ def phase_overfit(seed: int, device: str) -> None:
         raise SystemExit("overfit: the check did not converge")
 
 
+# the jpeg phase: the port's JPEG decoder against the committed digests, its
+# speed beside the PNG reader's, and the train CLI on JPEG frames beside a
+# PNG copy of them
+JPEG_FIXTURES = ("sam2_video_tpu_torch", "data", "fixtures", "jpeg")
+JPEG_DECODE_REPEATS = 5       # decodes of each file; the median is printed
+JPEG_FIT = ("data.video_clip_length=4", "data.stride=2",
+            "data.num_categories=3", "trainer.max_epochs=1",
+            "trainer.limit_train_batches=3", "trainer.limit_val_batches=1",
+            "trainer.enable_checkpointing=false")
+
+
+def host_cpu() -> str:
+    """The host's CPU as /proc/cpuinfo names it (its model name, else its
+    vendor, family and model numbers), the machine type and the logical
+    core count (the decode is host work)."""
+    import os
+    import platform
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = fields.get("model name") or " ".join(
+        f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model")
+        if k in fields) or "CPU not named in /proc/cpuinfo"
+    return f"{model} ({platform.machine()}), {os.cpu_count()} logical cores"
+
+
+def _median_ms(fn, arg, repeats: int = JPEG_DECODE_REPEATS) -> float:
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn(arg)
+        times.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(times))
+
+
+def phase_jpeg(cfg, seed: int, card: str):
+    """(a) every committed JPEG fixture decoded by the C++ helper (the phase
+    fails when it does not build: the numpy reference may not stand in for
+    it) to its digest in ``digests.json`` (sha256 of Pillow's
+    ``convert("RGB")``); (b) the median decode ms per frame of the video
+    fixture's 240x320 frames and of the largest fixture (480x854), beside
+    the port's PNG ``read_rgb`` of the same pixels; (c) ``train_torch.py``
+    with the fit phase's overrides on the JPEG video dataset (T=4, B=2, 3
+    train steps and one validation batch), then twice on a PNG copy of its
+    decoded frames (the same JSON, ``.png`` names): the JPEG run's losses
+    equal to the PNG run's bit for bit when the two PNG runs are, else
+    within TRAIN_CPU_LOSS_TOL; the JPEG fit's clips/s and loader waits, and
+    the loader's ms per batch on both copies; (d) kernels #1-#5 launched in
+    the JPEG run (counts at 0 just before it)."""
+    import hashlib
+    import os
+    import shutil
+    from pathlib import Path
+
+    import train_torch
+    from sam2_video_tpu_torch.data import host_build, image_io
+    from sam2_video_tpu_torch.data.coco import COCOIndex
+    from sam2_video_tpu_torch.data.pipeline import (ClipDataset,
+                                                    ClipDatasetConfig,
+                                                    ClipLoader)
+    from sam2_video_tpu_torch.training.checkpoint import save_params_npz
+
+    root = Path(__file__).resolve().parent.joinpath(*JPEG_FIXTURES)
+    if host_build.load("jpeg_decode") is None:
+        raise SystemExit("jpeg: the C++ JPEG decoder (csrc/jpeg_decode.cpp) "
+                         "did not build with g++")
+    digests = json.loads((root / "digests.json").read_text())
+    for rel, want in digests.items():
+        rgb = image_io.read_rgb(root / rel)
+        got = hashlib.sha256(np.ascontiguousarray(rgb).tobytes()).hexdigest()
+        if list(rgb.shape) != want["shape"] or got != want["sha256"]:
+            raise SystemExit(f"jpeg: {rel} decodes to {rgb.shape} "
+                             f"{got[:12]}, not {want['shape']} "
+                             f"{want['sha256'][:12]}")
+    print(f"jpeg (a): {len(digests)} fixtures decoded by the C++ helper, "
+          "each equal to its digest of Pillow's convert('RGB')", flush=True)
+
+    home = Path.cwd()
+    work = home / "outputs" / "chip_smoke_jpeg" / str(os.getpid())
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "png" / "images").mkdir(parents=True)
+    video = root / "video"
+    ann = json.loads((video / "annotations.json").read_text())
+    for im in ann["images"]:
+        rgb = image_io.read_rgb(video / "images" / im["file_name"])
+        im["file_name"] = im["file_name"].replace(".jpg", ".png")
+        image_io.write_png(work / "png" / "images" / im["file_name"], rgb)
+    (work / "png" / "annotations.json").write_text(json.dumps(ann))
+    large = root / "coverage" / "large_480x854.jpg"
+    image_io.write_png(work / "large.png", image_io.read_rgb(large))
+    frames = sorted((video / "images").glob("*.jpg"))
+    jpeg_ms = float(np.median([_median_ms(image_io.read_rgb, p)
+                               for p in frames]))
+    png_ms = float(np.median([
+        _median_ms(image_io.read_rgb, work / "png" / "images" /
+                   p.name.replace(".jpg", ".png")) for p in frames]))
+    large_ms = _median_ms(image_io.read_rgb, large)
+    large_png_ms = _median_ms(image_io.read_rgb, work / "large.png")
+    print(f"jpeg (b): decode ms per frame, median of {JPEG_DECODE_REPEATS} "
+          f"reads of each: {len(frames)} 240x320 JPEG frames {jpeg_ms:.3f} "
+          f"(their PNG copies {png_ms:.3f}); the 480x854 JPEG {large_ms:.3f} "
+          f"(PNG {large_png_ms:.3f}); one thread, warm page cache; host "
+          f"{host_cpu()}; {card}", flush=True)
+
+    npz = work / "weights.npz"
+    save_params_npz(synthetic_params(cfg, seed), npz)
+    datasets = {"jpeg": (video / "annotations.json", video / "images"),
+                "png": (work / "png" / "annotations.json",
+                        work / "png" / "images")}
+
+    def cli(name, which, step_timer=None, wait_timer=None):
+        json_path, images = datasets[which]
+        (work / name).mkdir()
+        os.chdir(work / name)
+        try:
+            run_dir, _ = train_torch.run(
+                fit_overrides(json_path, npz) + list(JPEG_FIT)
+                + [f"data.image_root={images}"],
+                step_timer=step_timer, wait_timer=wait_timer)
+        finally:
+            os.chdir(home)
+        return [(r["split"], r["step"],
+                 r.get("train/total_loss", r.get("val/total_loss")))
+                for r in _fit_log(work / name / run_dir)]
+
+    steps, waits = [], []
+    reset_counts()
+    torch.cuda.synchronize()
+    jpeg_log = cli("run_jpeg", "jpeg", steps, waits)
+    counts = read_counts()
+    png_log, png_again = cli("run_png", "png"), cli("run_png_again", "png")
+    print("jpeg (c) losses (split, step, total_loss): JPEG "
+          + json.dumps(jpeg_log) + ", PNG " + json.dumps(png_log)
+          + ", PNG again " + json.dumps(png_again), flush=True)
+    losses = [v for _, _, v in jpeg_log]
+    if len(jpeg_log) != 4 or not all(np.isfinite(losses)):
+        raise SystemExit(f"jpeg fit: log {jpeg_log}")
+    repeat = png_log == png_again
+    for (s, i, a), (s2, i2, b) in zip(jpeg_log, png_log, strict=True):
+        rel = abs(a - b) / max(abs(b), 1e-12)
+        if (s, i) != (s2, i2) or (a != b if repeat
+                                  else not rel <= TRAIN_CPU_LOSS_TOL):
+            raise SystemExit(f"jpeg fit: {s} step {i} loss {a} on JPEG "
+                             f"frames, {b} on their PNG copy")
+    print("jpeg (c): the JPEG run's losses "
+          + ("equal the PNG run's bit for bit (two PNG runs repeat bit for "
+             "bit)" if repeat else
+             f"within {TRAIN_CPU_LOSS_TOL} of the PNG run's (two PNG runs "
+             "differ: the card's training does not repeat bit for bit)"),
+          flush=True)
+    _require(counts, FIT_REQUIRED, "jpeg fit")
+    B = 2
+    loader_ms = {}
+    for which, (json_path, images) in datasets.items():
+        loader = ClipLoader(ClipDataset(
+            COCOIndex(json_path, 384, 3),
+            ClipDatasetConfig(clip_length=4, stride=2, num_pos_points=2,
+                              image_root=str(images))),
+            batch_size=B, seed=seed)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        loader_ms[which] = 1e3 * (time.perf_counter() - t0) / n
+    per = [w + t for w, t in zip(waits, steps)]
+    print(f"jpeg (c) fit B={B} T=4 O=8 384px bf16 on 240x320 JPEG frames: "
+          f"{len(steps)} train steps, wait + step ms "
+          + ", ".join(f"{1e3 * t:.3f} (wait {1e3 * w:.3f})"
+                      for t, w in zip(per, waits))
+          + f"; clips/s host-inclusive {B * len(per[1:]) / sum(per[1:]):.3f} "
+          f"over the warm steps; step ms median "
+          f"{1e3 * float(np.median(steps)):.3f}; loader ms per batch "
+          f"(alone, 2 threads, cold cache) JPEG {loader_ms['jpeg']:.3f}, PNG "
+          f"copy {loader_ms['png']:.3f}; {card}", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+
 # the eval phase: the predictor both ways, several conditioning frames, a
 # correction click; then the train CLI's post-fit eval
 EVAL_FRAMES, EVAL_PROMPT_FRAME = 16, 8
@@ -3487,6 +3681,9 @@ def main() -> int:
     if "fit" in phases:
         phase_fit(cfg, args.seed, card)
         lap("fit")
+    if "jpeg" in phases:
+        phase_jpeg(cfg, args.seed, card)
+        lap("jpeg")
     if "eval" in phases:
         cpu_run = phase_eval_predictor(params, cfg, args.seed, OBJECTS)
         phase_eval_batched(params, cfg, args.seed, OBJECTS, cpu_run)

@@ -33,15 +33,6 @@ def run_shard(combo_file: Path, out_dir: str, env_extra: dict,
     return subprocess.run(cmd, env=env).returncode
 
 
-def card_env(worker: int) -> dict:
-    """``CUDA_VISIBLE_DEVICES`` of a worker: one card, in turn; nothing on a
-    host without cards."""
-    import torch
-
-    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    return {"CUDA_VISIBLE_DEVICES": str(worker % n)} if n else {}
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workers", type=int, default=2)
@@ -52,6 +43,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from baseline_eval_torch import discover_combos
+    from sam2_video_tpu_torch.parallel.dist import card_env
     combos = args.combos or discover_combos()
     shards = [s for s in (combos[i::args.workers]
                           for i in range(args.workers)) if s]

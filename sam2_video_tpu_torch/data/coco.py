@@ -4,10 +4,11 @@ and per-frame loading (counterpart of ``sam2_video_tpu/data/coco.py``).
 ``COCOIndex`` keeps the keyframe filter, the category id -> contiguous
 index map (an empty ``categories`` list raises), and the videos' frames
 sorted by ``order_in_video``; ``clip_windows`` cuts each video into
-fixed-length windows with a stride. A frame is read, resized so that its
-smaller edge is ``image_size`` (Pillow's BILINEAR) and center-cropped; a
-mask is RLE-decoded, resized with Pillow's NEAREST, cropped and OR-merged
-per category. ``image_io`` does both without Pillow, with the same bits.
+fixed-length windows with a stride. A frame (PNG or JPEG) is read,
+resized so that its smaller edge is ``image_size`` (Pillow's BILINEAR) and
+center-cropped; a mask is RLE-decoded, resized with Pillow's NEAREST,
+cropped and OR-merged per category. ``image_io`` does both without Pillow,
+with the same bits.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Builds the data pipeline's host C++ helpers with g++ and loads them with
-ctypes: the COCO RLE codec (``native/rle.cpp`` at the repository root) and
-the PNG row unfilter (``csrc/png_unfilter.cpp``).
+ctypes: the COCO RLE codec (``native/rle.cpp`` at the repository root),
+the PNG row unfilter (``csrc/png_unfilter.cpp``) and the JPEG decoder
+(``csrc/jpeg_decode.cpp``).
 
 Each library lands in the package's ``build/`` directory, written under a
 temporary name and renamed into place, so processes that build at the same
@@ -21,7 +22,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 BUILD = PKG / "build"
 SOURCES = {"rle": PKG.parent / "native" / "rle.cpp",
-           "png_unfilter": PKG / "csrc" / "png_unfilter.cpp"}
+           "png_unfilter": PKG / "csrc" / "png_unfilter.cpp",
+           "jpeg_decode": PKG / "csrc" / "jpeg_decode.cpp"}
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()

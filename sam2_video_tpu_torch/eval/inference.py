@@ -10,7 +10,8 @@ propagation in reverse and then forward, the forward pass overwriting
 ``predict.json`` and ``prompt.pkl`` (:844-915).
 
 An ``InferenceRunner`` holds the predictor and the dataset; frames are
-read once per clip on the host (PNG, ``data/image_io.py``) and encoded on
+read once per clip on the host (PNG or JPEG, ``data/image_io.py``, the
+same pixels as the JAX package's OpenCV or Pillow) and encoded on
 the device. With ``batch_videos`` G > 1 the runner first schedules every
 video's clips and extracts their prompts (resetting the object count per
 video), then tracks each full group of G clips that share length,
@@ -236,9 +237,10 @@ class InferenceRunner:
     # -- per-clip processing ------------------------------------------------
 
     def _load_frames(self, frames_info) -> np.ndarray:
-        """A clip's frames as uint8 [T, H, W, 3], read in threads (zlib and
-        the C++ row unfilter release the interpreter lock). PNG only: JPEG
-        frames raise ValueError (ROADMAP.md, queue 1, item 5)."""
+        """A clip's frames as uint8 [T, H, W, 3], PNG or JPEG, read in
+        threads (zlib and the C++ helpers release the interpreter lock).
+        EXIF orientation is not applied, as the JAX package's reader does
+        not apply it."""
         def resolve(f):
             path = f.get("path") or f["file_name"]
             if self.image_root is not None:

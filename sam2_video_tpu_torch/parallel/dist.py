@@ -197,3 +197,20 @@ def rank_env(rank_: int, world: int, port: int) -> dict:
     return {"WORLD_SIZE": str(world), "RANK": str(rank_),
             "LOCAL_RANK": str(rank_), "LOCAL_WORLD_SIZE": str(world),
             "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+
+
+def card_env(worker: int) -> dict:
+    """``CUDA_VISIBLE_DEVICES`` of worker slot ``worker`` of a tool that runs
+    one process per slot (``sweep_torch.py``,
+    ``multi_baseline_eval_torch.py``): one card each, slot i on card i mod
+    (number of cards), as the reference pins one GPU per worker; nothing on
+    a host without cards. The cards are those this process sees: where its
+    own ``CUDA_VISIBLE_DEVICES`` names some, slot i gets the (i mod n)-th of
+    them."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if not n:
+        return {}
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    cards = ([c.strip() for c in visible.split(",")][:n] if visible
+             else [str(i) for i in range(n)])
+    return {"CUDA_VISIBLE_DEVICES": cards[worker % n]}

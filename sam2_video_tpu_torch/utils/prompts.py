@@ -39,6 +39,17 @@ def open_ellipse(mask: np.ndarray) -> np.ndarray:
     return ndimage.binary_dilation(eroded, ELLIPSE_5X5, border_value=0)
 
 
+def open_square(mask: np.ndarray, k: int) -> np.ndarray:
+    """cv2.morphologyEx(m, MORPH_OPEN, np.ones((k, k))) of a binary mask, as
+    uint8 0 / 1: OpenCV anchors both passes at k // 2; scipy reflects the
+    structure in the dilation, which moves an even k's window by one, so
+    the dilation's origin is -1 there."""
+    square = np.ones((k, k), bool)
+    eroded = ndimage.binary_erosion(mask > 0, square, border_value=1)
+    return ndimage.binary_dilation(eroded, square, border_value=0,
+                                   origin=k % 2 - 1).astype(np.uint8)
+
+
 def label_components(mask: np.ndarray) -> tuple[np.ndarray, int]:
     """cv2.connectedComponents(mask) (8-connected, labels 1..n in OpenCV's
     block order, 0 background) -> (int labels [H, W], n)."""

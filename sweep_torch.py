@@ -2,15 +2,16 @@
 port (the counterpart of ``sweep.py``): grid enumeration or random search
 locally, results in JSONL, or a hand-off to ``wandb agent`` when the
 package is available. Each run is ``python <program> <overrides>``, where
-``program`` is ``--program``, else the sweep YAML's own ``program:``, else
-``train_torch.py`` (the repository's ``sweeps/*.yaml`` name ``train.py``,
-the JAX package's CLI: pass ``--program train_torch.py`` to sweep them
-with the port).
+``program`` is ``--program``, else the sweep YAML's own ``program:`` with
+the JAX package's ``train.py`` (which the repository's ``sweeps/*.yaml``
+name) read as the port's ``train_torch.py``, else ``train_torch.py``.
 
 The YAML format is the reference's (``method`` grid | bayes | random,
 ``parameters.<dotted.key>.values`` lists, ``+combo`` group selection); the
 workers (``--workers``) run that many runs at once, as the reference's
-multi_gpu_train.sh runs one agent per device.
+multi_gpu_train.sh runs one agent per device: on a host with cards, the
+run in worker slot i sees card i mod (number of cards) alone
+(``CUDA_VISIBLE_DEVICES``, ``parallel/dist.py`` ``card_env``).
 
     python sweep_torch.py sweeps/loss_sweep.yaml [--workers 1] [--max-runs N]
 """
@@ -21,6 +22,8 @@ import argparse
 import itertools
 import json
 import math
+import os
+import queue
 import random
 import subprocess
 import sys
@@ -79,13 +82,24 @@ def assignments_of(spec: dict, max_runs: int | None, seed: int) -> list:
     return runs[:max_runs] if max_runs else runs
 
 
-def run_one(program: str, overrides: list[str], log_path: Path) -> int:
+def program_of(spec: dict, override: str | None) -> str:
+    """The script of each run: ``override``, else the YAML's ``program:``
+    (its JAX CLI mapped to the port's), else ``PROGRAM``."""
+    if override:
+        return override
+    program = spec.get("program", PROGRAM)
+    return PROGRAM if program == "train.py" else program
+
+
+def run_one(program: str, overrides: list[str], log_path: Path,
+            env_extra: dict | None = None) -> int:
     cmd = [sys.executable, program] + overrides
+    env = {**os.environ, **(env_extra or {})}
     with open(log_path, "w") as f:
         f.write(f"# {' '.join(cmd)}\n")
         f.flush()
-        return subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT
-                              ).returncode
+        return subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT,
+                              env=env).returncode
 
 
 def main(argv=None) -> int:
@@ -108,7 +122,9 @@ def main(argv=None) -> int:
         except ImportError:
             print("wandb unavailable; falling back to local sweep")
 
-    program = args.program or spec.get("program", PROGRAM)
+    from sam2_video_tpu_torch.parallel.dist import card_env
+
+    program = program_of(spec, args.program)
     assignments = assignments_of(spec, args.max_runs, args.seed)
 
     sweep_dir = Path("outputs") / "sweeps" / time.strftime("%Y%m%d-%H%M%S")
@@ -117,11 +133,24 @@ def main(argv=None) -> int:
     results_path = sweep_dir / "runs.jsonl"
     print(f"{len(assignments)} runs -> {sweep_dir}")
 
+    # worker slots: a run takes a free one and gives it back; no more runs
+    # than slots are in flight, so one is always free
+    slots = queue.SimpleQueue()
+    for s in range(args.workers):
+        slots.put(s)
+
     def launch(i_assignment):
         i, assignment = i_assignment
         overrides = to_overrides(assignment)
-        rc = run_one(program, overrides, sweep_dir / f"run{i:03d}.log")
-        rec = {"run": i, "overrides": overrides, "returncode": rc}
+        slot = slots.get()
+        try:
+            env = card_env(slot)
+            rc = run_one(program, overrides, sweep_dir / f"run{i:03d}.log",
+                         env)
+        finally:
+            slots.put(slot)
+        rec = {"run": i, "overrides": overrides, "returncode": rc,
+               "slot": slot, **env}
         with open(results_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
         print(f"run {i}: rc={rc} {overrides}")

@@ -110,13 +110,55 @@ def _images():
     return smooth, g.integers(0, 256, (H, W, 3), dtype=np.uint8)
 
 
+def _adam7_png(img: np.ndarray, depth: int = 8, palette=None) -> bytes:
+    """An Adam7-interlaced PNG (Pillow writes none): uint8 [H, W] grey or
+    palette indices (at ``depth`` bits, with ``palette`` for a palette
+    image) or [H, W, 3] RGB; each pass's rows filtered with type 1
+    (Sub) and packed as the PNG spec says."""
+    H, W = img.shape[:2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    ctype = 3 if palette is not None else (0 if ch == 1 else 2)
+    body = b""
+    for x0, y0, dx, dy in image_io.ADAM7:
+        part = img[y0::dy, x0::dx]
+        if not part.size:
+            continue
+        h, w = part.shape[:2]
+        if depth < 8:
+            bits = ((part[..., None] >> np.arange(depth - 1, -1, -1)) & 1)
+            rows = np.packbits(bits.reshape(h, w * depth).astype(np.uint8),
+                               axis=1)
+            bpp = 1
+        else:
+            rows = part.reshape(h, w * ch)
+            bpp = ch
+        body += image_io._filter_rows(rows, np.ones(h, np.int64),
+                                      bpp).tobytes()
+
+    def chunk(kind: bytes, payload: bytes) -> bytes:
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    plte = (chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+            if palette is not None else b"")
+    return (image_io.PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, ctype, 0,
+                                         0, 1))
+            + plte + chunk(b"IDAT", zlib.compress(body)) + chunk(b"IEND",
+                                                                 b""))
+
+
 def test_png_reader_matches_pillow():
     """Files that Pillow writes in every mode the reader takes, RGB, RGBA,
     L, LA, P (8, 4 and 2 bits) and 1, then the port's own files with each
     row's filter drawn at random: read equal to Pillow's ``convert("RGB")``;
     the C++ unfilter equal to its numpy reference. Pillow's encoder picks
     each row's filter among None, Sub, Up and Paeth (those four occur over
-    the set) and never Average, which the port's files cover."""
+    the set) and never Average, which the port's files cover. Then
+    Adam7-interlaced files (RGB, grey at 8, 4, 2 and 1 bits, palette at 8
+    and 2 bits), in odd sizes that leave some of the seven passes empty,
+    against Pillow, and ``read_raw`` against ``np.asarray(Image.open())``
+    on every file of a mode it reads."""
     used = set()
     for arr in _images():
         rgb = Image.fromarray(arr)
@@ -143,21 +185,62 @@ def test_png_reader_matches_pillow():
             np.testing.assert_array_equal(
                 image_io.unfilter(raw, h, stride, ch),
                 image_io.unfilter_numpy(raw, h, stride, ch))
+    pal = g.integers(0, 256, (256, 3))
+    for H, W in ((41, 67), (3, 2), (1, 9), (9, 1), (5, 5)):
+        arr = g.integers(0, 256, (H, W, 3), dtype=np.uint8)
+        files = [_adam7_png(arr), _adam7_png(arr[..., 0])]
+        files += [_adam7_png(arr[..., 0] >> (8 - d), d) for d in (4, 2, 1)]
+        files += [_adam7_png(arr[..., 1], 8, pal),
+                  _adam7_png(arr[..., 1] >> 6, 2, pal[:4])]
+        for png in files:
+            assert png[28] == 1                       # interlaced
+            want = np.asarray(Image.open(io.BytesIO(png)).convert("RGB"))
+            np.testing.assert_array_equal(image_io.decode_png(png), want)
+
+
+def test_read_raw_and_image_size_match_pillow(tmp_path):
+    """``read_raw`` equals ``np.asarray(Image.open(p))`` (values and dtype)
+    for Pillow's files in modes 1, L, LA, P (8, 4 and 2 bits), RGB and
+    RGBA, the port's own 2- and 4-bit grey and interlaced files; and
+    ``image_size`` equals ``Image.open(p).size`` for them and for a JPEG."""
+    arr = _images()[0]
+    rgb = Image.fromarray(arr)
+    files = {f"{i}.png": _pillow_png(im) for i, im in enumerate(
+        (rgb, rgb.convert("RGBA"), rgb.convert("L"), rgb.convert("LA"),
+         rgb.convert("P"), rgb.quantize(12), rgb.quantize(3),
+         rgb.convert("1")))}
+    files["grey4.png"] = _adam7_png(arr[..., 0] >> 4, 4)
+    files["grey2.png"] = _adam7_png(arr[..., 0] >> 6, 2)
+    files["inter.png"] = _adam7_png(arr)
+    jpeg = io.BytesIO()
+    rgb.save(jpeg, "JPEG")
+    for name, data in files.items():
+        (tmp_path / name).write_bytes(data)
+        want = np.asarray(Image.open(tmp_path / name))
+        got = image_io.read_raw(tmp_path / name)
+        assert got.dtype == want.dtype, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+        assert image_io.image_size(tmp_path / name) == Image.open(
+            tmp_path / name).size
+    (tmp_path / "a.jpg").write_bytes(jpeg.getvalue())
+    assert image_io.image_size(tmp_path / "a.jpg") == (67, 41)
 
 
 def test_png_reader_rejects_what_it_cannot_read(tmp_path):
-    """An interlaced PNG, a 16-bit PNG, a JPEG and a text file raise
-    ValueError naming the file and what it is."""
+    """A 16-bit PNG, a CMYK JPEG, an arithmetic-coded JPEG (a baseline
+    file with its SOF0 marker made SOF9) and a text file raise ValueError
+    naming the file and what it is."""
     smooth, _ = _images()
-    png = bytearray(_pillow_png(Image.fromarray(smooth)))
-    png[28] = 1                                   # IHDR interlace method
-    png[29:33] = struct.pack(">I", zlib.crc32(bytes(png[12:29])))
     grey16 = Image.fromarray(smooth[..., 0].astype(np.uint16) * 257)
-    jpeg = io.BytesIO()
+    cmyk, jpeg = io.BytesIO(), io.BytesIO()
+    Image.fromarray(smooth).convert("CMYK").save(cmyk, "JPEG")
     Image.fromarray(smooth).save(jpeg, "JPEG")
-    cases = {"inter.png": (bytes(png), "interlaced"),
-             "deep.png": (_pillow_png(grey16), "16-bit"),
-             "frame.jpg": (jpeg.getvalue(), "JPEG"),
+    sof = jpeg.getvalue().index(b"\xff\xc0")
+    arith = (jpeg.getvalue()[:sof] + b"\xff\xc9"
+             + jpeg.getvalue()[sof + 2:])
+    cases = {"deep.png": (_pillow_png(grey16), "16-bit"),
+             "cmyk.jpg": (cmyk.getvalue(), "CMYK"),
+             "arith.jpg": (arith, "arithmetic-coded"),
              "notes.png": (b"hello", "not a PNG")}
     for name, (data, what) in cases.items():
         (tmp_path / name).write_bytes(data)
@@ -169,7 +252,7 @@ def test_png_reader_rejects_what_it_cannot_read(tmp_path):
 def test_unfilter_without_the_helper_warns_once(monkeypatch):
     """When the C++ unfilter cannot be built, ``unfilter`` says so once
     with a RuntimeWarning and decodes with the numpy reference."""
-    monkeypatch.setattr(image_io, "_unfilter_lib", None)
+    monkeypatch.setattr(image_io, "_helpers", {})
     monkeypatch.setattr(image_io.host_build, "load", lambda name: None)
     img = _images()[0]
     png = image_io.encode_png(img, np.arange(img.shape[0]) % 5)

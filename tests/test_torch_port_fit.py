@@ -223,11 +223,11 @@ PORTED = {"eval.enabled=true": ["eval.batch_videos=2"],
     ("eval.enabled=true", 7), ("visualization.enabled=true", 9),
     ("trainer.devices=2", 8), ("trainer.distributed.enabled=true", 8),
     ("model.use_activation_checkpoint=true", 4)])
-def test_cli_raises_for_what_is_not_ported(override, item, tmp_path,
-                                           monkeypatch):
-    """The knobs of ROADMAP queue 1 items 4, 7, 8 and 9 once raised
-    ``NotImplementedError`` here; all are ported, so each runs one train
-    step on the CPU (64 px, T=2): item 7 with the grouped post-fit eval
+def test_cli_runs_every_knob_that_once_raised(override, item, tmp_path,
+                                              monkeypatch):
+    """Each knob that raised ``NotImplementedError`` here until its ROADMAP
+    queue 1 item was ported (item 7, eval; item 4, remat; item 8, data
+    parallel; item 9, visualization) runs one train step on the CPU (64 px, T=2): item 7 with the grouped post-fit eval
     (``eval.batch_videos=2``, the two clips of one shape form one lockstep
     group), item 9 writing the step's GIF, item 8 as two gloo ranks
     (``trainer.devices=2``, one clip each, rank 1 logging under

@@ -19,12 +19,22 @@ package on the CPU:
   METRIC_ATOL and the same best threshold; ``multi_baseline_eval_torch.py``
   over two workers;
 - ``sweep_torch.py``'s runs equal to ``sweep.py``'s on every
-  ``sweeps/*.yaml``, and a local sweep end to end;
+  ``sweeps/*.yaml``, a local sweep end to end, and each repository sweep
+  run as ``train_torch.py`` (``--program`` still wins) with worker slot i
+  on card i mod 4 of four (``torch.cuda`` made to report them);
 - the port's ``combo/`` tree: the same combos discovered as the JAX
   package's tool discovers (the count never written down), each resolving
   to the same config tree in both packages;
 - ``utils/profiling.py``: the chrome trace, the step timer and the
-  first-call time.
+  first-call time;
+- the JAX-free data-prep and report tools against their JAX twins on
+  synthetic trees: ``convert_endovis_to_coco_torch.py`` (the same JSON
+  from palette, grey and RGB class-id masks),
+  ``apply_morphological_opening_torch.py`` (the same JSON for k 1-7, masks
+  on the border), ``visualize_cv_torch.py`` (the same composites over PNG
+  and JPEG frames, its GIF within the quantiser step) and
+  ``generate_combo_yamls_torch.py`` (the same files as the JAX generator,
+  and as the committed ``configs/combo/``).
 """
 
 import json
@@ -316,3 +326,273 @@ def test_profiling_hooks(tmp_path, caplog):
     assert caplog.text.count("step: first call") == 1
     if not torch.cuda.is_available():
         assert profiling.memory_stats() == {}
+
+
+def _four_cards(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+
+
+def test_card_env_keeps_to_the_parents_visible_cards(monkeypatch):
+    """Started with ``CUDA_VISIBLE_DEVICES=4,5,6,7`` (four cards seen), slot
+    i runs on the (i mod 4)-th of those cards, never on one the parent
+    was kept off."""
+    from sam2_video_tpu_torch.parallel.dist import card_env
+
+    _four_cards(monkeypatch)
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "4,5,6,7")
+    assert [card_env(i) for i in range(6)] == [
+        {"CUDA_VISIBLE_DEVICES": c} for c in "456745"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert card_env(0) == {}
+
+
+@pytest.mark.parametrize("path", SWEEPS, ids=lambda p: p.stem)
+def test_sweep_runs_the_port_one_card_per_slot(path, tmp_path, monkeypatch):
+    """Each repository sweep (``program: train.py``) runs
+    ``train_torch.py``; on four cards, the run in worker slot i sees card
+    i mod 4; ``--program`` still wins."""
+    import sweep_torch
+
+    from sam2_video_tpu_torch.parallel.dist import card_env
+
+    _four_cards(monkeypatch)
+    assert [card_env(i) for i in range(6)] == [
+        {"CUDA_VISIBLE_DEVICES": str(c)} for c in (0, 1, 2, 3, 0, 1)]
+    monkeypatch.chdir(tmp_path)
+    seen = []
+    monkeypatch.setattr(sweep_torch, "run_one",
+                        lambda prog, ov, log, env: seen.append(
+                            (prog, ov, env)) or 0)
+    yaml_path = str(path)
+    assert sweep_torch.main([yaml_path, "--workers", "6",
+                             "--max-runs", "6"]) == 0
+    assert seen and {p for p, _, _ in seen} == {"train_torch.py"}
+    for runs in tmp_path.glob("outputs/sweeps/*/runs.jsonl"):
+        for line in runs.read_text().splitlines():
+            rec = json.loads(line)
+            assert 0 <= rec["slot"] < 6
+            assert rec["CUDA_VISIBLE_DEVICES"] == str(rec["slot"] % 4)
+    assert {e["CUDA_VISIBLE_DEVICES"] for _, _, e in seen} <= {
+        "0", "1", "2", "3"}
+    seen.clear()
+    assert sweep_torch.main([yaml_path, "--max-runs", "2", "--program",
+                             "other.py"]) == 0
+    assert [p for p, _, _ in seen] == ["other.py", "other.py"]
+    assert [e for _, _, e in seen] == [{"CUDA_VISIBLE_DEVICES": "0"}] * 2
+
+
+def test_local_sweep_pins_a_card_per_slot(tmp_path, monkeypatch):
+    """Real runs of a program the YAML names (it runs as named), six
+    workers on four cards: each run's environment holds its slot's card,
+    slot mod 4."""
+    import sweep_torch
+
+    _four_cards(monkeypatch)
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "prog.py").write_text(
+        "import os, sys, time, pathlib\n"
+        "time.sleep(0.5)\n"
+        "pathlib.Path('seen.txt').open('a').write(sys.argv[1] + ' '"
+        " + os.environ['CUDA_VISIBLE_DEVICES'] + '\\n')\n")
+    (tmp_path / "s.yaml").write_text(yaml.safe_dump({
+        "method": "grid", "program": "prog.py", "parameters": {
+            "optimizer.lr": {"values": [1, 2, 3, 4, 5, 6]}}}))
+    assert sweep_torch.main(["s.yaml", "--workers", "6"]) == 0
+    (runs,) = tmp_path.glob("outputs/sweeps/*/runs.jsonl")
+    recs = {json.loads(line)["overrides"][0]: json.loads(line)
+            for line in runs.read_text().splitlines()}
+    seen = dict(line.split() for line in
+                (tmp_path / "seen.txt").read_text().splitlines())
+    assert sorted(seen) == sorted(recs) == [f"optimizer.lr={i}"
+                                           for i in range(1, 7)]
+    for run, card in seen.items():
+        assert 0 <= recs[run]["slot"] < 6
+        assert card == recs[run]["CUDA_VISIBLE_DEVICES"] == str(
+            recs[run]["slot"] % 4)
+
+
+def _endovis_tree(root: Path, mode: str) -> None:
+    """Two sequences of 3 frames at 36x52 (RGB frames, one frame without a
+    mask file) with class-id masks written by Pillow in ``mode``: "P"
+    (palette indices), "L" (grey) or "RGB" (the id in every channel)."""
+    g = np.random.default_rng(7)
+    labels = [{"name": "background", "classid": 0},
+              {"name": "shaft", "classid": 1},
+              {"name": "wrist", "classid": 3}, {"name": "clasper"}]
+    (root / "images").mkdir(parents=True)
+    (root / "annotations").mkdir()
+    (root / "labels.json").write_text(json.dumps(labels))
+    for seq in (1, 10):
+        for f in range(3):
+            name = f"seq_{seq}_frame{f:03d}.png"
+            Image.fromarray(g.integers(0, 256, (36, 52, 3), dtype=np.uint8)
+                            ).save(root / "images" / name)
+            if seq == 10 and f == 2:
+                continue
+            ids = np.zeros((36, 52), np.uint8)
+            ids[g.integers(0, 30):, :g.integers(5, 50)] = 1
+            ids[5:15, 20 + f:40] = 3
+            ids[0, 0] = 2 if f else 0
+            if mode == "RGB":
+                im = Image.fromarray(np.repeat(ids[..., None], 3, -1))
+            elif mode == "P":
+                im = Image.fromarray(ids, "P")
+                im.putpalette(g.integers(0, 256, 768).tolist())
+            else:
+                im = Image.fromarray(ids, "L")
+            im.save(root / "annotations" / name)
+
+
+@pytest.mark.parametrize("mode", ["P", "L", "RGB"])
+def test_endovis_converter_equals_jax(mode, tmp_path):
+    sys.path.insert(0, str(REPO / "data_tools"))
+    import convert_endovis_to_coco as jtool
+    import convert_endovis_to_coco_torch as ttool
+    from sam2_video_tpu_torch.data import image_io
+
+    _endovis_tree(tmp_path / "src", mode)
+    mask = tmp_path / "src" / "annotations" / "seq_1_frame000.png"
+    assert Image.open(mask).mode == mode
+    np.testing.assert_array_equal(image_io.read_raw(mask),
+                                  np.asarray(Image.open(mask)))
+    jtool.convert(tmp_path / "src", tmp_path / "jax.json", 2)
+    ttool.main([str(tmp_path / "src"), str(tmp_path / "port.json"),
+                "--n-jobs", "2"])
+    got = (tmp_path / "port.json").read_text()
+    assert got == (tmp_path / "jax.json").read_text()
+    data = json.loads(got)
+    assert len(data["images"]) == 6 and len(data["annotations"]) >= 10
+    assert sum(not im["is_det_keyframe"] for im in data["images"]) == 1
+
+
+def _border_masks() -> dict:
+    """A COCO JSON of masks that touch every border, thin lines that an
+    opening removes, blobs and an annotation without a segmentation."""
+    from sam2_video_tpu_torch.data import rle as trle
+
+    g = np.random.default_rng(11)
+    anns = []
+    for i in range(8):
+        m = np.zeros((29, 37), np.uint8)
+        if i % 4 == 0:
+            m[:g.integers(3, 12), :] = 1             # the top border
+        elif i % 4 == 1:
+            m[:, -g.integers(1, 9):] = 1             # the right border
+            m[g.integers(0, 29), :] = 1              # a one-pixel line
+        elif i % 4 == 2:
+            m = (g.random((29, 37)) > 0.35).astype(np.uint8)
+        else:
+            yy, xx = np.mgrid[0:29, 0:37]
+            m = (((yy - 28) ** 2 + (xx - 2) ** 2) < 120).astype(np.uint8)
+        anns.append({"id": i, "image_id": 0, "category_id": i % 3,
+                     "segmentation": trle.encode(m), "area": int(m.sum())})
+    anns.append({"id": 8, "image_id": 0, "category_id": 0, "bbox": [0, 0, 1,
+                                                                     1]})
+    return {"images": [{"id": 0, "height": 29, "width": 37}],
+            "annotations": anns, "categories": [{"id": 0}, {"id": 1},
+                                                {"id": 2}]}
+
+
+@pytest.mark.parametrize("k", range(1, 8))
+def test_opening_equals_jax(k, tmp_path):
+    sys.path.insert(0, str(REPO / "data_tools"))
+    import apply_morphological_opening as jtool
+    import apply_morphological_opening_torch as ttool
+
+    src = tmp_path / "in.json"
+    src.write_text(json.dumps(_border_masks()))
+    want = jtool.apply_opening(json.loads(src.read_text()), k)
+    ttool.main([str(src), str(tmp_path / "out.json"), "--kernel-size",
+                str(k)])
+    assert (tmp_path / "out.json").read_text() == json.dumps(want)
+    assert 1 <= len(want["annotations"]) <= 9
+
+
+@pytest.mark.parametrize("frames", ["png", "jpeg"])
+def test_visualize_cv_equals_jax(frames, tmp_path, monkeypatch):
+    """The JAX tool's composites (what it hands to imageio) equal the
+    port's, over PNG frames (``make_synthetic_dataset``) and over the JPEG
+    fixture video (no ``path``: read from the working directory); the
+    port's GIF decodes within the quantiser step of them."""
+    import imageio
+
+    sys.path.insert(0, str(REPO / "reports"))
+    import visualize_cv as jtool
+    import visualize_cv_torch as ttool
+    from jpeg_fixtures import ROOT
+
+    if frames == "png":
+        coco = make_synthetic_dataset(tmp_path / "ds", num_videos=2,
+                                      frames_per_video=3, image_hw=(96, 112),
+                                      num_categories=3)
+    else:
+        coco = ROOT / "video" / "annotations.json"
+        monkeypatch.chdir(ROOT / "video" / "images")
+    gt = json.loads(coco.read_text())
+    preds = [dict(a, category_id=(a["category_id"] + 1) % 3)
+             for a in gt["annotations"][::2]]
+    (tmp_path / "predict.json").write_text(json.dumps(preds))
+    args = ["--predict", str(tmp_path / "predict.json"), "--coco", str(coco),
+            "--max-frames", "3", "--fps", "4"]
+    captured = {}
+    monkeypatch.setattr(imageio, "mimsave", lambda path, comps, **kw:
+                        captured.update({Path(path).name: (comps, kw)}))
+    monkeypatch.setattr(sys, "argv", ["visualize_cv.py", *args, "--out-dir",
+                                      str(tmp_path / "jax")])
+    jtool.main()
+    ttool.main([*args, "--out-dir", str(tmp_path / "port")])
+    assert sorted(captured) == sorted(
+        p.name for p in (tmp_path / "port").iterdir()) and len(captured) == 2
+    pal = tviz.palette()
+    for name, (comps, kw) in captured.items():
+        assert kw["duration"] == 250
+        comps = np.stack(comps)
+        gif = Image.open(tmp_path / "port" / name)
+        assert gif.n_frames == len(comps) == 3
+        for i in range(gif.n_frames):
+            gif.seek(i)
+            assert gif.info["duration"] == 250
+            got = np.asarray(gif.convert("RGB")).astype(np.int64)
+            np.testing.assert_array_equal(got, pal[tviz.quantize(comps[i])])
+            assert np.abs(got - comps[i]).max() <= tviz.QUANT_STEP
+    vids = ttool.composites(gt, preds, 3)
+    for vid, comps in vids.items():
+        want = np.stack(captured[f"{str(vid).strip('_')}.gif"][0])
+        np.testing.assert_array_equal(comps, want)
+
+
+def test_combo_generator_equals_jax_and_the_committed_tree(tmp_path,
+                                                           monkeypatch):
+    """Both generators (their output roots moved under ``tmp_path``), the
+    21 combos of each dataset and the fine-tuned variants of an eval list:
+    the same files byte for byte, and the combos equal to the committed
+    ``sam2_video_tpu_torch/configs/combo/`` (and to the JAX tree)."""
+    import generate_combo_yamls as jgen
+    import generate_combo_yamls_torch as tgen
+
+    monkeypatch.setattr(jgen, "OUT_ROOT", tmp_path / "jax")
+    monkeypatch.setattr(tgen, "OUT_ROOT", tmp_path / "port")
+    jgen.generate()
+    tgen.main([])
+    files = sorted(p.relative_to(tmp_path / "jax").as_posix()
+                   for p in (tmp_path / "jax").rglob("*.yaml"))
+    assert len(files) == 21 * len(jgen.DATASETS)
+    for rel in files:
+        body = (tmp_path / "port" / rel).read_bytes()
+        assert body == (tmp_path / "jax" / rel).read_bytes(), rel
+        for tree in ("sam2_video_tpu_torch", "sam2_video_tpu"):
+            assert body == (REPO / tree / "configs" / "combo" / rel
+                            ).read_bytes(), (tree, rel)
+    (tmp_path / "eval_list.md").write_text(
+        "- /ck/cholecseg8k_point_pe/cholecseg8k_point_pe_10.torch\n"
+        "- /ck/endovis18_bbox/endovis18_bbox_3.torch\n")
+    jgen.generate_from_eval_list(tmp_path / "eval_list.md")
+    tgen.main(["--datasets", "--eval-list", str(tmp_path / "eval_list.md")])
+    variants = sorted(p.relative_to(tmp_path / "jax").as_posix()
+                      for p in (tmp_path / "jax").rglob("*_*.yaml"))
+    assert len(variants) == 6
+    for rel in variants:
+        assert (tmp_path / "port" / rel).read_bytes() == (
+            tmp_path / "jax" / rel).read_bytes(), rel
