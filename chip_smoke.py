@@ -4,7 +4,7 @@ NVIDIA GPU. Run from the repository root:
 
     python3 chip_smoke.py [--seed 0]
         [--phases build,kernels,train,train_all,train_remat,train_cpu,serve,
-                  cpu,fit,jpeg,eval,ddp]
+                  cpu,fit,jpeg,formats,eval,ddp]
 
 Phases (all by default):
   build      compile every CUDA kernel from csrc/ (one nvcc per source, all
@@ -215,7 +215,8 @@ KERNEL_TOL = 2e-2             # of max(1, |plain|): bf16 rounding points differ
 ATTENTION_FLOOR = 0.0
 CPU_REL_L2_TOL = 0.1          # card bf16 vs CPU float32, over 4 frames
 PHASES = ("build", "kernels", "train", "train_all", "train_remat",
-          "train_cpu", "serve", "cpu", "fit", "jpeg", "eval", "ddp")
+          "train_cpu", "serve", "cpu", "fit", "jpeg", "formats", "eval",
+          "ddp")
 DEVICE = "cuda"
 FRAMES, OBJECTS, CHUNK = 16, 8, 8   # frames per video, objects, encode chunk
 TINY_GEOMETRY = {0: "window 8, no pad", 1: "q-pool, even window 8",
@@ -2584,6 +2585,233 @@ def phase_jpeg(cfg, seed: int, card: str):
     shutil.rmtree(work, ignore_errors=True)
 
 
+# the formats phase: every kind of frame and mask the JAX package reads
+# (formats fixtures), decode times beside baseline JPEG and 8-bit PNG, and
+# the path convert -> EndoVis conversion -> fit -> post-fit eval on CMYK
+# arithmetic-coded frames beside a PNG copy of them
+FORMATS_FIXTURES = ("sam2_video_tpu_torch", "data", "fixtures", "formats")
+FORMATS_FIT = JPEG_FIT[:-1] + ("trainer.enable_checkpointing=true",)
+
+
+def _png16(rgb16: np.ndarray) -> bytes:
+    """uint16 [H, W, 3] -> a 16-bit RGB PNG (filter type 0 on every row)."""
+    import struct
+    import zlib
+
+    from sam2_video_tpu_torch.data import image_io
+
+    H, W, _ = rgb16.shape
+    rows = np.concatenate([np.zeros((H, 1), np.uint8), rgb16.astype(
+        ">u2").reshape(H, W * 3).view(np.uint8)], 1)
+
+    def chunk(kind: bytes, payload: bytes) -> bytes:
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    return (image_io.PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 16, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def _sha256(a: np.ndarray) -> str:
+    """sha256 of an array's bytes in little-endian order (digests.json)."""
+    import hashlib
+
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(a.astype(a.dtype.newbyteorder("<")).tobytes()
+                          ).hexdigest()
+
+
+def phase_formats(cfg, seed: int, card: str):
+    """(a) Every formats fixture (arithmetic-coded, lossless, CMYK / YCCK
+    JPEG, 16-bit PNG; the CMYK video; the timing frames) read by the port
+    with the C++ helper, which must build, equal to its digests: Pillow's
+    ``convert("RGB")`` (the loader), OpenCV's ``imread`` or Pillow where it
+    reads nothing (the eval), ``np.asarray(Image.open())`` (``read_raw``).
+    (b) The median decode ms per 240x320 frame of each kind beside
+    baseline Huffman (the jpeg fixtures' video) and 8-bit PNG. (c) The
+    path: ``synthetic_params`` saved as a Meta-style ``{"model":
+    state_dict}`` checkpoint and converted by ``python -m
+    sam2_video_tpu_torch.training.convert`` (the npz equal to the weights
+    bit for bit); ``data_tools/convert_endovis_to_coco_torch.py`` on the
+    committed EndoVis tree of 16-bit masks, its JSON equal to the JAX
+    converter's committed sha256; ``train_torch.py`` from that npz on the
+    CMYK arithmetic-coded video (T=4, B=2, 3 train steps, one validation
+    batch) with its post-fit eval (predict.json, finite metrics). (d) The
+    same fit twice on a PNG copy of the loader's decoded frames (eval off):
+    the losses equal bit for bit when the two PNG runs are, else within
+    TRAIN_CPU_LOSS_TOL. (e) Kernels #1-#5 launched in the CMYK run (fit
+    and eval; counts at 0 just before it)."""
+    import hashlib
+    import os
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    import train_torch
+    from sam2_video_tpu_torch.data import host_build, image_io
+    from sam2_video_tpu_torch.training.checkpoint import load_params_npz
+
+    repo = Path(__file__).resolve().parent
+    root = repo.joinpath(*FORMATS_FIXTURES)
+    if host_build.load("jpeg_decode") is None:
+        raise SystemExit("formats: the C++ JPEG decoder (csrc/jpeg_decode."
+                         "cpp) did not build with g++")
+    digests = json.loads((root / "digests.json").read_text())
+    for rel, want in digests.items():
+        p = root / rel
+        got = {"sha256": _sha256(image_io.read_rgb(p)),
+               "opencv": _sha256(image_io.read_rgb(p, reader="opencv"))}
+        need = {"sha256": want["sha256"],
+                "opencv": want["opencv_sha256"] or want["sha256"]}
+        if p.suffix == ".png":
+            got["raw"] = _sha256(image_io.read_raw(p))
+            need["raw"] = want["raw_sha256"]
+        if got != need:
+            raise SystemExit(f"formats: {rel} decodes to {got}, not {need}")
+    print(f"formats (a): {len(digests)} fixtures read by the C++ helper, "
+          "each equal to its digests of Pillow's convert('RGB'), OpenCV's "
+          "imread and np.asarray(Image.open())", flush=True)
+
+    home = Path.cwd()
+    work = home / "outputs" / "chip_smoke_formats" / str(os.getpid())
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "png" / "images").mkdir(parents=True)
+    video = root / "video"
+    base = repo.joinpath(*JPEG_FIXTURES) / "video" / "images"
+    plain = sorted(base.glob("*.jpg"))
+    for i, p in enumerate(plain[::8]):
+        rgb = image_io.read_rgb(p)
+        image_io.write_png(work / f"png8_{i}.png", rgb)
+        (work / f"png16_{i}.png").write_bytes(_png16(rgb.astype(np.uint16)
+                                                     * 257))
+    kinds = {"baseline Huffman YCbCr 4:2:0": plain,
+             "arithmetic-coded YCbCr 4:2:0": sorted(
+                 (root / "timing").glob("arith_*.jpg")),
+             "CMYK Huffman": sorted((root / "timing").glob("cmyk_*.jpg")),
+             "CMYK arithmetic-coded": sorted(
+                 (video / "images").glob("*.jpg")),
+             "lossless RGB": sorted((root / "timing").glob("lossless_*.jpg")),
+             "8-bit RGB PNG": sorted(work.glob("png8_*.png")),
+             "16-bit RGB PNG": sorted(work.glob("png16_*.png"))}
+    decode_ms = {k: float(np.median([_median_ms(image_io.read_rgb, p)
+                                     for p in files]))
+                 for k, files in kinds.items()}
+    print("formats (b): decode ms per 240x320 frame (read_rgb, the loader's "
+          f"bits), median over the files of the median of "
+          f"{JPEG_DECODE_REPEATS} reads of each: "
+          + ", ".join(f"{k} {v:.3f} ({len(kinds[k])} files)"
+                      for k, v in decode_ms.items())
+          + f"; one thread, warm page cache; host {host_cpu()}; {card}",
+          flush=True)
+
+    ckpt, npz = work / "sam2.1_hiera_tiny_synthetic.pt", work / "tiny.npz"
+    weights = {k: v.detach().clone()
+               for k, v in synthetic_params(cfg, seed).named_parameters()}
+    torch.save({"model": weights}, ckpt)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "sam2_video_tpu_torch.training.convert",
+         str(ckpt), str(npz), "--backbone", "tiny", "--image-size",
+         str(cfg.image_size)], cwd=repo, capture_output=True, text=True,
+        timeout=600)
+    if out.returncode or "0 missing, 0 unexpected" not in out.stdout:
+        raise SystemExit(f"formats: the converter CLI: {out.stdout} "
+                         f"{out.stderr[-2000:]}")
+    loaded = load_params_npz(npz)
+    if sorted(loaded) != sorted(weights) or any(
+            not torch.equal(loaded[k], v) for k, v in weights.items()):
+        raise SystemExit("formats: the converted npz differs from the "
+                         "checkpoint's weights")
+    print(f"formats (c) converter CLI: {out.stdout.strip()} in "
+          f"{time.perf_counter() - t0:.1f} s; the npz loads back equal to the "
+          f"checkpoint's {len(weights)} tensors bit for bit", flush=True)
+
+    src = (root / "endovis16").relative_to(repo)
+    out = subprocess.run(
+        [sys.executable, "data_tools/convert_endovis_to_coco_torch.py",
+         str(src), str(work / "endovis16.json"), "--n-jobs", "2"],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    got = None if out.returncode else hashlib.sha256(
+        (work / "endovis16.json").read_bytes()).hexdigest()
+    want = (root / "endovis16.json.sha256").read_text().strip()
+    if out.returncode or got != want:
+        raise SystemExit(f"formats: the EndoVis converter on {src}: "
+                         f"{out.stdout} {out.stderr[-2000:]} sha256 {got} "
+                         f"!= {want}")
+    anns = json.loads((work / "endovis16.json").read_text())["annotations"]
+    print(f"formats (c) EndoVis converter on 16-bit class-id masks (ids "
+          f"256-65535): {len(anns)} annotations, the JSON's sha256 equal to "
+          "the JAX converter's", flush=True)
+
+    ann = json.loads((video / "annotations.json").read_text())
+    for im in ann["images"]:
+        rgb = image_io.read_rgb(video / "images" / im["file_name"])
+        im["file_name"] = im["file_name"].replace(".jpg", ".png")
+        image_io.write_png(work / "png" / "images" / im["file_name"], rgb)
+    (work / "png" / "annotations.json").write_text(json.dumps(ann))
+    datasets = {"cmyk": (video / "annotations.json", video / "images"),
+                "png": (work / "png" / "annotations.json",
+                        work / "png" / "images")}
+
+    def cli(name, which, evaluate):
+        json_path, images = datasets[which]
+        (work / name).mkdir()
+        os.chdir(work / name)
+        try:
+            run_dir, _ = train_torch.run(
+                fit_overrides(json_path, npz) + list(FORMATS_FIT)
+                + [f"data.image_root={images}",
+                   f"eval.enabled={str(evaluate).lower()}"])
+        finally:
+            os.chdir(home)
+        log = [(r["split"], r["step"],
+                r.get("train/total_loss", r.get("val/total_loss")))
+               for r in _fit_log(work / name / run_dir)]
+        return log, work / name / run_dir
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cmyk_log, run = cli("run_cmyk", "cmyk", True)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    metrics = json.loads((run / "eval" / "metrics.json").read_text())
+    m = {k: metrics[f"eval/{k}"] for k in ("dice", "iou", "mae")}
+    if not (run / "eval" / "predict.json").exists() or not all(
+            np.isfinite(v) for v in m.values()):
+        raise SystemExit(f"formats: post-fit eval {m} in {run / 'eval'}")
+    png_log, _ = cli("run_png", "png", False)
+    png_again, _ = cli("run_png_again", "png", False)
+    print("formats (d) losses (split, step, total_loss): CMYK "
+          + json.dumps(cmyk_log) + ", PNG " + json.dumps(png_log)
+          + ", PNG again " + json.dumps(png_again), flush=True)
+    losses = [v for _, _, v in cmyk_log]
+    if len(cmyk_log) != 4 or not all(np.isfinite(losses)):
+        raise SystemExit(f"formats fit: log {cmyk_log}")
+    repeat = png_log == png_again
+    for (s, i, a), (s2, i2, b) in zip(cmyk_log, png_log, strict=True):
+        rel = abs(a - b) / max(abs(b), 1e-12)
+        if (s, i) != (s2, i2) or (a != b if repeat
+                                  else not rel <= TRAIN_CPU_LOSS_TOL):
+            raise SystemExit(f"formats fit: {s} step {i} loss {a} on CMYK "
+                             f"frames, {b} on their PNG copy")
+    print("formats (d): the CMYK run's losses "
+          + ("equal the PNG run's bit for bit (two PNG runs repeat bit for "
+             "bit)" if repeat else
+             f"within {TRAIN_CPU_LOSS_TOL} of the PNG run's (two PNG runs "
+             "differ: the card's training does not repeat bit for bit)"),
+          flush=True)
+    _require(counts, FIT_REQUIRED, "formats fit and post-fit eval")
+    print(f"formats (c) train_torch.py from the converted npz on 2 x 8 CMYK "
+          f"arithmetic-coded 240x320 frames, T=4 B=2 O=8 384px bf16, 3 "
+          f"steps, a validation and the post-fit eval (OpenCV's bits): "
+          f"{wall:.1f} s; eval metrics " + json.dumps(m) + f"; {card}",
+          flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+
 # the eval phase: the predictor both ways, several conditioning frames, a
 # correction click; then the train CLI's post-fit eval
 EVAL_FRAMES, EVAL_PROMPT_FRAME = 16, 8
@@ -3684,6 +3912,9 @@ def main() -> int:
     if "jpeg" in phases:
         phase_jpeg(cfg, args.seed, card)
         lap("jpeg")
+    if "formats" in phases:
+        phase_formats(cfg, args.seed, card)
+        lap("formats")
     if "eval" in phases:
         cpu_run = phase_eval_predictor(params, cfg, args.seed, OBJECTS)
         phase_eval_batched(params, cfg, args.seed, OBJECTS, cpu_run)

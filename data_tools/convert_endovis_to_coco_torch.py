@@ -5,9 +5,10 @@ to the extended COCO format the training pipeline consumes
 with the PyTorch/CUDA port and without Pillow (the counterpart of
 ``convert_endovis_to_coco.py``, with the same CLI and the same output):
 frame sizes from the image headers (``data/image_io.py`` ``image_size``),
-class-id masks as their raw grey values or palette indices
-(``read_raw``, what ``np.asarray(Image.open(...))`` gives), RLEs from the
-port's codec (``data/rle.py``). Conversion runs in a thread pool.
+class-id masks as their raw grey values (16-bit masks as uint16, so ids
+above 255 match) or palette indices (``read_raw``, what
+``np.asarray(Image.open(...))`` gives), RLEs from the port's codec
+(``data/rle.py``). Conversion runs in a thread pool.
 
 Expected source layout:
     <source>/labels.json                 [{"name": ..., "classid"|"color": ...}]

@@ -1,18 +1,23 @@
-// JPEG decoding to RGB, bit for bit what Pillow's
-// Image.open(path).convert("RGB") gives (libjpeg-turbo with its defaults):
-// host code for the data pipeline's image reader
-// (sam2_video_tpu_torch/data/image_io.py, whose decode_jpeg_numpy is the
-// reference this file follows step by step).
+// JPEG decoding, bit for bit what libjpeg-turbo gives Pillow's
+// Image.open(path) and OpenCV's imread (image_io.py turns 4-component
+// output into RGB as each of them does): host code for the data pipeline's
+// image reader (sam2_video_tpu_torch/data/image_io.py, whose
+// jpeg_samples_numpy is the reference this file follows step by step).
 //
-// Baseline and extended sequential Huffman (SOF0, SOF1) and progressive
-// Huffman (SOF2), 8-bit samples, 1 (grey) or 3 components (YCbCr, or RGB by
-// an Adobe transform 0 or the component ids 'R', 'G', 'B'), any sampling
-// factors that divide the largest, restart intervals. libjpeg's islow
-// integer IDCT (jidctint.c) with its output saturated as libjpeg-turbo's
-// SIMD code does, fancy upsampling (jdsample.c: h2v1, h1v2 and h2v2
-// triangle filters, box replication otherwise), jdcolor.c's fixed-point
-// YCbCr -> RGB. EXIF orientation is not applied (Pillow's open does not).
-// Everything else (arithmetic coding, lossless, 12-bit, CMYK/YCCK, a
+// Sequential and progressive DCT, Huffman-coded (SOF0-SOF2, jdhuff.c,
+// jdphuff.c) or arithmetic-coded (SOF9, SOF10, jdarith.c: the QM coder,
+// DAC conditioning), and lossless Huffman (SOF3: jdlhuff.c differences,
+// jdpred.c predictors 1-7, the point transform). 8-bit samples, 1 (grey),
+// 3 (YCbCr, or RGB by an Adobe transform 0, the component ids 'R', 'G',
+// 'B' or, in lossless mode, any ids without a JFIF marker) or 4 components
+// (CMYK, or YCCK by an Adobe transform other than 0), any sampling factors
+// that divide the largest, restart intervals. libjpeg's islow integer IDCT
+// (jidctint.c) with its output saturated as libjpeg-turbo's SIMD code
+// does, fancy upsampling (jdsample.c: h2v1, h1v2 and h2v2 triangle
+// filters, box replication otherwise and always in lossless mode),
+// jdcolor.c's fixed-point YCbCr -> RGB and YCCK -> CMYK. EXIF orientation
+// is not applied (neither reader does here). Everything else (hierarchical
+// or arithmetic lossless coding, 12-bit, lossless YCbCr or YCCK, a
 // truncated or corrupt stream, an unknown marker) is refused with a
 // message. Built with g++ on first use and loaded with ctypes.
 
@@ -72,20 +77,73 @@ struct Huffman {
     }
 };
 
+// T.81 Table D.2 as libjpeg's jaricom.c packs it: Qe << 16 |
+// Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS; entry 113 is the
+// fixed bin (probability 0.5) of signs and DC refinement bits
+const uint32_t kAritab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
+
 struct Component {
     int id = 0, h = 1, v = 1, tq = 0, td = 0, ta = 0;
     int w = 0, hgt = 0;    // downsampled size
-    int bw = 0, bh = 0;    // blocks across and down, the MCU padding in
-    std::vector<int32_t> coef;
+    int bw = 0, bh = 0;    // blocks (lossless: samples) across and down,
+                           // the MCU padding in
+    std::vector<int32_t> coef;      // DCT coefficients or lossless
+                                    // differences
+    std::vector<uint8_t> samples;   // lossless: hgt x w after a scan
     bool latched = false;
     int32_t q[64] = {};    // quantisation table, natural order
 };
 
+enum Space { kGrey, kRGB, kYCbCr, kCMYK, kYCCK };
+
 struct Frame {
-    bool progressive = false, jfif = false;
+    bool progressive = false, arithmetic = false, lossless = false;
+    bool jfif = false;
     int adobe = -1;
     int width = 0, height = 0, hmax = 1, vmax = 1;
+    // DAC conditioning of the 16 arithmetic tables, as SOI resets them
+    int dc_l[16], dc_u[16], ac_k[16];
     std::vector<Component> comps;
+
+    Frame() {
+        for (int t = 0; t < 16; ++t) {
+            dc_l[t] = 0;
+            dc_u[t] = 1;
+            ac_k[t] = 5;
+        }
+    }
+    int unit() const { return lossless ? 1 : 8; }
+    // jdapimin.c default_decompress_parms
+    Space space() const {
+        const size_t n = comps.size();
+        if (n == 1) return kGrey;
+        if (n == 4) return adobe > 0 ? kYCCK : kCMYK;
+        if (jfif) return kYCbCr;
+        if (adobe >= 0) return adobe == 0 ? kRGB : kYCbCr;
+        if (lossless || (comps[0].id == 82 && comps[1].id == 71 &&
+                         comps[2].id == 66))
+            return kRGB;
+        return kYCbCr;
+    }
 };
 
 // the bits of one restart interval, byte stuffing removed, zeros past the
@@ -128,6 +186,52 @@ struct Bits {
     }
 };
 
+// jdarith.c arith_decode over one interval's bytes, zeros past the end
+struct ArithDec {
+    const uint8_t* b;
+    int64_t n = 0, pos = 0, c = 0, a = 0;
+    int ct = -16;  // two bytes are read first
+
+    int operator()(uint8_t* st) {
+        while (a < 0x8000) {
+            if (--ct < 0) {
+                c = (c << 8) | (pos < n ? b[pos] : 0);
+                ++pos;
+                if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
+            }
+            a <<= 1;
+        }
+        int sv = *st;
+        const uint32_t e = kAritab[sv & 0x7F];
+        const int nl = e & 0xFF, nm = (e >> 8) & 0xFF;
+        const int64_t qe = e >> 16;
+        a -= qe;
+        const int64_t temp = a << ct;
+        if (c >= temp) {
+            c -= temp;
+            if (a < qe) {           // conditional LPS exchange
+                *st = (uint8_t)((sv & 0x80) ^ nm);
+            } else {
+                *st = (uint8_t)((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            }
+            a = qe;
+        } else if (a < 0x8000) {    // conditional MPS exchange
+            if (a < qe) {
+                *st = (uint8_t)((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            } else {
+                *st = (uint8_t)((sv & 0x80) ^ nm);
+            }
+        }
+        return sv >> 7;
+    }
+};
+
+inline int32_t int16_of(int64_t v) {  // as libjpeg's JCOEF holds it
+    return (int32_t)(int16_t)(uint16_t)(v & 0xFFFF);
+}
+
 // zero bytes after an interval's data: more than one block can read
 constexpr int kSlack = 512;
 
@@ -139,6 +243,10 @@ struct Scan {
     int ss, se, ah, al, restart;
     int pred[4];
     int eobrun;
+    // arithmetic coding: statistics bins per conditioning table
+    uint8_t dc_stats[16][64], ac_stats[16][256], fixed;
+    int64_t last_dc[4];
+    int dc_ctx[4];
 
     void ac_first(Bits& bits, int32_t* coef, const Huffman& t) {
         if (eobrun) {
@@ -199,7 +307,10 @@ struct Scan {
     }
 
     void block(Bits& bits, int slot, int32_t* coef) {
-        if (!f->progressive) {
+        if (f->lossless) {  // jdlhuff.c: a sample's difference
+            const int s = bits.sym(*dc[slot]);
+            coef[0] = s == 16 ? 32768 : bits.value(s);
+        } else if (!f->progressive) {
             pred[slot] += bits.value(bits.sym(*dc[slot]));
             coef[0] = pred[slot];
             const Huffman& t = *ac[slot];
@@ -230,19 +341,138 @@ struct Scan {
         if (bits.p > bits.end) fail("truncated or corrupt JPEG data");
     }
 
+    // jdarith.c Figures F.23 and F.24 from bin st[i]: |v| - 1; a DC
+    // category continues at bin 20 (X1), an AC one past its second
+    // decision at ac_bins (X2: 189 or 217)
+    int magnitude(ArithDec& d, uint8_t* st, int i, int ac_bins) {
+        int m = d(st + i);
+        if (m && (!ac_bins || d(st + i))) {
+            if (ac_bins) m <<= 1;
+            i = ac_bins ? ac_bins : 20;
+            while (d(st + i)) {
+                if ((m <<= 1) == 0x8000)
+                    fail("corrupt JPEG data (arithmetic magnitude "
+                         "overflow)");
+                ++i;
+            }
+        }
+        int v = m;
+        i += 14;
+        while (m >>= 1)
+            if (d(st + i)) v |= m;
+        return v;
+    }
+
+    // Figure F.19 with the conditioning of F.1.4.4.1.2
+    int dc_diff(ArithDec& d, int slot, int tbl) {
+        uint8_t* st = dc_stats[tbl];
+        const int s0 = dc_ctx[slot];
+        if (!d(st + s0)) {
+            dc_ctx[slot] = 0;
+            return 0;
+        }
+        const int sign = d(st + s0 + 1);
+        const int v = magnitude(d, st, s0 + 2 + sign, 0);
+        int m = 0;
+        for (int t = v; t; t >>= 1) m = m ? m << 1 : 1;
+        if (m < ((1 << f->dc_l[tbl]) >> 1))
+            dc_ctx[slot] = 0;
+        else if (m > ((1 << f->dc_u[tbl]) >> 1))
+            dc_ctx[slot] = 12 + 4 * sign;
+        else
+            dc_ctx[slot] = 4 + 4 * sign;
+        return sign ? -(v + 1) : v + 1;
+    }
+
+    // Figure F.20 over ss..se, each value << shift
+    void arith_ac(ArithDec& d, int32_t* coef, int tbl, int from, int to,
+                  int shift) {
+        uint8_t* st = ac_stats[tbl];
+        for (int k = from; k <= to; ++k) {
+            int i = 3 * (k - 1);
+            if (d(st + i)) break;  // EOB
+            while (!d(st + i + 1)) {
+                i += 3;
+                if (++k > to)
+                    fail("corrupt JPEG data (arithmetic spectral overflow)");
+            }
+            const int sign = d(&fixed);
+            const int v = magnitude(d, st, i + 2,
+                                    k <= f->ac_k[tbl] ? 189 : 217) + 1;
+            coef[kZigzag[k]] = int16_of((int64_t)(uint32_t)(sign ? -v : v)
+                                        << shift);
+        }
+    }
+
+    void arith_ac_refine(ArithDec& d, int32_t* coef, int tbl) {
+        uint8_t* st = ac_stats[tbl];
+        const int p1 = 1 << al, m1 = -(1 << al);
+        int kex = se;
+        while (kex > 0 && !coef[kZigzag[kex]]) --kex;
+        for (int k = ss; k <= se; ++k) {
+            int i = 3 * (k - 1);
+            if (k > kex && d(st + i)) break;  // EOB
+            for (;;) {
+                int32_t& c = coef[kZigzag[k]];
+                if (c) {  // previously nonzero
+                    if (d(st + i + 2)) c += c < 0 ? m1 : p1;
+                    break;
+                }
+                if (d(st + i + 1)) {  // newly nonzero
+                    c = d(&fixed) ? m1 : p1;
+                    break;
+                }
+                i += 3;
+                if (++k > se)
+                    fail("corrupt JPEG data (arithmetic spectral overflow)");
+            }
+        }
+    }
+
+    void arith_block(ArithDec& d, int slot, int32_t* coef) {
+        const Component& c = f->comps[comps[slot]];
+        if (!f->progressive) {
+            last_dc[slot] = (last_dc[slot] + dc_diff(d, slot, c.td)) & 0xFFFF;
+            coef[0] = int16_of(last_dc[slot]);
+            arith_ac(d, coef, c.ta, 1, 63, 0);
+        } else if (ss == 0) {
+            if (ah == 0) {
+                last_dc[slot] += dc_diff(d, slot, c.td);
+                coef[0] = int16_of((int64_t)((uint64_t)last_dc[slot] << al));
+            } else if (d(&fixed)) {
+                coef[0] |= 1 << al;
+            }
+        } else if (ah == 0) {
+            arith_ac(d, coef, c.ta, ss, se, al);
+        } else {
+            arith_ac_refine(d, coef, c.ta);
+        }
+    }
+
+    // lossless: MCUs in an MCU row, of which the restart interval must be
+    // a whole number (jddiffct.c: the predictors restart with a row)
+    int mcus_per_row() const {
+        if (comps.size() == 1) return f->comps[comps[0]].w;
+        return (f->width + f->hmax - 1) / f->hmax;
+    }
+
     // intervals: unstuffed bytes, each followed by kSlack zero bytes
     void run(const std::vector<std::vector<uint8_t>>& intervals) {
-        // each MCU's blocks: (slot, component, block offset)
+        if (f->lossless && restart % mcus_per_row())
+            fail("lossless JPEG whose restart interval is not a whole "
+                 "number of MCU rows");
+        // each MCU's blocks (lossless: samples), in the scan's order
+        const int u = f->unit(), size = u * u;
         int64_t mcus;
         int mcux = 0;
         if (comps.size() == 1) {
             Component& c = f->comps[comps[0]];
-            mcux = (c.w + 7) / 8;
-            mcus = (int64_t)mcux * ((c.hgt + 7) / 8);
+            mcux = (c.w + u - 1) / u;
+            mcus = (int64_t)mcux * ((c.hgt + u - 1) / u);
         } else {
-            mcux = (f->width + 8 * f->hmax - 1) / (8 * f->hmax);
+            mcux = (f->width + u * f->hmax - 1) / (u * f->hmax);
             mcus = (int64_t)mcux *
-                   ((f->height + 8 * f->vmax - 1) / (8 * f->vmax));
+                   ((f->height + u * f->vmax - 1) / (u * f->vmax));
         }
         int64_t per = restart ? restart : mcus;
         int64_t want = mcus ? (mcus + per - 1) / per : 1;
@@ -254,70 +484,124 @@ struct Scan {
             Bits bits;
             bits.b = seg.data();
             bits.end = 8 * ((int64_t)seg.size() - kSlack);
-            for (int i = 0; i < 4; ++i) pred[i] = 0;
+            ArithDec dec;
+            dec.b = seg.data();
+            dec.n = (int64_t)seg.size() - kSlack;
+            for (int i = 0; i < 4; ++i) {
+                pred[i] = dc_ctx[i] = 0;
+                last_dc[i] = 0;
+            }
             eobrun = 0;
+            std::memset(dc_stats, 0, sizeof(dc_stats));
+            std::memset(ac_stats, 0, sizeof(ac_stats));
+            fixed = 113;
+            auto one = [&](int slot, int32_t* coef) {
+                if (f->arithmetic)
+                    arith_block(dec, slot, coef);
+                else
+                    block(bits, slot, coef);
+            };
             int64_t stop = m + per < mcus ? m + per : mcus;
             for (; m < stop; ++m) {
                 int my = (int)(m / mcux), mx = (int)(m % mcux);
                 if (comps.size() == 1) {
                     Component& c = f->comps[comps[0]];
-                    block(bits, 0, &c.coef[((int64_t)my * c.bw + mx) * 64]);
+                    one(0, &c.coef[((int64_t)my * c.bw + mx) * size]);
                 } else {
                     for (size_t s = 0; s < comps.size(); ++s) {
                         Component& c = f->comps[comps[s]];
                         for (int y = 0; y < c.v; ++y)
                             for (int x = 0; x < c.h; ++x)
-                                block(bits, (int)s,
-                                      &c.coef[(((int64_t)my * c.v + y) * c.bw +
-                                               mx * c.h + x) * 64]);
+                                one((int)s,
+                                    &c.coef[(((int64_t)my * c.v + y) * c.bw +
+                                             mx * c.h + x) * size]);
                     }
                 }
             }
+        }
+    }
+
+    // jdpred.c over a lossless component's differences -> its samples:
+    // the first row of the scan and of each restart interval predicted
+    // from the left (its first sample from 2^(7 - Pt)), the first column
+    // from above, the rest by the predictor ss; sums modulo 2^16, shifted
+    // left by the point transform al and cut to 8 bits as JSAMPLE does
+    void undifference(Component& c) {
+        int rows = restart / mcus_per_row() * (comps.size() == 1 ? 1 : c.v);
+        if (!rows) rows = c.hgt;
+        std::vector<int32_t> cur(c.w), prev(c.w);
+        c.samples.assign((size_t)c.w * c.hgt, 0);
+        for (int y = 0; y < c.hgt; ++y) {
+            const int32_t* d = &c.coef[(size_t)y * c.bw];
+            int32_t ra;
+            if (y % rows == 0) {
+                ra = (d[0] + (1 << (7 - al))) & 0xFFFF;
+                cur[0] = ra;
+                for (int x = 1; x < c.w; ++x)
+                    cur[x] = ra = (d[x] + ra) & 0xFFFF;
+            } else {
+                int32_t rb = prev[0], rc;
+                cur[0] = ra = (d[0] + rb) & 0xFFFF;
+                for (int x = 1; x < c.w; ++x) {
+                    rc = rb;
+                    rb = prev[x];
+                    int32_t p;
+                    switch (ss) {
+                    case 1: p = ra; break;
+                    case 2: p = rb; break;
+                    case 3: p = rc; break;
+                    case 4: p = ra + rb - rc; break;
+                    case 5: p = ra + ((rb - rc) >> 1); break;
+                    case 6: p = rb + ((ra - rc) >> 1); break;
+                    default: p = (ra + rb) >> 1; break;
+                    }
+                    cur[x] = ra = (d[x] + p) & 0xFFFF;
+                }
+            }
+            uint8_t* out = &c.samples[(size_t)y * c.w];
+            for (int x = 0; x < c.w; ++x) out[x] = (uint8_t)(cur[x] << al);
+            prev.swap(cur);
         }
     }
 };
 
 const char* sof_refused(int marker) {
     switch (marker) {
-    case 0xC3: return "lossless JPEG (SOF3) is not supported";
-    case 0xC5: return "hierarchical JPEG (SOF5) is not supported";
-    case 0xC6: return "hierarchical JPEG (SOF6) is not supported";
-    case 0xC7: return "hierarchical lossless JPEG (SOF7) is not supported";
-    case 0xC9: return "arithmetic-coded JPEG (SOF9) is not supported";
-    case 0xCA:
-        return "arithmetic-coded progressive JPEG (SOF10) is not supported";
-    case 0xCB:
-        return "arithmetic-coded lossless JPEG (SOF11) is not supported";
-    case 0xCC: return "arithmetic-coded JPEG (DAC marker) is not supported";
-    case 0xCD:
-        return "arithmetic-coded hierarchical JPEG (SOF13) is not supported";
-    case 0xCE:
-        return "arithmetic-coded hierarchical JPEG (SOF14) is not supported";
-    case 0xCF:
-        return "arithmetic-coded hierarchical lossless JPEG (SOF15) is not "
-               "supported";
+    case 0xC5: return "hierarchical JPEG (SOF5)";
+    case 0xC6: return "hierarchical progressive JPEG (SOF6)";
+    case 0xC7: return "hierarchical lossless JPEG (SOF7)";
+    case 0xCB: return "arithmetic-coded lossless JPEG (SOF11)";
+    case 0xCD: return "arithmetic-coded hierarchical JPEG (SOF13)";
+    case 0xCE: return "arithmetic-coded hierarchical JPEG (SOF14)";
+    case 0xCF: return "arithmetic-coded hierarchical lossless JPEG (SOF15)";
     }
     return nullptr;
 }
 
-bool is_sof(int m) { return m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8; }
+bool is_sof(int m) {
+    return m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC;
+}
 
 void read_sof(Frame& f, int marker, const uint8_t* b, int64_t len) {
     if (!f.comps.empty()) fail("JPEG with two frame headers");
-    if (const char* why = sof_refused(marker)) fail(why);
+    if (const char* why = sof_refused(marker))
+        fail(std::string(why) +
+             " is not supported (libjpeg, and so Pillow, does not decode "
+             "it)");
     if (len < 6) fail("JPEG frame header is truncated");
     int precision = b[0], h = (b[1] << 8) | b[2], w = (b[3] << 8) | b[4];
     int n = b[5];
     if (precision != 8)
         fail(std::to_string(precision) +
              "-bit JPEG is not supported (8-bit only)");
-    if (n == 4) fail("4-component (CMYK/YCCK) JPEG is not supported");
-    if (n != 1 && n != 3)
+    if (n != 1 && n != 3 && n != 4)
         fail(std::to_string(n) + "-component JPEG is not supported");
     if (h == 0 || w == 0)
         fail("JPEG of size 0 (or with a DNL marker) is not supported");
     if (len < 6 + 3 * n) fail("JPEG frame header is truncated");
-    f.progressive = marker == 0xC2;
+    f.progressive = marker == 0xC2 || marker == 0xCA;
+    f.arithmetic = marker == 0xC9 || marker == 0xCA;
+    f.lossless = marker == 0xC3;
     f.width = w;
     f.height = h;
     for (int i = 0; i < n; ++i) {
@@ -334,8 +618,9 @@ void read_sof(Frame& f, int marker, const uint8_t* b, int64_t len) {
         f.hmax = c.h > f.hmax ? c.h : f.hmax;
         f.vmax = c.v > f.vmax ? c.v : f.vmax;
     }
-    int mcux = (w + 8 * f.hmax - 1) / (8 * f.hmax);
-    int mcuy = (h + 8 * f.vmax - 1) / (8 * f.vmax);
+    const int u = f.unit();
+    int mcux = (w + u * f.hmax - 1) / (u * f.hmax);
+    int mcuy = (h + u * f.vmax - 1) / (u * f.vmax);
     for (auto& c : f.comps) {
         if (f.hmax % c.h || f.vmax % c.v)
             fail("JPEG sampling factors that do not divide the largest are "
@@ -344,7 +629,23 @@ void read_sof(Frame& f, int marker, const uint8_t* b, int64_t len) {
         c.hgt = (int)(((int64_t)h * c.v + f.vmax - 1) / f.vmax);
         c.bw = mcux * c.h;
         c.bh = mcuy * c.v;
-        c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+        c.coef.assign((size_t)c.bw * c.bh * u * u, 0);
+    }
+}
+
+void read_dac(Frame& f, const uint8_t* b, int64_t len) {
+    if (len % 2) fail("bad JPEG arithmetic conditioning (DAC) segment");
+    for (int64_t i = 0; i < len; i += 2) {
+        const int t = b[i], val = b[i + 1];
+        if (t >= 32) fail("bad JPEG arithmetic conditioning (DAC) segment");
+        if (t >= 16) {
+            f.ac_k[t - 16] = val;
+        } else {
+            if ((val & 15) > (val >> 4))
+                fail("bad JPEG arithmetic conditioning (DAC) value");
+            f.dc_l[t] = val & 15;
+            f.dc_u[t] = val >> 4;
+        }
     }
 }
 
@@ -466,7 +767,7 @@ void upsample(const uint8_t* in, int pitch, int w, int hgt, int hx, int vy,
 }
 
 void decode(const uint8_t* data, int64_t n, int64_t height, int64_t width,
-            uint8_t* rgb) {
+            int64_t channels, uint8_t* out) {
     if (n < 3 || data[0] != 0xFF || data[1] != 0xD8 || data[2] != 0xFF)
         fail("not a JPEG file");
     Frame f;
@@ -525,14 +826,22 @@ void decode(const uint8_t* data, int64_t n, int64_t height, int64_t width,
                 huff[tc][th].build(body + i + 1, body + i + 17, total);
                 i += 17 + total;
             }
+        } else if (marker == 0xCC) {
+            read_dac(f, body, len);
         } else if (marker == 0xDD) {
             if (len < 2) fail("bad JPEG restart interval");
             restart = (body[0] << 8) | body[1];
-        } else if (is_sof(marker) || marker == 0xCC) {
-            read_sof(f, marker, body, len);  // refuses 0xCC (DAC)
+        } else if (is_sof(marker)) {
+            read_sof(f, marker, body, len);
         } else if (marker == 0xDA) {
             if (f.comps.empty())
                 fail("JPEG scan before its frame header (SOF)");
+            if (!seen_sos && f.lossless &&
+                (f.space() == kYCbCr || f.space() == kYCCK))
+                fail(std::string("lossless JPEG in ") +
+                     (f.space() == kYCbCr ? "YCbCr" : "YCCK") +
+                     " is not supported (libjpeg converts no colours in "
+                     "lossless mode, so Pillow cannot read it)");
             seen_sos = true;
             if (len < 1 || len < 1 + 2 * body[0] + 3)
                 fail("JPEG scan header is truncated");
@@ -554,13 +863,13 @@ void decode(const uint8_t* data, int64_t n, int64_t height, int64_t width,
                 Component& c = f.comps[ci];
                 c.td = t >> 4;
                 c.ta = t & 15;
-                if (c.td > 3 || c.ta > 3)
+                if (!f.arithmetic && (c.td > 3 || c.ta > 3))
                     fail("JPEG scan without its Huffman table");
                 scan.comps.push_back(ci);
-                scan.dc[i] = &huff[0][c.td];
-                scan.ac[i] = &huff[1][c.ta];
+                scan.dc[i] = &huff[0][c.td & 3];
+                scan.ac[i] = &huff[1][c.ta & 3];
                 blocks += c.h * c.v;
-                if (!c.latched) {
+                if (!c.latched && !f.lossless) {
                     if (!qdef[c.tq])
                         fail("JPEG component without a quantisation table");
                     std::memcpy(c.q, qt[c.tq], sizeof(c.q));
@@ -574,7 +883,11 @@ void decode(const uint8_t* data, int64_t n, int64_t height, int64_t width,
             scan.restart = restart;
             if (ns > 1 && blocks > 10)
                 fail("JPEG scan with more than 10 blocks per MCU");
-            if (f.progressive) {
+            if (f.lossless) {
+                if (scan.ss < 1 || scan.ss > 7 || scan.se || scan.ah ||
+                    scan.al > 7)
+                    fail("bad lossless JPEG scan parameters");
+            } else if (f.progressive) {
                 if (scan.ss > scan.se || scan.se > 63 ||
                     (scan.ss == 0) != (scan.se == 0) || scan.al > 13 ||
                     scan.ah > 13 || (scan.ss && ns != 1))
@@ -582,8 +895,9 @@ void decode(const uint8_t* data, int64_t n, int64_t height, int64_t width,
             } else if (scan.ss != 0 || scan.se != 63 || scan.ah || scan.al) {
                 fail("bad sequential JPEG scan parameters");
             }
-            for (int i = 0; i < ns; ++i) {
-                if (scan.ss == 0 && !(f.progressive && scan.ah) &&
+            for (int i = 0; i < ns && !f.arithmetic; ++i) {
+                if ((f.lossless || (scan.ss == 0 &&
+                                    !(f.progressive && scan.ah))) &&
                     !scan.dc[i]->defined)
                     fail("JPEG scan without its Huffman table");
                 if (scan.se && !scan.ac[i]->defined)
@@ -616,6 +930,8 @@ void decode(const uint8_t* data, int64_t n, int64_t height, int64_t width,
             }
             for (auto& seg : intervals) seg.resize(seg.size() + kSlack, 0);
             scan.run(intervals);
+            if (f.lossless)
+                for (int ci : scan.comps) scan.undifference(f.comps[ci]);
         } else if (marker == 0xDC && seen_sos) {
             // DNL after a scan
         } else {
@@ -628,37 +944,62 @@ void decode(const uint8_t* data, int64_t n, int64_t height, int64_t width,
     if (!seen_sos) fail("JPEG without image data (no scan)");
     if (f.height != height || f.width != width)
         fail("JPEG size differs from its header's");
+    if (channels != (f.comps.size() == 4 ? 4 : 3))
+        fail("JPEG component count differs from its header's");
 
     const int W = f.width, H = f.height;
     std::vector<std::vector<uint8_t>> full(f.comps.size());
     std::vector<int> pitch(f.comps.size());
     for (size_t ci = 0; ci < f.comps.size(); ++ci) {
         Component& c = f.comps[ci];
-        if (!c.latched) std::memset(c.q, 0, sizeof(c.q));
+        const int hx = f.hmax / c.h, vy = f.vmax / c.v;
         std::vector<uint8_t> plane;
-        idct_component(c, plane);
-        int hx = f.hmax / c.h, vy = f.vmax / c.v;
+        int plane_pitch;
+        if (f.lossless) {
+            if (c.samples.empty())
+                fail("lossless JPEG without a scan of every component");
+            plane.swap(c.samples);
+            plane_pitch = c.w;
+        } else {
+            if (!c.latched) std::memset(c.q, 0, sizeof(c.q));
+            idct_component(c, plane);
+            plane_pitch = c.bw * 8;
+        }
         if (hx == 1 && vy == 1) {
             full[ci].swap(plane);
-            pitch[ci] = c.bw * 8;
+            pitch[ci] = plane_pitch;
+        } else if (f.lossless) {  // box replication
+            pitch[ci] = c.w * hx;
+            full[ci].assign((size_t)pitch[ci] * c.hgt * vy, 0);
+            for (int y = 0; y < c.hgt * vy; ++y)
+                for (int x = 0; x < pitch[ci]; ++x)
+                    full[ci][(size_t)y * pitch[ci] + x] =
+                        plane[(size_t)(y / vy) * plane_pitch + x / hx];
         } else {
-            upsample(plane.data(), c.bw * 8, c.w, c.hgt, hx, vy, full[ci]);
+            upsample(plane.data(), plane_pitch, c.w, c.hgt, hx, vy, full[ci]);
             pitch[ci] = c.w * hx;
         }
     }
-    if (f.comps.size() == 1) {
+    auto at = [&](int ci, int y, int x) -> int {
+        return full[ci][(size_t)y * pitch[ci] + x];
+    };
+    const Space space = f.space();
+    if (space == kGrey) {
         for (int y = 0; y < H; ++y)
             for (int x = 0; x < W; ++x) {
-                uint8_t g = full[0][(size_t)y * pitch[0] + x];
-                uint8_t* o = rgb + ((size_t)y * W + x) * 3;
-                o[0] = o[1] = o[2] = g;
+                uint8_t* o = out + ((size_t)y * W + x) * 3;
+                o[0] = o[1] = o[2] = (uint8_t)at(0, y, x);
             }
         return;
     }
-    bool as_rgb = !f.jfif && (f.adobe >= 0 ? f.adobe == 0
-                                           : f.comps[0].id == 82 &&
-                                                 f.comps[1].id == 71 &&
-                                                 f.comps[2].id == 66);
+    if (space == kRGB || space == kCMYK) {
+        const int nc = (int)f.comps.size();
+        for (int y = 0; y < H; ++y)
+            for (int x = 0; x < W; ++x)
+                for (int ci = 0; ci < nc; ++ci)
+                    out[((size_t)y * W + x) * nc + ci] = (uint8_t)at(ci, y, x);
+        return;
+    }
     // jdcolor.c build_ycc_rgb_table: SCALEBITS 16, ONE_HALF
     int cr_r[256], cb_b[256];
     int64_t cr_g[256], cb_g[256];
@@ -676,18 +1017,21 @@ void decode(const uint8_t* data, int64_t n, int64_t height, int64_t width,
     auto clamp = [](int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
     for (int y = 0; y < H; ++y)
         for (int x = 0; x < W; ++x) {
-            int a = full[0][(size_t)y * pitch[0] + x];
-            int b = full[1][(size_t)y * pitch[1] + x];
-            int c = full[2][(size_t)y * pitch[2] + x];
-            uint8_t* o = rgb + ((size_t)y * W + x) * 3;
-            if (as_rgb) {
-                o[0] = (uint8_t)a;
-                o[1] = (uint8_t)b;
-                o[2] = (uint8_t)c;
-            } else {
-                o[0] = clamp(a + cr_r[c]);
-                o[1] = clamp(a + (int)((cb_g[b] + cr_g[c]) >> 16));
-                o[2] = clamp(a + cb_b[b]);
+            const int a = at(0, y, x), b = at(1, y, x), c = at(2, y, x);
+            const uint8_t r = clamp(a + cr_r[c]),
+                          g = clamp(a + (int)((cb_g[b] + cr_g[c]) >> 16)),
+                          bl = clamp(a + cb_b[b]);
+            if (space == kYCbCr) {
+                uint8_t* o = out + ((size_t)y * W + x) * 3;
+                o[0] = r;
+                o[1] = g;
+                o[2] = bl;
+            } else {  // YCCK -> CMYK: ycck_cmyk_convert, K unchanged
+                uint8_t* o = out + ((size_t)y * W + x) * 4;
+                o[0] = (uint8_t)(255 - r);
+                o[1] = (uint8_t)(255 - g);
+                o[2] = (uint8_t)(255 - bl);
+                o[3] = (uint8_t)at(3, y, x);
             }
         }
 }
@@ -696,13 +1040,17 @@ void decode(const uint8_t* data, int64_t n, int64_t height, int64_t width,
 
 extern "C" {
 
-// data: n bytes of a JPEG whose header says height x width (image_io.py
-// reads it first); rgb: height * width * 3 bytes. Returns 0, or 1 with a
-// message (NUL-terminated, at most errlen bytes) in err.
+// data: n bytes of a JPEG whose header says height x width and how many
+// components (image_io.py reads it first); out: height * width * channels
+// bytes, channels 4 for a 4-component file (CMYK as libjpeg writes it,
+// YCCK converted) and 3 otherwise (grey repeated, RGB, YCbCr converted).
+// Returns 0, or 1 with a message (NUL-terminated, at most errlen bytes) in
+// err.
 int64_t jpeg_decode(const uint8_t* data, int64_t n, int64_t height,
-                    int64_t width, uint8_t* rgb, char* err, int64_t errlen) {
+                    int64_t width, int64_t channels, uint8_t* out, char* err,
+                    int64_t errlen) {
     try {
-        decode(data, n, height, width, rgb);
+        decode(data, n, height, width, channels, out);
         return 0;
     } catch (const Fail& e) {
         std::snprintf(err, (size_t)errlen, "%s", e.what.c_str());

@@ -1,23 +1,38 @@
-"""Frame files without Pillow: a JPEG decoder (the Huffman decoding, IDCT,
-upsampling and colour conversion of libjpeg-turbo as Pillow runs it, in
-C++ with a numpy reference), a PNG reader and writer (zlib and numpy, the
-row unfilter in C++) and Pillow's ``resize`` BILINEAR and NEAREST for 8-bit
-images, reproduced bit for bit (Pillow's ``libImaging/Resample.c`` and
-``Geometry.c``), so the port's frames and masks equal the JAX pipeline's,
-which reads them with Pillow (and OpenCV in its eval).
+"""Frame files without Pillow or OpenCV: a JPEG decoder (libjpeg-turbo's
+entropy decoding, Huffman and arithmetic, lossless prediction, IDCT,
+upsampling and colour conversion, in C++ with a numpy reference), a PNG
+reader and writer (zlib and numpy, the row unfilter in C++) and Pillow's
+``resize`` BILINEAR and NEAREST for 8-bit images, reproduced bit for bit
+(Pillow's ``libImaging/Resample.c`` and ``Geometry.c``), so the port's
+frames and masks equal the JAX pipeline's, which reads them with Pillow
+in training and in its tools and with OpenCV in its eval.
 
 ``read_rgb`` returns what ``Image.open(path).convert("RGB")`` gives, the
-format told by the first bytes: for a JPEG, baseline, extended or
-progressive Huffman with 8-bit samples, grey or three components, any
-sampling factors that divide the largest, restart intervals (EXIF
-orientation is not applied, as Pillow's open does not); for a PNG of bit
-depth 8 (grey, grey + alpha, RGB, RGBA) or 1-8 (grey, palette), plain or
-Adam7-interlaced: alpha is dropped, a palette is looked up. Arithmetic-
-coded, lossless, hierarchical or 12-bit JPEG, CMYK / YCCK, a truncated or
-corrupt stream, a 16-bit PNG or another format raise ``ValueError`` naming
-the file and what it is. ``read_raw`` gives a PNG's samples as
-``np.asarray(Image.open(path))`` does (class-id masks), ``image_size`` a
-PNG's or JPEG's size from its header.
+format told by the first bytes (``reader="opencv"``: what ``cv2.imread``
+with IMREAD_COLOR | IMREAD_IGNORE_ORIENTATION gives, as RGB). A JPEG:
+8-bit samples, Huffman-coded baseline, extended or progressive,
+arithmetic-coded sequential or progressive (SOF9, SOF10, with DAC
+conditioning), or lossless Huffman (SOF3: predictors 1-7, point
+transforms); grey, three components (YCbCr, or RGB by an Adobe transform
+0, the ids 'R', 'G', 'B' or, lossless, any ids without a JFIF marker) or
+four (CMYK, or YCCK by an Adobe transform other than 0); any sampling
+factors that divide the largest, restart intervals; EXIF orientation is
+not applied. A PNG of bit depth 16 (grey, grey + alpha, RGB, RGBA), 8 or
+1-8 (grey, palette), plain or Adam7-interlaced: alpha is dropped, a
+palette is looked up. The two readers' bits differ in three places: a
+CMYK / YCCK JPEG (Pillow reads it inverted and converts with
+``MULDIV255``, OpenCV with ``k - ((255 - c) k >> 8)``: up to 2 levels
+apart, ``cmyk_to_rgb``), a 16-bit grey PNG (Pillow clips each sample to
+255, OpenCV takes its high byte, as both do for every other 16-bit colour
+type), and a lossless grey JPEG, which OpenCV does not read (the JAX eval
+falls back to Pillow, which the port's eval reader returns). Hierarchical
+or arithmetic-coded lossless JPEG, 12-bit JPEG, lossless YCbCr or YCCK
+(libjpeg converts no colours in lossless mode), a 2-component JPEG, a
+truncated or corrupt stream or another format raise ``ValueError`` naming
+the file and what it is; Pillow and OpenCV read none of them either.
+``read_raw`` gives a PNG's samples as ``np.asarray(Image.open(path))``
+does (class-id masks: 16-bit grey as uint16), ``image_size`` a PNG's or
+JPEG's size from its header.
 """
 
 from __future__ import annotations
@@ -68,7 +83,7 @@ def _bind_jpeg(lib):
     p_u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
     i64 = ctypes.c_int64
     lib.jpeg_decode.restype = i64
-    lib.jpeg_decode.argtypes = [ctypes.c_char_p, i64, i64, i64, p_u8,
+    lib.jpeg_decode.argtypes = [ctypes.c_char_p, i64, i64, i64, i64, p_u8,
                                 ctypes.c_char_p, i64]
 
 
@@ -183,9 +198,8 @@ def _png_chunks(data: bytes, name: str):
     if ctype not in COLOUR_TYPES:
         raise ValueError(f"{name}: PNG colour type {ctype} is not valid")
     kind_name = COLOUR_TYPES[ctype][0]
-    if depth == 16:
-        raise ValueError(f"{name}: 16-bit {kind_name} PNG is not supported")
-    if depth != 8 and (ctype not in (0, 3) or depth not in (1, 2, 4)):
+    if not (depth == 8 or (depth == 16 and ctype != 3)
+            or (depth in (1, 2, 4) and ctype in (0, 3))):
         raise ValueError(f"{name}: {kind_name} PNG of bit depth {depth} is "
                          "not valid")
     if ctype == 3 and palette is None:
@@ -196,14 +210,17 @@ def _png_chunks(data: bytes, name: str):
 def _png_rows(raw: np.ndarray, width: int, height: int, depth: int,
               channels: int, name: str):
     """Unfilter and unpack one image (or one Adam7 pass) at the start of
-    ``raw`` -> (samples uint8 [height, width, channels] at their own bit
-    depth, the bytes used)."""
+    ``raw`` -> (samples [height, width, channels] at their own bit depth,
+    uint16 at 16 bits and uint8 below, the bytes used)."""
     bits = depth * channels
     stride = (width * bits + 7) // 8
     used = height * (stride + 1)
     if raw.size < used:
         raise ValueError(f"{name}: PNG image data is too short")
     rows = unfilter(raw[:used], height, stride, max(1, bits // 8))
+    if depth == 16:                      # big-endian samples
+        return (rows.view(">u2").astype(np.uint16).reshape(
+            height, width, channels), used)
     if depth < 8:
         vals = np.unpackbits(rows, axis=1)[:, :width * depth]
         vals = vals.reshape(height, width, depth)
@@ -213,8 +230,9 @@ def _png_rows(raw: np.ndarray, width: int, height: int, depth: int,
 
 
 def _png_samples(data: bytes, name: str):
-    """PNG bytes -> (samples uint8 [H, W, channels] at the file's bit
-    depth, depth, colour type, palette), Adam7 passes put in place."""
+    """PNG bytes -> (samples [H, W, channels] at the file's bit depth,
+    uint16 at 16 bits, depth, colour type, palette), Adam7 passes put in
+    place."""
     width, height, depth, ctype, interlace, palette, idat = _png_chunks(
         data, name)
     channels = COLOUR_TYPES[ctype][1]
@@ -222,7 +240,8 @@ def _png_samples(data: bytes, name: str):
     if not interlace:
         return (_png_rows(raw, width, height, depth, channels, name)[0],
                 depth, ctype, palette)
-    px = np.zeros((height, width, channels), np.uint8)
+    px = np.zeros((height, width, channels),
+                  np.uint16 if depth == 16 else np.uint8)
     for x0, y0, dx, dy in ADAM7:
         pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
         if pw <= 0 or ph <= 0:
@@ -233,9 +252,20 @@ def _png_samples(data: bytes, name: str):
     return px, depth, ctype, palette
 
 
-def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """PNG bytes -> uint8 [H, W, 3], as Pillow's ``convert("RGB")``."""
+def decode_png(data: bytes, name: str = "<bytes>",
+               reader: str = "pillow") -> np.ndarray:
+    """PNG bytes -> uint8 [H, W, 3] as ``reader`` gives it: "pillow" for
+    ``Image.open(...).convert("RGB")``, "opencv" for ``cv2.imread``'s
+    IMREAD_COLOR (BGR turned to RGB). The two differ on 16-bit grey
+    alone: Pillow clips each sample to 255, OpenCV takes its high byte, as
+    both do for the other 16-bit colour types."""
     px, depth, ctype, palette = _png_samples(data, name)
+    if depth == 16:
+        if ctype == 0 and reader == "pillow":
+            px = np.minimum(px, 255).astype(np.uint8)
+        else:
+            px = (px >> 8).astype(np.uint8)
+        depth = 8
     if ctype == 3:
         table = np.zeros((256, 3), np.uint8)
         table[:len(palette)] = palette[:256]
@@ -249,12 +279,21 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
 
 
 def read_raw(path: str | Path) -> np.ndarray:
-    """A PNG of bit depth 8 or less as ``np.asarray(Image.open(path))``
-    gives it, no colour conversion: grey [H, W] (bool at 1 bit, 2- and
-    4-bit values scaled to 0..255 as Pillow's "L;2" / "L;4" unpackers do),
-    palette indices [H, W], grey + alpha [H, W, 2], RGB [H, W, 3], RGBA
-    [H, W, 4] (class-id masks are read this way)."""
+    """A PNG as ``np.asarray(Image.open(path))`` gives it, no colour
+    conversion: grey [H, W] (bool at 1 bit, 2- and 4-bit values scaled to
+    0..255 as Pillow's "L;2" / "L;4" unpackers do, uint16 at 16 bits),
+    palette indices [H, W], grey + alpha [H, W, 2] (at 16 bits Pillow opens
+    it as RGBA: [H, W, 4], the grey repeated), RGB [H, W, 3], RGBA
+    [H, W, 4]; 16-bit colour types as their samples' high bytes (class-id
+    masks are read this way)."""
     px, depth, ctype, _ = _png_samples(Path(path).read_bytes(), str(path))
+    if depth == 16:
+        if ctype == 0:
+            return px[..., 0]
+        px = (px >> 8).astype(np.uint8)
+        if ctype == 4:
+            px = px[..., [0, 0, 0, 1]]
+        return np.ascontiguousarray(px)
     if ctype == 0 and depth == 1:
         return px[..., 0].astype(bool)
     if ctype == 0:
@@ -292,17 +331,37 @@ FIX_0_298631336, FIX_0_390180644, FIX_0_541196100 = 2446, 3196, 4433
 FIX_0_765366865, FIX_0_899976223, FIX_1_175875602 = 6270, 7373, 9633
 FIX_1_501321110, FIX_1_847759065, FIX_1_961570560 = 12299, 15137, 16069
 FIX_2_053119869, FIX_2_562915447, FIX_3_072711026 = 16819, 20995, 25172
-_SOF_REFUSED = {0xC3: "lossless JPEG (SOF3)",
-                0xC5: "hierarchical JPEG (SOF5)",
-                0xC6: "hierarchical JPEG (SOF6)",
+# frame headers that libjpeg-turbo, and so Pillow, does not decode
+_SOF_REFUSED = {0xC5: "hierarchical JPEG (SOF5)",
+                0xC6: "hierarchical progressive JPEG (SOF6)",
                 0xC7: "hierarchical lossless JPEG (SOF7)",
-                0xC9: "arithmetic-coded JPEG (SOF9)",
-                0xCA: "arithmetic-coded progressive JPEG (SOF10)",
                 0xCB: "arithmetic-coded lossless JPEG (SOF11)",
-                0xCC: "arithmetic-coded JPEG (DAC marker)",
                 0xCD: "arithmetic-coded hierarchical JPEG (SOF13)",
                 0xCE: "arithmetic-coded hierarchical JPEG (SOF14)",
                 0xCF: "arithmetic-coded hierarchical lossless JPEG (SOF15)"}
+# T.81 Table D.2 as libjpeg's jaricom.c packs it: Qe << 16 | Next_Index_MPS
+# << 8 | Switch_MPS << 7 | Next_Index_LPS; the last entry is the fixed bin
+# (probability 0.5) that codes signs and DC refinement bits
+ARITAB = (
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171)
 
 
 def _idct_1d(x, shift: int):
@@ -422,16 +481,19 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
 
 
 class _JpegFrame:
-    """What the markers before the first scan say: size, components
-    (id, h, v, quantisation table), the colour transform's evidence."""
+    """What the markers before a scan say: size, components (id, h, v,
+    quantisation table), the coding process, the arithmetic coder's
+    conditioning (DAC) and the colour transform's evidence."""
 
     def __init__(self, name: str):
         self.name = name
-        self.progressive = False
+        self.progressive = self.arithmetic = self.lossless = False
         self.width = self.height = 0
         self.comps: list[dict] = []
         self.jfif = False
         self.adobe_transform = None
+        # DAC values of the 16 conditioning tables, as SOI resets them
+        self.dc_l, self.dc_u, self.ac_k = [0] * 16, [1] * 16, [5] * 16
 
     def fail(self, what: str):
         raise ValueError(f"{self.name}: {what}")
@@ -448,26 +510,32 @@ class _JpegFrame:
     def vmax(self) -> int:
         return max(c["v"] for c in self.comps)
 
+    @property
+    def unit(self) -> int:
+        """Samples across a block: 8 for the DCT, 1 in lossless mode."""
+        return 1 if self.lossless else 8
+
     def read_sof(self, marker: int, body: bytes):
         if self.comps:
             self.fail("JPEG with two frame headers")
         if marker in _SOF_REFUSED:
-            self.fail(f"{_SOF_REFUSED[marker]} is not supported")
+            self.fail(f"{_SOF_REFUSED[marker]} is not supported (libjpeg, "
+                      "and so Pillow, does not decode it)")
         if len(body) < 6:
             self.fail("JPEG frame header is truncated")
         precision, h, w, n = struct.unpack(">BHHB", body[:6])
         if precision != 8:
             self.fail(f"{precision}-bit JPEG is not supported (8-bit only)")
-        if n == 4:
-            self.fail("4-component (CMYK/YCCK) JPEG is not supported")
-        if n not in (1, 3):
+        if n not in (1, 3, 4):
             self.fail(f"{n}-component JPEG is not supported")
         if h == 0 or w == 0:
             self.fail("JPEG of size 0 (or with a DNL marker) is not "
                       "supported")
         if len(body) < 6 + 3 * n:
             self.fail("JPEG frame header is truncated")
-        self.progressive = marker == 0xC2
+        self.progressive = marker in (0xC2, 0xCA)
+        self.arithmetic = marker in (0xC9, 0xCA)
+        self.lossless = marker == 0xC3
         self.width, self.height = w, h
         for i in range(n):
             cid, hv, tq = body[6 + 3 * i: 9 + 3 * i]
@@ -476,22 +544,53 @@ class _JpegFrame:
                 self.fail("JPEG component with bad sampling factors or "
                           "table")
             self.comps.append({"id": cid, "h": hs, "v": vs, "tq": tq})
+        u = self.unit
         for c in self.comps:
             if self.hmax % c["h"] or self.vmax % c["v"]:
                 self.fail("JPEG sampling factors that do not divide the "
                           "largest are not supported")
             c["w"] = -(-w * c["h"] // self.hmax)      # downsampled size
             c["hgt"] = -(-h * c["v"] // self.vmax)
+            # blocks (samples in lossless mode) across and down, the MCU
+            # padding included
+            c["bw"] = -(-w // (u * self.hmax)) * c["h"]
+            c["bh"] = -(-h // (u * self.vmax)) * c["v"]
 
-    def is_rgb(self) -> bool:
-        """jdapimin.c ``default_decompress_parms`` for 3 components: a JFIF
-        marker means YCbCr; else Adobe's transform 0 means RGB (1 or other:
-        YCbCr); else component ids 'R', 'G', 'B' mean RGB."""
+    def read_dac(self, body: bytes):
+        """jdmarker.c ``get_dac``: (table, value) pairs; tables 0-15 are
+        DC (value: U << 4 | L), 16-31 AC (value: K)."""
+        if len(body) % 2:
+            self.fail("bad JPEG arithmetic conditioning (DAC) segment")
+        for i in range(0, len(body), 2):
+            t, val = body[i], body[i + 1]
+            if t >= 32:
+                self.fail("bad JPEG arithmetic conditioning (DAC) segment")
+            if t >= 16:
+                self.ac_k[t - 16] = val
+            elif val & 15 > val >> 4:
+                self.fail("bad JPEG arithmetic conditioning (DAC) value")
+            else:
+                self.dc_l[t], self.dc_u[t] = val & 15, val >> 4
+
+    def colour_space(self) -> str:
+        """jdapimin.c ``default_decompress_parms``. 3 components: a JFIF
+        marker means YCbCr; else Adobe's transform 0 means RGB (others:
+        YCbCr); else component ids 'R', 'G', 'B' mean RGB, and in lossless
+        mode so do all others. 4 components: Adobe's transform 0 or no
+        Adobe marker means CMYK, other transforms YCCK."""
+        n = len(self.comps)
+        if n == 1:
+            return "grey"
+        if n == 4:
+            return ("YCCK" if self.adobe_transform not in (None, 0)
+                    else "CMYK")
         if self.jfif:
-            return False
+            return "YCbCr"
         if self.adobe_transform is not None:
-            return self.adobe_transform == 0
-        return [c["id"] for c in self.comps] == [82, 71, 66]
+            return "RGB" if self.adobe_transform == 0 else "YCbCr"
+        if self.lossless or [c["id"] for c in self.comps] == [82, 71, 66]:
+            return "RGB"
+        return "YCbCr"
 
 
 def _next_segment(data: bytes, pos: int, name: str):
@@ -606,6 +705,11 @@ def _windows(seg: bytes) -> list:
     return w.tolist()
 
 
+def _int16(v: int) -> int:
+    """A coefficient as libjpeg's JCOEF (16 bits) holds it."""
+    return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+
 class _JpegScan:
     """One scan decoded in Python into the components' coefficients
     (``jdhuff.c`` sequential, ``jdphuff.c`` progressive)."""
@@ -621,45 +725,51 @@ class _JpegScan:
         raise ValueError(f"{self.name}: {what}")
 
     def blocks(self):
-        """Each MCU's (component index, block offset) list, in order."""
+        """Each MCU's (component index, block offset) list, in order; in
+        lossless mode a block is one sample."""
         f = self.frame
+        u = f.unit
+        size = u * u
         if len(self.comps) == 1:
             ci = self.comps[0]
             c = f.comps[ci]
-            bw = -(-c["w"] // 8)
-            stride = self.coefs[ci][1]
-            for by in range(-(-c["hgt"] // 8)):
-                for bx in range(bw):
-                    yield [(ci, (by * stride + bx) * 64)]
+            for by in range(-(-c["hgt"] // u)):
+                for bx in range(-(-c["w"] // u)):
+                    yield [(ci, (by * c["bw"] + bx) * size)]
             return
-        mcux = -(-f.width // (8 * f.hmax))
-        mcuy = -(-f.height // (8 * f.vmax))
+        mcux = -(-f.width // (u * f.hmax))
+        mcuy = -(-f.height // (u * f.vmax))
         for my in range(mcuy):
             for mx in range(mcux):
                 mcu = []
                 for ci in self.comps:
                     c = f.comps[ci]
-                    stride = self.coefs[ci][1]
                     for y in range(c["v"]):
                         for x in range(c["h"]):
-                            mcu.append((ci, ((my * c["v"] + y) * stride
-                                             + mx * c["h"] + x) * 64))
+                            mcu.append((ci, ((my * c["v"] + y) * c["bw"]
+                                             + mx * c["h"] + x) * size))
                 yield mcu
 
-    def run(self, intervals):
+    def intervals(self, intervals):
+        """(interval bytes, its MCUs) pairs, the restart markers checked
+        against the restart interval."""
         mcus = list(self.blocks())
         per = self.restart or len(mcus)
         if len(intervals) != max(1, -(-len(mcus) // per)):
             self.corrupt("corrupt JPEG data (restart markers do not match "
                          "the restart interval)")
-        for i, seg in enumerate(intervals):
+        return [(seg, mcus[i * per:(i + 1) * per])
+                for i, seg in enumerate(intervals)]
+
+    def run(self, intervals):
+        for seg, mcus in self.intervals(intervals):
             self.w, self.p, self.end = _windows(seg), 0, 8 * len(seg)
             self.pred = {ci: 0 for ci in self.comps}
             self.eobrun = 0
             try:
-                for mcu in mcus[i * per:(i + 1) * per]:
+                for mcu in mcus:
                     for ci, off in mcu:
-                        self.block(ci, self.coefs[ci][0], off)
+                        self.block(ci, self.coefs[ci], off)
             except IndexError:
                 self.corrupt("truncated or corrupt JPEG data")
             if self.p > self.end:
@@ -775,6 +885,250 @@ class _JpegScan:
             self.eobrun -= 1
 
 
+class _LosslessScan(_JpegScan):
+    """One lossless Huffman scan (``jdlhuff.c``): each sample's difference
+    coded as a DC difference is, category 16 meaning 32768 with no extra
+    bits. ``undifference`` then reconstructs the samples."""
+
+    def block(self, ci, coef, off):
+        s = self.sym(self.huff[(0, self.frame.comps[ci]["td"])])
+        coef[off] = 32768 if s == 16 else self.value(s)
+
+    def mcus_per_row(self) -> int:
+        """jddiffct.c: the restart interval must be a whole number of
+        these (the predictors restart with a row)."""
+        if len(self.comps) == 1:
+            return self.frame.comps[self.comps[0]]["w"]
+        return -(-self.frame.width // self.frame.hmax)
+
+    def run(self, intervals):
+        if self.restart % self.mcus_per_row():
+            self.corrupt("lossless JPEG whose restart interval is not a "
+                         "whole number of MCU rows")
+        super().run(intervals)
+
+    def undifference(self, ci) -> np.ndarray:
+        """``jdpred.c`` over the component's differences -> its uint8
+        samples [hgt, w]: the first row of the scan and of each restart
+        interval predicted from the left (its first sample from 2^(7 -
+        Pt)), the first column from above, the rest by the scan's
+        predictor (Ss); sums modulo 2^16, shifted left by the point
+        transform (Al) and cut to 8 bits as JSAMPLE does."""
+        c = self.frame.comps[ci]
+        rows = (self.restart // self.mcus_per_row()
+                * (1 if len(self.comps) == 1 else c["v"])) or c["hgt"]
+        diff = np.asarray(self.coefs[ci], np.int64).reshape(c["bh"], c["bw"])
+        out = np.zeros((c["hgt"], c["w"]), np.int64)
+        psv = self.ss
+        for y in range(c["hgt"]):
+            d = diff[y].tolist()
+            row = [0] * c["w"]
+            if y % rows == 0:
+                ra = (d[0] + (1 << (7 - self.al))) & 0xFFFF
+                row[0] = ra
+                for x in range(1, c["w"]):
+                    ra = (d[x] + ra) & 0xFFFF
+                    row[x] = ra
+            else:
+                prev = out[y - 1].tolist()
+                rb = prev[0]
+                ra = (d[0] + rb) & 0xFFFF
+                row[0] = ra
+                for x in range(1, c["w"]):
+                    rc, rb = rb, prev[x]
+                    if psv == 1:
+                        p = ra
+                    elif psv == 2:
+                        p = rb
+                    elif psv == 3:
+                        p = rc
+                    elif psv == 4:
+                        p = ra + rb - rc
+                    elif psv == 5:
+                        p = ra + ((rb - rc) >> 1)
+                    elif psv == 6:
+                        p = rb + ((ra - rc) >> 1)
+                    else:
+                        p = (ra + rb) >> 1
+                    ra = (d[x] + p) & 0xFFFF
+                    row[x] = ra
+            out[y] = row
+        return ((out << self.al) & 0xFF).astype(np.uint8)
+
+
+class _ArithDecoder:
+    """``jdarith.c`` ``arith_decode`` over one interval's bytes (zeros past
+    its end, as libjpeg feeds them after a marker)."""
+
+    def __init__(self, seg: bytes):
+        self.seg, self.pos = seg, 0
+        self.c, self.a, self.ct = 0, 0, -16     # two bytes read first
+
+    def __call__(self, st, i: int) -> int:
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                c = (c << 8) | (self.seg[self.pos]
+                                if self.pos < len(self.seg) else 0)
+                self.pos += 1
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        qe = ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:                   # conditional LPS exchange
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:                 # conditional MPS exchange
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        self.a, self.c, self.ct = a, c, ct
+        return sv >> 7
+
+
+class _ArithScan(_JpegScan):
+    """One arithmetic-coded scan (``jdarith.c``: ``decode_mcu`` and the
+    four progressive routines). Statistics bins per conditioning table
+    (64 DC, 256 AC) and one fixed bin; each restart interval starts them,
+    the DC predictions and contexts anew."""
+
+    def run(self, intervals):
+        for seg, mcus in self.intervals(intervals):
+            self.d = _ArithDecoder(seg)
+            self.dc_stats = [bytearray(64) for _ in range(16)]
+            self.ac_stats = [bytearray(256) for _ in range(16)]
+            self.fixed = bytearray([113])
+            self.last_dc = {ci: 0 for ci in self.comps}
+            self.dc_ctx = {ci: 0 for ci in self.comps}
+            for mcu in mcus:
+                for ci, off in mcu:
+                    self.block(ci, self.coefs[ci], off)
+
+    def magnitude(self, st, i: int, ac_bins: int = 0) -> int:
+        """Figures F.23 and F.24 from bin ``i``: |v| - 1. A DC category
+        continues at bin X1 = 20, an AC one past its second decision at
+        ``ac_bins`` (X2: 189 or 217)."""
+        d = self.d
+        m = d(st, i)
+        if m and (not ac_bins or d(st, i)):
+            if ac_bins:
+                m <<= 1
+            i = ac_bins or 20
+            while d(st, i):
+                m <<= 1
+                if m == 0x8000:
+                    self.corrupt("corrupt JPEG data (arithmetic magnitude "
+                                 "overflow)")
+                i += 1
+        v = m
+        i += 14
+        while m > 1:
+            m >>= 1
+            if d(st, i):
+                v |= m
+        return v
+
+    def dc_diff(self, ci, tbl) -> int:
+        """Figure F.19 with the conditioning of F.1.4.4.1.2."""
+        st = self.dc_stats[tbl]
+        s0 = self.dc_ctx[ci]
+        if not self.d(st, s0):
+            self.dc_ctx[ci] = 0
+            return 0
+        sign = self.d(st, s0 + 1)
+        v = self.magnitude(st, s0 + 2 + sign)
+        m = 1 << (v.bit_length() - 1) if v else 0
+        if m < (1 << self.frame.dc_l[tbl]) >> 1:
+            self.dc_ctx[ci] = 0
+        elif m > (1 << self.frame.dc_u[tbl]) >> 1:
+            self.dc_ctx[ci] = 12 + 4 * sign
+        else:
+            self.dc_ctx[ci] = 4 + 4 * sign
+        return -(v + 1) if sign else v + 1
+
+    def ac(self, coef, off, tbl, ss, se, shift):
+        """Figure F.20 over ss..se, each value << ``shift``."""
+        st, d = self.ac_stats[tbl], self.d
+        k = ss
+        while k <= se:
+            i = 3 * (k - 1)
+            if d(st, i):
+                break                                   # EOB
+            while not d(st, i + 1):
+                i += 3
+                k += 1
+                if k > se:
+                    self.corrupt("corrupt JPEG data (arithmetic spectral "
+                                 "overflow)")
+            sign = d(self.fixed, 0)
+            v = self.magnitude(st, i + 2,
+                                  189 if k <= self.frame.ac_k[tbl] else 217)
+            v += 1
+            coef[off + ZIGZAG[k]] = _int16((-v if sign else v) << shift)
+            k += 1
+
+    def ac_refine(self, coef, off, tbl):
+        st, d = self.ac_stats[tbl], self.d
+        p1, m1 = 1 << self.al, -1 << self.al
+        kex = self.se
+        while kex > 0 and not coef[off + ZIGZAG[kex]]:
+            kex -= 1
+        k = self.ss
+        while k <= self.se:
+            i = 3 * (k - 1)
+            if k > kex and d(st, i):
+                break                                   # EOB
+            while True:
+                j = off + ZIGZAG[k]
+                if coef[j]:                             # previously nonzero
+                    if d(st, i + 2):
+                        coef[j] += m1 if coef[j] < 0 else p1
+                    break
+                if d(st, i + 1):                        # newly nonzero
+                    coef[j] = m1 if d(self.fixed, 0) else p1
+                    break
+                i += 3
+                k += 1
+                if k > self.se:
+                    self.corrupt("corrupt JPEG data (arithmetic spectral "
+                                 "overflow)")
+            k += 1
+
+    def block(self, ci, coef, off):
+        f = self.frame
+        c = f.comps[ci]
+        if not f.progressive:
+            self.last_dc[ci] = (self.last_dc[ci]
+                                + self.dc_diff(ci, c["td"])) & 0xFFFF
+            coef[off] = _int16(self.last_dc[ci])
+            self.ac(coef, off, c["ta"], 1, 63, 0)
+        elif self.ss == 0:
+            if self.ah == 0:
+                self.last_dc[ci] += self.dc_diff(ci, c["td"])
+                coef[off] = _int16(self.last_dc[ci] << self.al)
+            elif self.d(self.fixed, 0):
+                coef[off] |= 1 << self.al
+        elif self.ah == 0:
+            self.ac(coef, off, c["ta"], self.ss, self.se, self.al)
+        else:
+            self.ac_refine(coef, off, c["ta"])
+
+
 def jpeg_header(data: bytes, name: str = "<bytes>") -> _JpegFrame:
     """The frame header of a JPEG (SOFn): size and components, with every
     refusal that the header alone shows."""
@@ -783,7 +1137,7 @@ def jpeg_header(data: bytes, name: str = "<bytes>") -> _JpegFrame:
     frame, pos = _JpegFrame(name), 2
     while True:
         marker, body, pos = _next_segment(data, pos, name)
-        if _is_sof(marker) or marker == 0xCC:
+        if _is_sof(marker):
             frame.read_sof(marker, body)
             return frame
         if marker in (0xD9, 0xDA):
@@ -791,14 +1145,16 @@ def jpeg_header(data: bytes, name: str = "<bytes>") -> _JpegFrame:
                        "first scan")
 
 
-def decode_jpeg_numpy(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """The reference JPEG decoder, Huffman in Python and the rest in numpy:
-    uint8 [H, W, 3] equal to Pillow's ``Image.open(...).convert("RGB")``
-    (libjpeg-turbo with its defaults: islow IDCT, fancy upsampling)."""
+def jpeg_samples_numpy(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """The reference JPEG decoder, the entropy decoding in Python and the
+    rest in numpy: libjpeg-turbo's output with its defaults (islow IDCT,
+    fancy upsampling; box upsampling in lossless mode), uint8 [H, W, 3]
+    (grey repeated, RGB, YCbCr converted) or [H, W, 4] (CMYK as stored,
+    YCCK converted to it; Adobe's inversion not undone)."""
     if not data.startswith(JPEG_SIGNATURE):
         raise ValueError(f"{name}: {_what(data[:8])}")
     frame, pos = _JpegFrame(name), 2
-    qtables, huff, coefs, latched = {}, {}, {}, {}
+    qtables, huff, coefs, latched, samples = {}, {}, {}, {}, {}
     restart, seen_sos = 0, False
     while True:
         marker, body, pos = _next_segment(data, pos, name)
@@ -814,23 +1170,35 @@ def decode_jpeg_numpy(data: bytes, name: str = "<bytes>") -> np.ndarray:
             _read_dqt(body, qtables, frame)
         elif marker == 0xC4:
             _read_dht(body, huff, frame)
+        elif marker == 0xCC:
+            frame.read_dac(body)
         elif marker == 0xDD:
             if len(body) < 2:
                 frame.fail("bad JPEG restart interval")
             restart = struct.unpack(">H", body[:2])[0]
-        elif _is_sof(marker) or marker == 0xCC:
+        elif _is_sof(marker):
             frame.read_sof(marker, body)
+            size = frame.unit ** 2
             for ci, c in enumerate(frame.comps):
-                bw = -(-frame.width // (8 * frame.hmax)) * c["h"]
-                bh = -(-frame.height // (8 * frame.vmax)) * c["v"]
-                coefs[ci] = ([0] * (bw * bh * 64), bw, bh)
+                coefs[ci] = [0] * (c["bw"] * c["bh"] * size)
         elif marker == 0xDA:
             if not frame.comps:
                 frame.fail("JPEG scan before its frame header (SOF)")
+            if not seen_sos and frame.lossless and frame.colour_space() in (
+                    "YCbCr", "YCCK"):
+                frame.fail(f"lossless JPEG in {frame.colour_space()} is not "
+                           "supported (libjpeg converts no colours in "
+                           "lossless mode, so Pillow cannot read it)")
             seen_sos = True
             scan = _read_sos(body, frame, qtables, huff, latched)
             intervals, pos = _entropy_intervals(data, pos, name)
-            _JpegScan(frame, coefs, *scan, restart, name).run(intervals)
+            kind = (_LosslessScan if frame.lossless else
+                    _ArithScan if frame.arithmetic else _JpegScan)
+            decoder = kind(frame, coefs, *scan, restart, name)
+            decoder.run(intervals)
+            if frame.lossless:
+                for ci in decoder.comps:
+                    samples[ci] = decoder.undifference(ci)
         elif marker == 0xDC and seen_sos:
             pass                                        # DNL after a scan
         else:
@@ -839,25 +1207,37 @@ def decode_jpeg_numpy(data: bytes, name: str = "<bytes>") -> np.ndarray:
         frame.fail("JPEG without image data (no scan)")
     planes = []
     for ci, c in enumerate(frame.comps):
-        flat, bw, bh = coefs[ci]
-        q = latched.get(ci)
-        blocks = (np.asarray(flat, np.int64).reshape(-1, 64)
-                  * (q if q is not None else 0))
-        px = idct_islow(blocks).reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3)
-        plane = px.reshape(bh * 8, bw * 8)[:c["hgt"], :c["w"]]
-        up = upsample(plane, frame.hmax // c["h"], frame.vmax // c["v"])
+        hx, vy = frame.hmax // c["h"], frame.vmax // c["v"]
+        if frame.lossless:
+            if ci not in samples:
+                frame.fail("lossless JPEG without a scan of every component")
+            up = np.repeat(np.repeat(samples[ci], vy, 0), hx, 1)
+        else:
+            q = latched.get(ci)
+            blocks = (np.asarray(coefs[ci], np.int64).reshape(-1, 64)
+                      * (q if q is not None else 0))
+            px = idct_islow(blocks).reshape(c["bh"], c["bw"], 8, 8)
+            plane = px.transpose(0, 2, 1, 3).reshape(
+                c["bh"] * 8, c["bw"] * 8)[:c["hgt"], :c["w"]]
+            up = upsample(plane, hx, vy)
         planes.append(up[:frame.height, :frame.width])
-    if len(planes) == 1:
+    space = frame.colour_space()
+    if space == "grey":
         return np.repeat(planes[0][..., None], 3, axis=-1)
-    if frame.is_rgb():
+    if space in ("RGB", "CMYK"):
         return np.ascontiguousarray(np.stack(planes, -1))
-    return ycc_to_rgb(*planes)
+    rgb = ycc_to_rgb(*planes[:3])
+    if space == "YCbCr":
+        return rgb
+    return np.concatenate([255 - rgb, planes[3][..., None]], -1)  # YCCK
 
 
 def _read_sos(body, frame, qtables, huff, latched):
-    """The scan header: its components (each latching its quantisation
-    table at its first scan, as libjpeg does), their tables and the
-    spectral selection -> the _JpegScan arguments after ``coefs``."""
+    """The scan header: its components (in DCT mode each latching its
+    quantisation table at its first scan, as libjpeg does), their tables
+    and the spectral selection (in lossless mode: the predictor, 0, 0 and
+    the point transform) -> the scan decoder's arguments after
+    ``coefs``."""
     if not body or len(body) < 1 + 2 * body[0] + 3:
         frame.fail("JPEG scan header is truncated")
     n = body[0]
@@ -875,7 +1255,7 @@ def _read_sos(body, frame, qtables, huff, latched):
         c = frame.comps[ci]
         c["td"], c["ta"] = t >> 4, t & 15
         comps.append(ci)
-        if ci not in latched:
+        if ci not in latched and not frame.lossless:
             if c["tq"] not in qtables:
                 frame.fail("JPEG component without a quantisation table")
             latched[ci] = qtables[c["tq"]]
@@ -884,52 +1264,92 @@ def _read_sos(body, frame, qtables, huff, latched):
     if n > 1 and sum(frame.comps[ci]["h"] * frame.comps[ci]["v"]
                      for ci in comps) > 10:
         frame.fail("JPEG scan with more than 10 blocks per MCU")
-    if frame.progressive:
+    if frame.lossless:
+        if not 1 <= ss <= 7 or se or ah or al > 7:
+            frame.fail("bad lossless JPEG scan parameters")
+    elif frame.progressive:
         if (ss > se or se > 63 or (ss == 0) != (se == 0) or al > 13
                 or ah > 13 or (ss and n != 1)):
             frame.fail("bad progressive JPEG scan parameters")
     elif (ss, se, ah, al) != (0, 63, 0, 0):
         frame.fail("bad sequential JPEG scan parameters")
-    for ci in comps:
-        c = frame.comps[ci]
-        needs = []
-        if ss == 0 and not (frame.progressive and ah):
-            needs.append((0, c["td"]))
-        if se:
-            needs.append((1, c["ta"]))
-        for key in needs:
-            if key not in huff:
-                frame.fail("JPEG scan without its Huffman table")
+    if not frame.arithmetic:
+        for ci in comps:
+            c = frame.comps[ci]
+            needs = []
+            if frame.lossless or (ss == 0 and not (frame.progressive
+                                                   and ah)):
+                needs.append((0, c["td"]))
+            if se:
+                needs.append((1, c["ta"]))
+            for key in needs:
+                if key not in huff:
+                    frame.fail("JPEG scan without its Huffman table")
     return comps, huff, ss, se, ah, al
 
 
-def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """JPEG bytes -> uint8 [H, W, 3], as Pillow's ``convert("RGB")``:
-    ``decode_jpeg_numpy`` through the C++ helper when it builds (a
-    ``RuntimeWarning``, once, when it does not)."""
+def cmyk_to_rgb(cmyk: np.ndarray, reader: str = "pillow") -> np.ndarray:
+    """libjpeg's CMYK output (Adobe's inverted samples) uint8 [H, W, 4] ->
+    RGB [H, W, 3] as ``reader`` turns it. "pillow": ``Image.open`` reads
+    the samples inverted ("CMYK;I"), then ``convert("RGB")`` computes
+    255 - k' - round(c' (255 - k') / 255) with c' = 255 - c (Convert.c
+    ``cmyk2rgb``, MULDIV255). "opencv": ``imread`` computes k - ((255 - c)
+    k >> 8) on the samples as stored (``icvCvt_CMYK2BGR_8u_C4C3R``)."""
+    x = cmyk.astype(np.int32)
+    k = x[..., 3:]
+    if reader == "opencv":
+        return (k - (((255 - x[..., :3]) * k) >> 8)).astype(np.uint8)
+    t = (255 - x[..., :3]) * k + 128
+    return np.clip(k - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
+def _rgb(samples: np.ndarray, reader: str) -> np.ndarray:
+    return cmyk_to_rgb(samples, reader) if samples.shape[-1] == 4 else samples
+
+
+def decode_jpeg_numpy(data: bytes, name: str = "<bytes>",
+                      reader: str = "pillow") -> np.ndarray:
+    """``jpeg_samples_numpy`` as RGB: uint8 [H, W, 3] equal to Pillow's
+    ``Image.open(...).convert("RGB")``, or to OpenCV's ``imread`` with
+    ``reader="opencv"`` (the two differ on 4-component files alone)."""
+    return _rgb(jpeg_samples_numpy(data, name), reader)
+
+
+def decode_jpeg(data: bytes, name: str = "<bytes>",
+                reader: str = "pillow") -> np.ndarray:
+    """JPEG bytes -> uint8 [H, W, 3] as ``decode_jpeg_numpy`` gives them,
+    through the C++ helper when it builds (a ``RuntimeWarning``, once,
+    when it does not)."""
     frame = jpeg_header(data, name)
     lib = _helper("jpeg_decode", _bind_jpeg,
                   "JPEG frames are decoded with the numpy reference, whose "
-                  "Huffman decoding loops in Python and is many times "
+                  "entropy decoding loops in Python and is many times "
                   "slower")
     if lib is None:
-        return decode_jpeg_numpy(data, name)
-    out = np.empty((frame.height, frame.width, 3), np.uint8)
+        return decode_jpeg_numpy(data, name, reader)
+    channels = 4 if len(frame.comps) == 4 else 3
+    out = np.empty((frame.height, frame.width, channels), np.uint8)
     err = ctypes.create_string_buffer(256)
-    if lib.jpeg_decode(data, len(data), frame.height, frame.width, out, err,
-                       len(err)):
+    if lib.jpeg_decode(data, len(data), frame.height, frame.width, channels,
+                       out, err, len(err)):
         raise ValueError(f"{name}: {err.value.decode()}")
-    return out
+    return _rgb(out, reader)
 
 
-def read_rgb(path: str | Path) -> np.ndarray:
+def read_rgb(path: str | Path, reader: str = "pillow") -> np.ndarray:
     """The image file at ``path`` as uint8 [H, W, 3]: a JPEG or a PNG, told
-    apart by their first bytes, as Pillow does (the extension is
-    ignored)."""
+    apart by their first bytes, as both readers do (the extension is
+    ignored). ``reader`` "pillow" gives ``Image.open(path).convert("RGB")``
+    (the training pipeline's reader), "opencv" what the JAX eval's frame
+    reader gives: ``cv2.imread(path, IMREAD_COLOR |
+    IMREAD_IGNORE_ORIENTATION)`` as RGB, which differs from Pillow on
+    CMYK / YCCK JPEG and 16-bit grey PNG; where ``imread`` returns None
+    (lossless grey JPEG) that reader falls back to Pillow, which reads it
+    as the port does."""
     data = Path(path).read_bytes()
     if data.startswith(JPEG_SIGNATURE):
-        return decode_jpeg(data, str(path))
-    return decode_png(data, str(path))
+        return decode_jpeg(data, str(path), reader)
+    return decode_png(data, str(path), reader)
 
 
 def _filter_rows(rows: np.ndarray, filters: np.ndarray, bpp: int):

@@ -238,9 +238,12 @@ class InferenceRunner:
 
     def _load_frames(self, frames_info) -> np.ndarray:
         """A clip's frames as uint8 [T, H, W, 3], PNG or JPEG, read in
-        threads (zlib and the C++ helpers release the interpreter lock).
-        EXIF orientation is not applied, as the JAX package's reader does
-        not apply it."""
+        threads (zlib and the C++ helpers release the interpreter lock)
+        with the bits of the JAX package's reader, OpenCV's ``imread``
+        (``image_io.read_rgb(..., reader="opencv")``: it differs from
+        the training pipeline's Pillow bits on CMYK / YCCK JPEG and 16-bit
+        grey PNG). EXIF orientation is not applied, as the JAX package's
+        reader does not apply it."""
         def resolve(f):
             path = f.get("path") or f["file_name"]
             if self.image_root is not None:
@@ -250,11 +253,14 @@ class InferenceRunner:
                     path = str(cand)
             return path
 
+        def read(path):
+            return image_io.read_rgb(path, reader="opencv")
+
         paths = [resolve(f) for f in frames_info]
         if len(paths) == 1:
-            return image_io.read_rgb(paths[0])[None]
+            return read(paths[0])[None]
         with ThreadPoolExecutor(min(DECODE_THREADS, len(paths))) as pool:
-            return np.stack(list(pool.map(image_io.read_rgb, paths)))
+            return np.stack(list(pool.map(read, paths)))
 
     def _process_clip(self, frames, clip_prompts, clip_range: ClipRange,
                       probs_out_dir=None):

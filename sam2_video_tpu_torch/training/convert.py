@@ -13,10 +13,19 @@ companion.
 
 Checkpoint files are read with ``torch.load(weights_only=True)``: tensors
 and plain containers, no other pickled objects.
+
+As a command, it writes a checkpoint as the npz that the JAX package's
+converter writes (JAX names and layouts, ``training/checkpoint.py``
+``save_params_npz``), which both packages' loaders read:
+
+    python -m sam2_video_tpu_torch.training.convert <ckpt.pt> <out.npz>
+        [--backbone {tiny,small,base_plus,large}] [--image-size 384]
+        [--no-strict]
 """
 
 from __future__ import annotations
 
+import argparse
 from pathlib import Path
 
 import numpy as np
@@ -24,6 +33,7 @@ import torch
 
 from ..convert import load_npz
 from ..ops.common import ParamTree
+from .checkpoint import save_params_npz
 
 
 def _load_torch_state_dict(path: str | Path) -> dict:
@@ -125,3 +135,23 @@ def load_finetuned(params, finetuned_path: str | Path) -> dict:
                          f"{report['mismatched'][:5]}")
     return converted
 
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("ckpt")
+    ap.add_argument("out")
+    ap.add_argument("--backbone", default="tiny",
+                    choices=["tiny", "small", "base_plus", "large"])
+    ap.add_argument("--image-size", type=int, default=384)
+    ap.add_argument("--no-strict", action="store_true")
+    args = ap.parse_args(argv)
+    params, report = convert_checkpoint(
+        args.ckpt, args.backbone, args.image_size, strict=not args.no_strict)
+    save_params_npz(params, args.out)
+    print(f"converted {len(report['matched'])} tensors "
+          f"({len(report['missing'])} missing, "
+          f"{len(report['unexpected'])} unexpected) -> {args.out}")
+
+
+if __name__ == "__main__":
+    main()

@@ -33,15 +33,19 @@ OVERRIDES = [
 ]
 
 
-# the one line where a copy differs: the original names the reference
-# repository by a path on the machine it was written on
+# the lines where config.yaml's copy differs: the original names the
+# reference repository by a path on the machine it was written on (6) and
+# the JAX package's converter command, where the copy names the port's (15)
 CONFIG_YAML_LINE = 6
+CONVERTER_LINE = 15
 
 
 def test_yaml_copies_are_byte_equal():
     """Every copy byte for byte (the combo files too), but config.yaml's
-    comment line CONFIG_YAML_LINE, which names the reference without a
-    machine path."""
+    comment lines CONFIG_YAML_LINE, which names the reference without a
+    machine path, and CONVERTER_LINE, which names the port's converter
+    command (``python -m sam2_video_tpu_torch.training.convert``; the
+    card's machine has no JAX)."""
     ours = sorted(str(p.relative_to(tconfig.CONFIG_DIR))
                   for p in tconfig.CONFIG_DIR.rglob("*.yaml"))
     assert COMBOS and ours == sorted(PORTED + COMBOS)
@@ -53,8 +57,10 @@ def test_yaml_copies_are_byte_equal():
             assert len(got) == len(want)
             diff = [i + 1 for i, (a, b) in enumerate(zip(got, want))
                     if a != b]
-            assert diff == [CONFIG_YAML_LINE]
+            assert diff == [CONFIG_YAML_LINE, CONVERTER_LINE]
             assert got[CONFIG_YAML_LINE - 1].startswith(b"# ")
+            assert got[CONVERTER_LINE - 1] == want[CONVERTER_LINE - 1].replace(
+                b"sam2_video_tpu.", b"sam2_video_tpu_torch.")
         else:
             assert got == want, name
 

@@ -227,20 +227,24 @@ def test_read_raw_and_image_size_match_pillow(tmp_path):
 
 
 def test_png_reader_rejects_what_it_cannot_read(tmp_path):
-    """A 16-bit PNG, a CMYK JPEG, an arithmetic-coded JPEG (a baseline
-    file with its SOF0 marker made SOF9) and a text file raise ValueError
-    naming the file and what it is."""
+    """A palette PNG of bit depth 16 (not valid), a 12-bit JPEG, an
+    arithmetic-coded lossless JPEG (a baseline file with its SOF0 marker
+    made SOF11: libjpeg, and so Pillow, decodes none) and a text file
+    raise ValueError naming the file and what it is."""
     smooth, _ = _images()
-    grey16 = Image.fromarray(smooth[..., 0].astype(np.uint16) * 257)
-    cmyk, jpeg = io.BytesIO(), io.BytesIO()
-    Image.fromarray(smooth).convert("CMYK").save(cmyk, "JPEG")
+    jpeg = io.BytesIO()
     Image.fromarray(smooth).save(jpeg, "JPEG")
-    sof = jpeg.getvalue().index(b"\xff\xc0")
-    arith = (jpeg.getvalue()[:sof] + b"\xff\xc9"
-             + jpeg.getvalue()[sof + 2:])
-    cases = {"deep.png": (_pillow_png(grey16), "16-bit"),
-             "cmyk.jpg": (cmyk.getvalue(), "CMYK"),
-             "arith.jpg": (arith, "arithmetic-coded"),
+    data = jpeg.getvalue()
+    sof = data.index(b"\xff\xc0")
+    twelve = bytearray(data)
+    twelve[sof + 4] = 12
+    pal16 = bytearray(image_io.encode_png(smooth[..., 0]))
+    pal16[24:26] = bytes([16, 3])                 # IHDR depth, colour type
+    pal16[29:33] = struct.pack(">I", zlib.crc32(bytes(pal16[12:29])))
+    cases = {"deep.png": (bytes(pal16), "palette PNG of bit depth 16"),
+             "twelve.jpg": (bytes(twelve), "12-bit"),
+             "sof11.jpg": (data[:sof] + b"\xff\xcb" + data[sof + 2:],
+                           "arithmetic-coded lossless"),
              "notes.png": (b"hello", "not a PNG")}
     for name, (data, what) in cases.items():
         (tmp_path / name).write_bytes(data)

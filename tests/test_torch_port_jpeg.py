@@ -12,7 +12,9 @@ package's readers:
   regenerated byte for byte;
 - a hypothesis sweep of sizes 1-96, quality 5-100, the five samplings,
   restart intervals, progressive and optimised files against Pillow;
-- the kinds it refuses raise ``ValueError`` naming the file;
+- the kinds it refuses, which Pillow refuses too, raise ``ValueError``
+  naming the file (``tests/test_torch_port_formats.py`` holds the kinds
+  added since: arithmetic-coded, lossless, CMYK / YCCK JPEG);
 - the JAX ``COCOIndex`` / ``ClipDataset`` / ``ClipLoader`` (Pillow) and the
   port's over the JPEG video dataset: the same frames and batches, prompts
   included; JAX's ``InferenceRunner._load_frames`` (OpenCV) and the port's:
@@ -108,12 +110,20 @@ def test_sweep_matches_pillow(h, w, quality, sampling, restart, progressive,
     np.testing.assert_array_equal(image_io.decode_jpeg_numpy(data), want)
 
 
+# the kinds of ``_refused`` that Pillow refuses as well, and OpenCV but for
+# a truncated progressive file (both decode a corrupt stream with libjpeg's
+# warnings)
+PILLOW_REFUSES = ("sof11.jpg", "sof5.jpg", "lossless_ycbcr.jpg",
+                  "lossless_ycck.jpg", "lossless_part_row.jpg", "two.jpg",
+                  "twelve.jpg", "cut.jpg", "cut_progressive.jpg")
+
+
 def _refused():
-    """name -> (bytes, what the message says)."""
+    """name -> (bytes, what the message says). Lossless YCbCr and YCCK,
+    and a lossless restart interval that is not a whole number of MCU
+    rows, are written by the formats fixtures' encoder."""
     img = jpeg_fixtures._scene(40, 48, 9)
     base = jpeg_fixtures._pillow(img)
-    cmyk = io.BytesIO()
-    Image.fromarray(img).convert("CMYK").save(cmyk, "JPEG")
     sof = base.index(b"\xff\xc0")
 
     def header(marker: bytes) -> bytes:          # the SOF0 marker replaced
@@ -134,9 +144,22 @@ def _refused():
         return (base[:sos] + b"\xff\xda" + (len(body) + 2).to_bytes(2, "big")
                 + body + rest)
 
-    return {"cmyk.jpg": (cmyk.getvalue(), "4-component \\(CMYK/YCCK\\)"),
-            "sof9.jpg": (header(b"\xff\xc9"), "arithmetic-coded JPEG"),
-            "sof3.jpg": (header(b"\xff\xc3"), "lossless JPEG"),
+    rgb = [img[..., i] for i in range(3)]
+    grey = jpeg_fixtures.lossless_jpeg([img[..., 0]], 1, restart_rows=2)
+    dri = grey.index(b"\xff\xdd") + 4
+    part_row = grey[:dri] + (48 * 2 + 5).to_bytes(2, "big") + grey[dri + 2:]
+    two = jpeg_fixtures.huffman_jpeg(jpeg_fixtures.quantise(
+        rgb[:2], [(1, 1)] * 2, jpeg_fixtures._tables(75), [0, 1]))
+    return {"sof11.jpg": (grey.replace(b"\xff\xc3", b"\xff\xcb", 1),
+                          "arithmetic-coded lossless JPEG"),
+            "sof5.jpg": (header(b"\xff\xc5"), "hierarchical JPEG"),
+            "lossless_ycbcr.jpg": (jpeg_fixtures.lossless_jpeg(
+                rgb, 1, apps=jpeg_fixtures.JFIF), "lossless JPEG in YCbCr"),
+            "lossless_ycck.jpg": (jpeg_fixtures.lossless_jpeg(
+                jpeg_fixtures.cmyk(img), 1, apps=jpeg_fixtures.adobe(2)),
+                "lossless JPEG in YCCK"),
+            "lossless_part_row.jpg": (part_row, "restart"),
+            "two.jpg": (two, "2-component JPEG"),
             "twelve.jpg": (bytes(twelve), "12-bit JPEG"),
             "cut.jpg": (base[:len(base) // 2], "truncated"),
             "cut_progressive.jpg": (prog[:2 * len(prog) // 3], "truncated"),
@@ -154,6 +177,12 @@ def test_refused_kinds_raise_naming_the_file(helper, tmp_path, monkeypatch):
         monkeypatch.setattr(image_io, "_helpers", {"jpeg_decode": None})
     for name, (data, what) in _refused().items():
         (tmp_path / name).write_bytes(data)
+        if name in PILLOW_REFUSES:
+            with pytest.raises(OSError):
+                Image.open(tmp_path / name).convert("RGB")
+            # OpenCV decodes what a truncated progressive file holds
+            read = cv2.imread(str(tmp_path / name), cv2.IMREAD_COLOR)
+            assert (read is None) == (name != "cut_progressive.jpg"), name
         with pytest.raises(ValueError, match=what) as err:
             image_io.read_rgb(tmp_path / name)
         assert name in str(err.value), err.value

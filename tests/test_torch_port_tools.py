@@ -416,11 +416,13 @@ def test_local_sweep_pins_a_card_per_slot(tmp_path, monkeypatch):
 def _endovis_tree(root: Path, mode: str) -> None:
     """Two sequences of 3 frames at 36x52 (RGB frames, one frame without a
     mask file) with class-id masks written by Pillow in ``mode``: "P"
-    (palette indices), "L" (grey) or "RGB" (the id in every channel)."""
+    (palette indices), "L" (grey), "RGB" (the id in every channel) or
+    "I;16" (16-bit grey, the ids 1 and 3 written as 300 and 4660)."""
     g = np.random.default_rng(7)
+    big = {1: 300, 3: 4660} if mode == "I;16" else {1: 1, 3: 3}
     labels = [{"name": "background", "classid": 0},
-              {"name": "shaft", "classid": 1},
-              {"name": "wrist", "classid": 3}, {"name": "clasper"}]
+              {"name": "shaft", "classid": big[1]},
+              {"name": "wrist", "classid": big[3]}, {"name": "clasper"}]
     (root / "images").mkdir(parents=True)
     (root / "annotations").mkdir()
     (root / "labels.json").write_text(json.dumps(labels))
@@ -437,6 +439,11 @@ def _endovis_tree(root: Path, mode: str) -> None:
             ids[0, 0] = 2 if f else 0
             if mode == "RGB":
                 im = Image.fromarray(np.repeat(ids[..., None], 3, -1))
+            elif mode == "I;16":
+                wide = ids.astype(np.uint16)
+                for small, large in big.items():
+                    wide[ids == small] = large
+                im = Image.fromarray(wide)          # uint16: mode I;16
             elif mode == "P":
                 im = Image.fromarray(ids, "P")
                 im.putpalette(g.integers(0, 256, 768).tolist())
@@ -445,7 +452,7 @@ def _endovis_tree(root: Path, mode: str) -> None:
             im.save(root / "annotations" / name)
 
 
-@pytest.mark.parametrize("mode", ["P", "L", "RGB"])
+@pytest.mark.parametrize("mode", ["P", "L", "RGB", "I;16"])
 def test_endovis_converter_equals_jax(mode, tmp_path):
     sys.path.insert(0, str(REPO / "data_tools"))
     import convert_endovis_to_coco as jtool
