@@ -215,8 +215,8 @@ KERNEL_TOL = 2e-2             # of max(1, |plain|): bf16 rounding points differ
 ATTENTION_FLOOR = 0.0
 CPU_REL_L2_TOL = 0.1          # card bf16 vs CPU float32, over 4 frames
 PHASES = ("build", "kernels", "train", "train_all", "train_remat",
-          "train_cpu", "serve", "cpu", "fit", "jpeg", "formats", "eval",
-          "ddp")
+          "train_cpu", "serve", "cpu", "fit", "jpeg", "formats", "raster",
+          "eval", "ddp")
 DEVICE = "cuda"
 FRAMES, OBJECTS, CHUNK = 16, 8, 8   # frames per video, objects, encode chunk
 TINY_GEOMETRY = {0: "window 8, no pad", 1: "q-pool, even window 8",
@@ -2812,6 +2812,244 @@ def phase_formats(cfg, seed: int, card: str):
     shutil.rmtree(work, ignore_errors=True)
 
 
+# the raster phase: TIFF, BMP and GIF frames (raster fixtures) against
+# Pillow's and OpenCV's digests, decode times beside 8-bit PNG, and the CLI
+# fit + post-fit eval on TIFF frames beside a PNG copy of them
+RASTER_FIXTURES = ("sam2_video_tpu_torch", "data", "fixtures", "raster")
+RASTER_LARGE_HW = (1024, 1280)        # CholecSeg8k's frame size
+
+
+def _tiff8(rgb: np.ndarray, lzw: bool) -> bytes:
+    """uint8 [H, W, 3] -> a little-endian RGB TIFF in strips of 16 rows,
+    uncompressed or LZW (MSB-first codes, early change, Clear at the
+    start and when the table reaches 4094 entries)."""
+    import struct
+
+    H, W, _ = rgb.shape
+    strips = [rgb[y:y + 16].tobytes() for y in range(0, H, 16)]
+    if lzw:
+        strips = [_lzw(s) for s in strips]
+    head, body, offsets = b"II*\0", bytearray(), []
+    for s in strips:
+        offsets.append(8 + len(body))
+        body += s + b"\0" * (len(s) % 2)
+    ifd_at = 8 + len(body)
+    n = len(strips)
+    tags = [(256, 4, 1, W), (257, 4, 1, H), (258, 3, 3, None),
+            (259, 3, 1, 5 if lzw else 1), (262, 3, 1, 2), (273, 4, n, None),
+            (277, 3, 1, 3), (278, 4, 1, 16), (279, 4, n, None)]
+    extra_at = ifd_at + 2 + 12 * len(tags) + 4
+    extra = struct.pack("<3H", 8, 8, 8) + b"\0\0"
+    arrays = {258: extra_at}
+    arrays[273] = extra_at + len(extra)
+    extra += struct.pack(f"<{n}I", *offsets)
+    arrays[279] = extra_at + len(extra)
+    extra += struct.pack(f"<{n}I", *map(len, strips))
+    ifd = struct.pack("<H", len(tags))
+    for tag, typ, count, value in tags:
+        if value is None:
+            value = (arrays[tag] if count > 1 or tag == 258 else
+                     offsets[0] if tag == 273 else len(strips[0]))
+        if typ == 3 and count == 1:
+            ifd += struct.pack("<HHIHH", tag, typ, count, value, 0)
+        else:
+            ifd += struct.pack("<HHII", tag, typ, count, value)
+    return (head + struct.pack("<I", ifd_at) + bytes(body) + ifd
+            + b"\0\0\0\0" + extra)
+
+
+def _lzw(data: bytes) -> bytes:
+    """TIFF LZW of ``data`` (8-bit symbols; see ``_tiff8``)."""
+    out, acc, nacc = bytearray(), 0, 0
+
+    def put(code, width):
+        nonlocal acc, nacc
+        acc, nacc = (acc << width) | code, nacc + width
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 0xFF)
+
+    def fresh():
+        return {bytes([i]): i for i in range(256)}, 258, 9
+
+    table, nxt, width = fresh()
+    put(256, width)
+    cur = b""
+    for b in data:
+        cand = cur + bytes([b])
+        if cand in table:
+            cur = cand
+            continue
+        put(table[cur], width)
+        table[cand] = nxt
+        nxt += 1
+        if nxt >= 4094:
+            put(256, width)
+            table, nxt, width = fresh()
+        elif nxt >= (1 << width) and width < 12:  # the decoder's early
+            width += 1                            # change, one code later
+        cur = bytes([b])
+    put(table[cur], width)
+    if nxt + 1 >= (1 << width) and width < 12:
+        width += 1
+    put(257, width)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+def phase_raster(cfg, seed: int, card: str):
+    """(a) Every raster fixture (TIFF of each layout, compression, sample
+    kind and orientation; BMP of each depth, header and RLE; GIF; the TIFF
+    video; the timing frames) read by the port with the C++ helpers, which
+    must build, equal to its digests: Pillow's ``convert("RGB")`` (the
+    loader), the JAX eval's reader (OpenCV's ``imread``, or Pillow's where
+    it reads nothing), ``np.asarray(Image.open())`` (``read_raw``) and the
+    size. (b) The median decode ms per 240x320 frame of each timing kind
+    and of the video's LZW + predictor frames beside their 8-bit PNG
+    copies, and of a 1024x1280 frame (CholecSeg8k's size, the 480x854 JPEG
+    fixture resized) as uncompressed and LZW TIFF beside PNG. (c)
+    ``train_torch.py`` on the TIFF video (T=4, B=2, 3 train steps, one
+    validation batch) from ``synthetic_params``, with its post-fit eval
+    (predict.json, finite metrics). (d) The same fit on a PNG copy of the
+    loader's decoded frames, eval off: the losses equal bit for bit. (e)
+    Kernels #1-#5 launched in the TIFF run (fit and eval; counts at 0 just
+    before it)."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    import train_torch
+    from sam2_video_tpu_torch.data import host_build, image_io
+    from sam2_video_tpu_torch.training.checkpoint import save_params_npz
+
+    repo = Path(__file__).resolve().parent
+    root = repo.joinpath(*RASTER_FIXTURES)
+    for name in ("raster_decode", "jpeg_decode"):
+        if host_build.load(name) is None:
+            raise SystemExit(f"raster: the C++ helper csrc/{name}.cpp did "
+                             "not build with g++")
+    digests = json.loads((root / "digests.json").read_text())
+    for rel, want in digests.items():
+        p = root / rel
+        got = {"opencv_sha256": _sha256(image_io.read_rgb(p,
+                                                          reader="opencv")),
+               "size": list(image_io.image_size(p))}
+        if want["sha256"] is not None:   # null: Pillow cannot load it
+            raw = image_io.read_raw(p)
+            got.update(sha256=_sha256(image_io.read_rgb(p)),
+                       raw_sha256=_sha256(raw), raw_dtype=raw.dtype.str)
+        need = {k: want[k] for k in got}
+        if got != need:
+            raise SystemExit(f"raster: {rel} reads to {got}, not {need}")
+    print(f"raster (a): {len(digests)} fixtures read by the C++ helpers, "
+          "each equal to its digests of Pillow's convert('RGB') (where "
+          "Pillow loads it), the JAX eval's reader (OpenCV's imread, else "
+          "Pillow) and np.asarray(Image.open()), and to its size",
+          flush=True)
+
+    home = Path.cwd()
+    work = home / "outputs" / "chip_smoke_raster" / str(os.getpid())
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "png" / "images").mkdir(parents=True)
+    video = root / "video"
+    ann = json.loads((video / "annotations.json").read_text())
+    for im in ann["images"]:
+        rgb = image_io.read_rgb(video / "images" / im["file_name"])
+        im["file_name"] = im["file_name"].replace(".tif", ".png")
+        image_io.write_png(work / "png" / "images" / im["file_name"], rgb)
+    (work / "png" / "annotations.json").write_text(json.dumps(ann))
+    timing = root / "timing"
+    kinds = {"LZW TIFF": sorted(timing.glob("lzw_*.tif")),
+             "LZW + predictor TIFF (the video)": sorted(
+                 (video / "images").glob("*.tif")),
+             "PackBits TIFF": sorted(timing.glob("packbits_*.tif")),
+             "24-bit BMP": sorted(timing.glob("bmp24_*.bmp")),
+             "GIF": sorted(timing.glob("gif_*.gif")),
+             "8-bit PNG (the video's copies)": sorted(
+                 (work / "png" / "images").glob("*.png"))}
+    decode_ms = {k: float(np.median([_median_ms(image_io.read_rgb, p)
+                                     for p in files]))
+                 for k, files in kinds.items()}
+    large = image_io.resize_bilinear(image_io.read_rgb(
+        repo.joinpath(*JPEG_FIXTURES) / "coverage" / "large_480x854.jpg"),
+        RASTER_LARGE_HW[::-1])
+    for name, data in (("large.tif", _tiff8(large, False)),
+                       ("large_lzw.tif", _tiff8(large, True))):
+        (work / name).write_bytes(data)
+        if not np.array_equal(image_io.read_rgb(work / name), large):
+            raise SystemExit(f"raster: the port's read of {name} differs "
+                             "from the frame written")
+    image_io.write_png(work / "large.png", large)
+    large_ms = {k: _median_ms(image_io.read_rgb, work / f)
+                for k, f in (("uncompressed TIFF", "large.tif"),
+                             ("LZW TIFF", "large_lzw.tif"),
+                             ("8-bit PNG", "large.png"))}
+    print("raster (b): decode ms per 240x320 frame (read_rgb, the loader's "
+          "bits), median over the files of the median of "
+          f"{JPEG_DECODE_REPEATS} reads of each: "
+          + ", ".join(f"{k} {v:.3f} ({len(kinds[k])} files)"
+                      for k, v in decode_ms.items())
+          + f"; per {RASTER_LARGE_HW[0]}x{RASTER_LARGE_HW[1]} frame: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in large_ms.items())
+          + f"; one thread, warm page cache; host {host_cpu()}; {card}",
+          flush=True)
+
+    npz = work / "weights.npz"
+    save_params_npz(synthetic_params(cfg, seed), npz)
+    datasets = {"tiff": (video / "annotations.json", video / "images"),
+                "png": (work / "png" / "annotations.json",
+                        work / "png" / "images")}
+
+    def cli(name, which, evaluate):
+        json_path, images = datasets[which]
+        (work / name).mkdir()
+        os.chdir(work / name)
+        try:
+            run_dir, _ = train_torch.run(
+                fit_overrides(json_path, npz) + list(FORMATS_FIT)
+                + [f"data.image_root={images}",
+                   f"eval.enabled={str(evaluate).lower()}"])
+        finally:
+            os.chdir(home)
+        log = [(r["split"], r["step"],
+                r.get("train/total_loss", r.get("val/total_loss")))
+               for r in _fit_log(work / name / run_dir)]
+        return log, work / name / run_dir
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tiff_log, run = cli("run_tiff", "tiff", True)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    metrics = json.loads((run / "eval" / "metrics.json").read_text())
+    m = {k: metrics[f"eval/{k}"] for k in ("dice", "iou", "mae")}
+    if not (run / "eval" / "predict.json").exists() or not all(
+            np.isfinite(v) for v in m.values()):
+        raise SystemExit(f"raster: post-fit eval {m} in {run / 'eval'}")
+    png_log, _ = cli("run_png", "png", False)
+    print("raster (d) losses (split, step, total_loss): TIFF "
+          + json.dumps(tiff_log) + ", PNG " + json.dumps(png_log),
+          flush=True)
+    losses = [v for _, _, v in tiff_log]
+    if len(tiff_log) != 4 or not all(np.isfinite(losses)):
+        raise SystemExit(f"raster fit: log {tiff_log}")
+    if tiff_log != png_log:
+        raise SystemExit("raster fit: the TIFF run's losses differ from the "
+                         "PNG copy's")
+    print("raster (d): the TIFF run's losses equal the PNG copy's bit for "
+          "bit", flush=True)
+    _require(counts, FIT_REQUIRED, "raster fit and post-fit eval")
+    print("raster (e) launches in the TIFF run: " + json.dumps(
+        {k: counts[k] for k in FIT_REQUIRED}), flush=True)
+    print(f"raster (c) train_torch.py on 2 x 8 LZW + predictor TIFF 240x320 "
+          f"frames, T=4 B=2 O=8 384px bf16, 3 steps, a validation and the "
+          f"post-fit eval (OpenCV's bits): {wall:.1f} s; eval metrics "
+          + json.dumps(m) + f"; {card}", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+
 # the eval phase: the predictor both ways, several conditioning frames, a
 # correction click; then the train CLI's post-fit eval
 EVAL_FRAMES, EVAL_PROMPT_FRAME = 16, 8
@@ -3915,6 +4153,9 @@ def main() -> int:
     if "formats" in phases:
         phase_formats(cfg, args.seed, card)
         lap("formats")
+    if "raster" in phases:
+        phase_raster(cfg, args.seed, card)
+        lap("raster")
     if "eval" in phases:
         cpu_run = phase_eval_predictor(params, cfg, args.seed, OBJECTS)
         phase_eval_batched(params, cfg, args.seed, OBJECTS, cpu_run)

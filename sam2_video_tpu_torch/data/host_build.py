@@ -1,7 +1,8 @@
 """Builds the data pipeline's host C++ helpers with g++ and loads them with
 ctypes: the COCO RLE codec (``native/rle.cpp`` at the repository root),
-the PNG row unfilter (``csrc/png_unfilter.cpp``) and the JPEG decoder
-(``csrc/jpeg_decode.cpp``).
+the PNG row unfilter (``csrc/png_unfilter.cpp``), the JPEG decoder
+(``csrc/jpeg_decode.cpp``) and the TIFF, BMP and GIF codecs' loops
+(``csrc/raster_decode.cpp``).
 
 Each library lands in the package's ``build/`` directory, written under a
 temporary name and renamed into place, so processes that build at the same
@@ -23,7 +24,8 @@ PKG = Path(__file__).resolve().parent.parent
 BUILD = PKG / "build"
 SOURCES = {"rle": PKG.parent / "native" / "rle.cpp",
            "png_unfilter": PKG / "csrc" / "png_unfilter.cpp",
-           "jpeg_decode": PKG / "csrc" / "jpeg_decode.cpp"}
+           "jpeg_decode": PKG / "csrc" / "jpeg_decode.cpp",
+           "raster_decode": PKG / "csrc" / "raster_decode.cpp"}
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
