@@ -4,12 +4,13 @@ NVIDIA GPU. Run from the repository root:
 
     python3 chip_smoke.py [--seed 0]
         [--phases build,kernels,train,train_all,train_remat,train_cpu,serve,
-                  cpu,fit,jpeg,formats,eval,ddp]
+                  cpu,fit,jpeg,formats,raster,webp,eval,ddp]
 
 Phases (all by default):
   build      compile every CUDA kernel from csrc/ (one nvcc per source, all
              started together) and the data pipeline's host C++ helpers
-             (the RLE codec, the PNG unfilter, the JPEG decoder) with g++
+             (the RLE codec, the PNG unfilter, the JPEG decoder, the
+             raster and WebP decoders' loops) with g++
   kernels    each kernel against its plain PyTorch version at the shapes
              the training and serving paths give it, with error, tolerance
              and CUDA-event times: #1 fused_block (12 trunk blocks, one
@@ -132,6 +133,12 @@ Phases (all by default):
              within TRAIN_CPU_LOSS_TOL; clips/s, loader waits and the
              loader's ms per batch on both; (d) kernels #1-#5 launched in
              the JPEG run
+  webp       WebP frames (phase_webp): every committed fixture
+             (sam2_video_tpu_torch/data/fixtures/webp) read by the C++
+             helper, which must build, to its digests; decode ms beside
+             PNG and JPEG of the same pictures; train_torch.py on the
+             lossy WebP video with its post-fit eval, its losses bit-equal
+             to a PNG copy's, kernels #1-#5 launched
   eval       the evaluation path: (a) the predictor at the serve cell's
              sizes on one 16-frame 480x854 video, every object prompted
              at frame 8, reverse to frame 0 then forward; then a
@@ -216,7 +223,7 @@ ATTENTION_FLOOR = 0.0
 CPU_REL_L2_TOL = 0.1          # card bf16 vs CPU float32, over 4 frames
 PHASES = ("build", "kernels", "train", "train_all", "train_remat",
           "train_cpu", "serve", "cpu", "fit", "jpeg", "formats", "raster",
-          "eval", "ddp")
+          "webp", "eval", "ddp")
 DEVICE = "cuda"
 FRAMES, OBJECTS, CHUNK = 16, 8, 8   # frames per video, objects, encode chunk
 TINY_GEOMETRY = {0: "window 8, no pad", 1: "q-pool, even window 8",
@@ -3050,6 +3057,159 @@ def phase_raster(cfg, seed: int, card: str):
     shutil.rmtree(work, ignore_errors=True)
 
 
+# the webp phase: every WebP fixture against its digests through the C++
+# helper, decode times beside PNG and JPEG of the same pictures, and the train
+# CLI on WebP frames beside a PNG copy of them
+WEBP_FIXTURES = ("sam2_video_tpu_torch", "data", "fixtures", "webp")
+
+
+def phase_webp(cfg, seed: int, card: str):
+    """(a) Every WebP fixture (VP8 lossy of each segment, partition and
+    filter kind, VP8L lossless of each transform, palette bundling, colour
+    cache and meta prefix codes, raw and VP8L-compressed alpha of each
+    filter, animations, the video and the timing frames) read by the port
+    with the C++ helper, which must build, equal to its digests: Pillow's
+    ``convert("RGB")`` (the loader), the JAX eval's reader (OpenCV's
+    ``imread``), ``np.asarray(Image.open())`` (``read_raw``) and the size.
+    (b) The median decode ms per frame of the 240x320 lossy and lossless
+    timing frames and the video's lossy frames beside 8-bit PNG copies of
+    the same pixels and the JPEG frames they were made from, and of a
+    1280x1024 frame (EndoVis's size) as lossy and lossless WebP beside PNG
+    and baseline JPEG. (c) ``train_torch.py`` on the WebP video (T=4, B=2,
+    3 train steps, one validation batch) from ``synthetic_params``, with
+    its post-fit eval (predict.json, finite metrics). (d) The same fit on a
+    PNG copy of the loader's decoded frames, eval off: the losses equal
+    bit for bit. (e) Kernels #1-#5 launched in the WebP run (fit and eval;
+    counts at 0 just before it)."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    import train_torch
+    from sam2_video_tpu_torch.data import host_build, image_io
+    from sam2_video_tpu_torch.training.checkpoint import save_params_npz
+
+    repo = Path(__file__).resolve().parent
+    root = repo.joinpath(*WEBP_FIXTURES)
+    if host_build.load("webp_decode") is None:
+        raise SystemExit("webp: the C++ helper csrc/webp_decode.cpp did not "
+                         "build with g++")
+    digests = json.loads((root / "digests.json").read_text())
+    for rel, want in digests.items():
+        p = root / rel
+        raw = image_io.read_raw(p)
+        got = {"sha256": _sha256(image_io.read_rgb(p)),
+               "opencv_sha256": _sha256(image_io.read_rgb(p,
+                                                          reader="opencv")),
+               "raw_sha256": _sha256(raw), "raw_dtype": raw.dtype.str,
+               "size": list(image_io.image_size(p))}
+        need = {k: want[k] for k in got}
+        if got != need:
+            raise SystemExit(f"webp: {rel} reads to {got}, not {need}")
+    print(f"webp (a): {len(digests)} fixtures read by the C++ helper, each "
+          "equal to its digests of Pillow's convert('RGB'), the JAX eval's "
+          "reader (OpenCV's imread) and np.asarray(Image.open()), and to its "
+          "size", flush=True)
+
+    home = Path.cwd()
+    work = home / "outputs" / "chip_smoke_webp" / str(os.getpid())
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "png" / "images").mkdir(parents=True)
+    video = root / "video"
+    ann = json.loads((video / "annotations.json").read_text())
+    for im in ann["images"]:
+        rgb = image_io.read_rgb(video / "images" / im["file_name"])
+        im["file_name"] = im["file_name"].replace(".webp", ".png")
+        image_io.write_png(work / "png" / "images" / im["file_name"], rgb)
+    (work / "png" / "annotations.json").write_text(json.dumps(ann))
+    timing = root / "timing"
+    for p in sorted(timing.glob("lossless_*.webp")) + [
+            timing / "large_lossless.webp"]:
+        image_io.write_png(work / p.name.replace(".webp", ".png"),
+                           image_io.read_rgb(p))
+    jpeg_video = repo.joinpath(*JPEG_FIXTURES) / "video" / "images"
+    sources = sorted(jpeg_video.glob("*.jpg"))[::8]
+    kinds = {"lossy WebP q80": sorted(timing.glob("lossy_*.webp")),
+             "lossy WebP q80 (the video)": sorted(
+                 (video / "images").glob("*.webp")),
+             "lossless WebP": sorted(timing.glob("lossless_*.webp")),
+             "8-bit PNG (the lossless frames' pixels)": sorted(
+                 work.glob("lossless_*.png")),
+             "baseline JPEG (the frames the WebP were made from)": sources}
+    decode_ms = {k: float(np.median([_median_ms(image_io.read_rgb, p)
+                                     for p in files]))
+                 for k, files in kinds.items()}
+    large_ms = {k: _median_ms(image_io.read_rgb, f)
+                for k, f in (("lossy WebP q80", timing / "large_lossy.webp"),
+                             ("lossless WebP",
+                              timing / "large_lossless.webp"),
+                             ("8-bit PNG", work / "large_lossless.png"),
+                             ("baseline JPEG q90", timing / "large.jpg"))}
+    print("webp (b): decode ms per 240x320 frame (read_rgb, the loader's "
+          "bits), median over the files of the median of "
+          f"{JPEG_DECODE_REPEATS} reads of each: "
+          + ", ".join(f"{k} {v:.3f} ({len(kinds[k])} files)"
+                      for k, v in decode_ms.items())
+          + "; per 1280x1024 frame of smooth content: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in large_ms.items())
+          + f"; one thread, warm page cache; host {host_cpu()}; {card}",
+          flush=True)
+
+    npz = work / "weights.npz"
+    save_params_npz(synthetic_params(cfg, seed), npz)
+    datasets = {"webp": (video / "annotations.json", video / "images"),
+                "png": (work / "png" / "annotations.json",
+                        work / "png" / "images")}
+
+    def cli(name, which, evaluate):
+        json_path, images = datasets[which]
+        (work / name).mkdir()
+        os.chdir(work / name)
+        try:
+            run_dir, _ = train_torch.run(
+                fit_overrides(json_path, npz) + list(FORMATS_FIT)
+                + [f"data.image_root={images}",
+                   f"eval.enabled={str(evaluate).lower()}"])
+        finally:
+            os.chdir(home)
+        log = [(r["split"], r["step"],
+                r.get("train/total_loss", r.get("val/total_loss")))
+               for r in _fit_log(work / name / run_dir)]
+        return log, work / name / run_dir
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    webp_log, run = cli("run_webp", "webp", True)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    metrics = json.loads((run / "eval" / "metrics.json").read_text())
+    m = {k: metrics[f"eval/{k}"] for k in ("dice", "iou", "mae")}
+    if not (run / "eval" / "predict.json").exists() or not all(
+            np.isfinite(v) for v in m.values()):
+        raise SystemExit(f"webp: post-fit eval {m} in {run / 'eval'}")
+    png_log, _ = cli("run_png", "png", False)
+    print("webp (d) losses (split, step, total_loss): WebP "
+          + json.dumps(webp_log) + ", PNG " + json.dumps(png_log),
+          flush=True)
+    losses = [v for _, _, v in webp_log]
+    if len(webp_log) != 4 or not all(np.isfinite(losses)):
+        raise SystemExit(f"webp fit: log {webp_log}")
+    if webp_log != png_log:
+        raise SystemExit("webp fit: the WebP run's losses differ from the "
+                         "PNG copy's")
+    print("webp (d): the WebP run's losses equal the PNG copy's bit for bit",
+          flush=True)
+    _require(counts, FIT_REQUIRED, "webp fit and post-fit eval")
+    print("webp (e) launches in the WebP run: " + json.dumps(
+        {k: counts[k] for k in FIT_REQUIRED}), flush=True)
+    print(f"webp (c) train_torch.py on 2 x 8 lossy WebP 240x320 frames "
+          f"(quality 80), T=4 B=2 O=8 384px bf16, 3 steps, a validation and "
+          f"the post-fit eval (OpenCV's bits): {wall:.1f} s; eval metrics "
+          + json.dumps(m) + f"; {card}", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+
 # the eval phase: the predictor both ways, several conditioning frames, a
 # correction click; then the train CLI's post-fit eval
 EVAL_FRAMES, EVAL_PROMPT_FRAME = 16, 8
@@ -4156,6 +4316,9 @@ def main() -> int:
     if "raster" in phases:
         phase_raster(cfg, args.seed, card)
         lap("raster")
+    if "webp" in phases:
+        phase_webp(cfg, args.seed, card)
+        lap("webp")
     if "eval" in phases:
         cpu_run = phase_eval_predictor(params, cfg, args.seed, OBJECTS)
         phase_eval_batched(params, cfg, args.seed, OBJECTS, cpu_run)

@@ -3,7 +3,9 @@ entropy decoding, Huffman and arithmetic, lossless prediction, IDCT,
 upsampling and colour conversion, in C++ with a numpy reference), a PNG
 reader and writer (zlib and numpy, the row unfilter in C++), TIFF, BMP and
 GIF readers (their LZW, PackBits, RLE and predictor loops in C++,
-``csrc/raster_decode.cpp``, with numpy references) and Pillow's ``resize``
+``csrc/raster_decode.cpp``, with numpy references), a WebP reader
+(``data/webp.py``: the container, VP8, VP8L and the alpha plane, their
+loops in ``csrc/webp_decode.cpp``) and Pillow's ``resize``
 BILINEAR and NEAREST for 8-bit images, reproduced bit for bit (Pillow's
 ``libImaging/Resample.c`` and ``Geometry.c``), so the port's frames and
 masks equal the JAX pipeline's, which reads them with Pillow in training
@@ -32,6 +34,11 @@ asks, YCbCr that is not JPEG-compressed converted as libtiff converts it);
 the Orientation tag applied as Pillow's loader applies it. A BMP: OS/2 and
 Windows V3-V5 headers, 1-32 bits, bottom-up or top-down, BI_RGB, RLE8,
 RLE4 and Pillow's BITFIELDS layouts. A GIF's first frame, on its screen.
+A WebP: simple (``VP8 ``, ``VP8L``), extended (``VP8X`` with ``ALPH``,
+``ICCP``, ``EXIF``, ``XMP ``) or animated (the first ``ANMF`` frame on its
+zeroed canvas): VP8 lossy through libwebp's fancy upsampling, VP8L
+lossless, alpha read (``read_raw``) and dropped by both readers; EXIF
+orientation is not applied, by either reader.
 
 The two readers' bits differ on: CMYK / YCCK JPEG (Pillow reads it
 inverted and converts with ``MULDIV255``, OpenCV with ``k - ((255 - c) k
@@ -48,21 +55,22 @@ a BMP palette of greys 0..n-1 (Pillow reads the file as mode "L", a
 length (Pillow reads two bytes past a delta and n // 2 bytes of a run);
 GIF transparency and a GIF image smaller than its screen (OpenCV shows the
 screen's background colour there, Pillow the transparent index's colour or
-colour 0). OpenCV reads nothing (the JAX eval falls back to Pillow, which
-the port's eval reader returns) from lossless grey JPEG, 32-bit and
-floating-point TIFF, TIFF of orientations 5-8, 2- and 4-bit grey TIFF,
-16-bit BMP with bit fields in a V3+ header and GIF indices past their
-table; Pillow reads nothing from uncompressed YCbCr and big-endian
-BigTIFF, which OpenCV reads. What neither reads, and the kinds the port
-does not read yet (WebP, the other formats Pillow opens, CCITT, LZMA, ZSTD
-and old-style JPEG TIFF, CIELab TIFF, compressed planar TIFF of modes
-other than RGB, CMYK and RGBA with unassociated alpha, BMP with embedded
-JPEG or PNG; for the eval's reader a tiled TIFF of 2-byte pixels whose
-width is not a whole number of tiles, whose rows ``imread`` misplaces,
-and a GIF without a colour table), raise ``ValueError`` naming the file
-and what it is. ``read_raw`` gives
-``np.asarray(Image.open(path))`` (class-id masks: 16-bit grey as uint16),
-``image_size`` ``Image.open(path).size`` from the headers.
+colour 0). They agree on every WebP kind. OpenCV reads nothing (the JAX
+eval falls back to Pillow, which the port's eval reader returns) from
+lossless grey JPEG, 32-bit and floating-point TIFF, TIFF of orientations
+5-8, 2- and 4-bit grey TIFF, 16-bit BMP with bit fields in a V3+ header
+and GIF indices past their table; Pillow reads nothing from uncompressed
+YCbCr and big-endian BigTIFF, which OpenCV reads. What neither reads,
+and the kinds the port does not read yet (the other formats Pillow opens,
+CCITT, LZMA, ZSTD and old-style JPEG TIFF, CIELab TIFF, compressed planar
+TIFF of modes other than RGB, CMYK and RGBA with unassociated alpha, BMP
+with embedded JPEG or PNG; for the eval's reader a tiled TIFF of 2-byte
+pixels whose width is not a whole number of tiles, whose rows ``imread``
+misplaces, and a GIF without a colour table; a WebP that libwebp refuses,
+truncated or corrupt), raise ``ValueError`` naming the file and what it
+is. ``read_raw`` gives ``np.asarray(Image.open(path))`` (class-id masks:
+16-bit grey as uint16), ``image_size`` ``Image.open(path).size`` from the
+headers.
 """
 
 from __future__ import annotations
@@ -76,7 +84,7 @@ from pathlib import Path
 
 import numpy as np
 
-from . import host_build
+from . import host_build, webp
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> (name, channels)
@@ -191,11 +199,11 @@ def _what(head: bytes) -> str:
         if head.startswith(magic):
             return f"{kind}, a format the port does not read yet"
     if head[:4] == b"RIFF":
-        return "a RIFF file (WebP?), a format the port does not read yet"
+        return "a RIFF file that is not WebP (AVI or WAV?), not an image"
     if head[4:8] == b"ftyp":
         return "an ISO media file (AVIF or HEIF?), a format the port does " \
             "not read yet"
-    return "not a PNG, JPEG, TIFF, BMP or GIF file"
+    return "not a PNG, JPEG, TIFF, BMP, GIF or WebP file"
 
 
 # first bytes -> the format, for the error message of a refused file
@@ -341,15 +349,18 @@ def read_raw(path: str | Path) -> np.ndarray:
     the mode Pillow opens it in (``decode_tiff`` and friends), a TIFF's
     orientation applied: "1" as bool, "L" / "P" [H, W] uint8, "I;16"
     uint16 (">u2" for "I;16B"), "I" int32, "F" float32, "LA" / "PA"
-    [H, W, 2], "RGB", "RGBA", "CMYK"."""
+    [H, W, 2], "RGB", "RGBA", "CMYK". A WebP: "RGBA" [H, W, 4] where
+    libwebp reports alpha, else "RGB" (``webp.webp_raw``)."""
     data = Path(path).read_bytes()
-    kind = _kind(data[:8])
+    kind = _kind(data[:12])
     if kind == "tiff":
         return tiff_raw(data, str(path))
     if kind == "bmp":
         return bmp_raw(data, str(path))
     if kind == "gif":
         return gif_raw(data, str(path))
+    if kind == "webp":
+        return webp.webp_raw(data, str(path))
     px, depth, ctype, _ = _png_samples(data, str(path))
     if depth == 16:
         if ctype == 0:
@@ -369,14 +380,14 @@ def read_raw(path: str | Path) -> np.ndarray:
 
 def image_size(path: str | Path) -> tuple[int, int]:
     """(width, height) of an image file from its header alone (PNG IHDR,
-    JPEG SOFn, a TIFF's first directory, BMP and GIF headers), as
-    Pillow's ``Image.open(path).size``: a TIFF of orientation 5-8
-    transposed."""
+    JPEG SOFn, a TIFF's first directory, BMP and GIF headers, a WebP's
+    canvas), as Pillow's ``Image.open(path).size``: a TIFF of orientation
+    5-8 transposed."""
     with open(path, "rb") as f:
         head = f.read(33)
         if head.startswith(PNG_SIGNATURE) and head[12:16] == b"IHDR":
             return struct.unpack(">II", head[16:24])
-        kind = _kind(head[:8])
+        kind = _kind(head[:12])
         if kind == "jpeg":
             return jpeg_header(head + f.read(), str(path)).size
         if kind == "tiff":
@@ -385,6 +396,8 @@ def image_size(path: str | Path) -> tuple[int, int]:
             return _Bmp(head + f.read(), str(path)).size
         if kind == "gif":
             return _Gif(head + f.read(), str(path)).size
+        if kind == "webp":
+            return webp.webp_size(head + f.read(), str(path))
     raise ValueError(f"{path}: {_what(head[:8])}")
 
 
@@ -2937,20 +2950,22 @@ def _kind(head: bytes) -> str:
         return "bmp"
     if head[:6] in (b"GIF87a", b"GIF89a"):
         return "gif"
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        return "webp"
     return "other"
 
 
 def read_rgb(path: str | Path, reader: str = "pillow") -> np.ndarray:
     """The image file at ``path`` as uint8 [H, W, 3]: a JPEG, PNG, TIFF,
-    BMP or GIF, told apart by their first bytes, as both readers do (the
-    extension is ignored). ``reader`` "pillow" gives
+    BMP, GIF or WebP, told apart by their first bytes, as both readers do
+    (the extension is ignored). ``reader`` "pillow" gives
     ``Image.open(path).convert("RGB")`` (the training pipeline's reader),
     "opencv" what the JAX eval's frame reader gives: ``cv2.imread(path,
     IMREAD_COLOR | IMREAD_IGNORE_ORIENTATION)`` as RGB, or Pillow's where
     ``imread`` returns None (the module docstring lists where the two
     differ)."""
     data = Path(path).read_bytes()
-    kind = _kind(data[:8])
+    kind = _kind(data[:12])
     if kind == "jpeg":
         return decode_jpeg(data, str(path), reader)
     if kind == "tiff":
@@ -2959,6 +2974,8 @@ def read_rgb(path: str | Path, reader: str = "pillow") -> np.ndarray:
         return decode_bmp(data, str(path), reader)
     if kind == "gif":
         return decode_gif(data, str(path), reader)
+    if kind == "webp":
+        return webp.decode_webp(data, str(path), reader)
     return decode_png(data, str(path), reader)
 
 
