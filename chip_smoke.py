@@ -4,13 +4,13 @@ NVIDIA GPU. Run from the repository root:
 
     python3 chip_smoke.py [--seed 0]
         [--phases build,kernels,train,train_all,train_remat,train_cpu,serve,
-                  cpu,fit,jpeg,formats,raster,webp,eval,ddp]
+                  cpu,fit,jpeg,formats,raster,webp,simple,eval,ddp]
 
 Phases (all by default):
   build      compile every CUDA kernel from csrc/ (one nvcc per source, all
              started together) and the data pipeline's host C++ helpers
              (the RLE codec, the PNG unfilter, the JPEG decoder, the
-             raster and WebP decoders' loops) with g++
+             raster, WebP and simple-format decoders' loops) with g++
   kernels    each kernel against its plain PyTorch version at the shapes
              the training and serving paths give it, with error, tolerance
              and CUDA-event times: #1 fused_block (12 trunk blocks, one
@@ -139,6 +139,14 @@ Phases (all by default):
              PNG and JPEG of the same pictures; train_torch.py on the
              lossy WebP video with its post-fit eval, its losses bit-equal
              to a PNG copy's, kernels #1-#5 launched
+  simple     the simple formats ffmpeg writes (phase_simple): every
+             committed fixture (sam2_video_tpu_torch/data/fixtures/simple:
+             Netpbm, PAM, PFM, Sun, TGA, SGI, PCX, DCX, QOI, XBM, HDR, DIB)
+             read by the C++ helper, which must build, to its digests;
+             decode ms of each video frame kind and of 1280x1024 frames
+             beside PNG; train_torch.py on the mixed-format video with its
+             post-fit eval, its losses bit-equal to a PNG copy's, kernels
+             #1-#5 launched
   eval       the evaluation path: (a) the predictor at the serve cell's
              sizes on one 16-frame 480x854 video, every object prompted
              at frame 8, reverse to frame 0 then forward; then a
@@ -223,7 +231,7 @@ ATTENTION_FLOOR = 0.0
 CPU_REL_L2_TOL = 0.1          # card bf16 vs CPU float32, over 4 frames
 PHASES = ("build", "kernels", "train", "train_all", "train_remat",
           "train_cpu", "serve", "cpu", "fit", "jpeg", "formats", "raster",
-          "webp", "eval", "ddp")
+          "webp", "simple", "eval", "ddp")
 DEVICE = "cuda"
 FRAMES, OBJECTS, CHUNK = 16, 8, 8   # frames per video, objects, encode chunk
 TINY_GEOMETRY = {0: "window 8, no pad", 1: "q-pool, even window 8",
@@ -3210,6 +3218,209 @@ def phase_webp(cfg, seed: int, card: str):
     shutil.rmtree(work, ignore_errors=True)
 
 
+# the simple phase: every simple-format fixture against its digests through
+# the C++ helper, decode times beside PNG, and the train CLI on a video whose
+# frames come in eight of the formats beside a PNG copy of them
+SIMPLE_FIXTURES = ("sam2_video_tpu_torch", "data", "fixtures", "simple")
+# the video's frame kinds by file extension (frame i of each video is in
+# the i-th; tests/simple_fixtures.py VIDEO_KINDS)
+SIMPLE_VIDEO_KINDS = {".ppm": "P6 PPM", ".pgm": "P5 PGM",
+                      ".ras": "8-bit Sun RLE with a colour map",
+                      ".tga": "TGA RLE", ".sgi": "SGI RLE",
+                      ".pcx": "24-bit PCX", ".qoi": "QOI",
+                      ".dib": "8-bit RLE8 DIB"}
+
+
+def _simple_reads(p, want: dict) -> dict:
+    """What the port reads of a fixture, in the keys of its digests: each
+    digest, or None where the reader raises ValueError (the digests hold
+    null where the libraries raise)."""
+    from sam2_video_tpu_torch.data import image_io
+
+    def attempt(fn):
+        try:
+            return fn()
+        except ValueError:
+            return None
+
+    rgb = attempt(lambda: image_io.read_rgb(p))
+    cv = attempt(lambda: image_io.read_rgb(p, reader="opencv"))
+    raw = attempt(lambda: image_io.read_raw(p))
+    size = attempt(lambda: list(image_io.image_size(p)))
+    return {"size": size,
+            "sha256": None if rgb is None else _sha256(rgb),
+            "opencv_sha256": None if cv is None else _sha256(cv),
+            "raw_sha256": None if raw is None else _sha256(raw),
+            "raw_dtype": None if raw is None else raw.dtype.str}
+
+
+def _p6(rgb: np.ndarray) -> bytes:
+    h, w, _ = rgb.shape
+    return b"P6\n%d %d\n255\n" % (w, h) + np.ascontiguousarray(
+        rgb, np.uint8).tobytes()
+
+
+def _tga24(rgb: np.ndarray) -> bytes:
+    """An uncompressed 24-bit TGA, top row first."""
+    import struct
+
+    h, w, _ = rgb.shape
+    return struct.pack("<BBBHHBHHHHBB", 0, 0, 2, 0, 0, 0, 0, 0, w, h, 24,
+                       0x20) + np.ascontiguousarray(rgb[..., ::-1]).tobytes()
+
+
+def phase_simple(cfg, seed: int, card: str):
+    """(a) Every simple-format fixture (Netpbm ASCII and binary of maxvals
+    1-65535, PAM, PFM, Sun raster of each depth and type, TGA of each image
+    type, map and orientation, SGI verbatim and RLE, PCX and DCX, QOI, XBM,
+    Radiance HDR, DIB, the refused kinds, the video and the timing frames)
+    read by the port with the C++ helper, which must build, equal to its
+    digests: Pillow's ``convert("RGB")`` (the loader), the JAX eval's reader
+    (OpenCV's ``imread``, else Pillow), ``np.asarray(Image.open())``
+    (``read_raw``) and the size, or a ``ValueError`` where the digest is
+    null (the library raises). (b) The median decode ms per 240x320 frame
+    of each of the video's eight kinds beside an 8-bit PNG of the same
+    pixels, and per 1280x1024 frame (EndoVis's size) of QOI and RLE TGA
+    (committed) and uncompressed P6 and TGA (written here from the decoded
+    pixels, read back equal) beside PNG. (c) ``train_torch.py`` on the
+    mixed-format video (T=4, B=2, 3 train steps, one validation batch)
+    from ``synthetic_params``, with its post-fit eval (predict.json,
+    finite metrics). (d) The same fit on a PNG copy of the loader's decoded
+    frames, eval off: the losses equal bit for bit. (e) Kernels #1-#5
+    launched in the run of (c), fit and eval (counts at 0 just before
+    it)."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    import train_torch
+    from sam2_video_tpu_torch.data import host_build, image_io
+    from sam2_video_tpu_torch.training.checkpoint import save_params_npz
+
+    repo = Path(__file__).resolve().parent
+    root = repo.joinpath(*SIMPLE_FIXTURES)
+    if host_build.load("simple_decode") is None:
+        raise SystemExit("simple: the C++ helper csrc/simple_decode.cpp did "
+                         "not build with g++")
+    digests = json.loads((root / "digests.json").read_text())
+    refused = 0
+    for rel, want in digests.items():
+        got = _simple_reads(root / rel, want)
+        need = {k: want[k] for k in got}
+        if got != need:
+            raise SystemExit(f"simple: {rel} reads to {got}, not {need}")
+        refused += want["sha256"] is None
+    print(f"simple (a): {len(digests)} fixtures read by the C++ helper, each "
+          "equal to its digests of Pillow's convert('RGB'), the JAX eval's "
+          "reader (OpenCV's imread, else Pillow), np.asarray(Image.open()) "
+          f"and its size ({refused} that Pillow refuses raise ValueError)",
+          flush=True)
+
+    home = Path.cwd()
+    work = home / "outputs" / "chip_smoke_simple" / str(os.getpid())
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "png" / "images").mkdir(parents=True)
+    video = root / "video"
+    ann = json.loads((video / "annotations.json").read_text())
+    by_kind: dict = {}
+    for im in ann["images"]:
+        src = video / "images" / im["file_name"]
+        rgb = image_io.read_rgb(src)
+        name = Path(im["file_name"]).with_suffix(".png").name
+        image_io.write_png(work / "png" / "images" / name, rgb)
+        by_kind.setdefault(src.suffix, []).append(
+            (src, work / "png" / "images" / name))
+        im["file_name"] = name
+    (work / "png" / "annotations.json").write_text(json.dumps(ann))
+    decode_ms = {}
+    for ext, pairs in by_kind.items():
+        decode_ms[SIMPLE_VIDEO_KINDS[ext]] = (
+            float(np.median([_median_ms(image_io.read_rgb, a)
+                             for a, _ in pairs])),
+            float(np.median([_median_ms(image_io.read_rgb, b)
+                             for _, b in pairs])))
+    timing = root / "timing"
+    large = image_io.read_rgb(timing / "large.qoi")
+    copies = {"uncompressed P6 PPM": (work / "large.ppm", _p6(large)),
+              "uncompressed TGA": (work / "large.tga", _tga24(large))}
+    for label, (p, data) in copies.items():
+        p.write_bytes(data)
+        if not np.array_equal(image_io.read_rgb(p), large):
+            raise SystemExit(f"simple: the {label} copy of the 1280x1024 "
+                             "frame does not read back equal")
+    image_io.write_png(work / "large.png", large)
+    large_ms = {k: _median_ms(image_io.read_rgb, f)
+                for k, f in (("QOI", timing / "large.qoi"),
+                             ("TGA RLE", timing / "large_rle.tga"),
+                             *((k, p) for k, (p, _) in copies.items()),
+                             ("8-bit PNG", work / "large.png"))}
+    print("simple (b): decode ms per 240x320 frame (read_rgb, the loader's "
+          "bits; median over the video's 2 frames of each kind of the "
+          f"median of {JPEG_DECODE_REPEATS} reads), kind vs an 8-bit PNG of "
+          "the same pixels: "
+          + ", ".join(f"{k} {a:.3f} vs {b:.3f}"
+                      for k, (a, b) in decode_ms.items())
+          + "; per 1280x1024 frame of posterised smooth content: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in large_ms.items())
+          + f"; one thread, warm page cache; host {host_cpu()}; {card}",
+          flush=True)
+
+    npz = work / "weights.npz"
+    save_params_npz(synthetic_params(cfg, seed), npz)
+    datasets = {"simple": (video / "annotations.json", video / "images"),
+                "png": (work / "png" / "annotations.json",
+                        work / "png" / "images")}
+
+    def cli(name, which, evaluate):
+        json_path, images = datasets[which]
+        (work / name).mkdir()
+        os.chdir(work / name)
+        try:
+            run_dir, _ = train_torch.run(
+                fit_overrides(json_path, npz) + list(FORMATS_FIT)
+                + [f"data.image_root={images}",
+                   f"eval.enabled={str(evaluate).lower()}"])
+        finally:
+            os.chdir(home)
+        log = [(r["split"], r["step"],
+                r.get("train/total_loss", r.get("val/total_loss")))
+               for r in _fit_log(work / name / run_dir)]
+        return log, work / name / run_dir
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    simple_log, run = cli("run_simple", "simple", True)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    metrics = json.loads((run / "eval" / "metrics.json").read_text())
+    m = {k: metrics[f"eval/{k}"] for k in ("dice", "iou", "mae")}
+    if not (run / "eval" / "predict.json").exists() or not all(
+            np.isfinite(v) for v in m.values()):
+        raise SystemExit(f"simple: post-fit eval {m} in {run / 'eval'}")
+    png_log, _ = cli("run_png", "png", False)
+    print("simple (d) losses (split, step, total_loss): mixed formats "
+          + json.dumps(simple_log) + ", PNG " + json.dumps(png_log),
+          flush=True)
+    losses = [v for _, _, v in simple_log]
+    if len(simple_log) != 4 or not all(np.isfinite(losses)):
+        raise SystemExit(f"simple fit: log {simple_log}")
+    if simple_log != png_log:
+        raise SystemExit("simple fit: the mixed-format run's losses differ "
+                         "from the PNG copy's")
+    print("simple (d): the mixed-format run's losses equal the PNG copy's "
+          "bit for bit", flush=True)
+    _require(counts, FIT_REQUIRED, "simple fit and post-fit eval")
+    print("simple (e) launches in the mixed-format run: " + json.dumps(
+        {k: counts[k] for k in FIT_REQUIRED}), flush=True)
+    print("simple (c) train_torch.py on 2 x 8 240x320 frames in eight "
+          "formats (" + ", ".join(SIMPLE_VIDEO_KINDS.values()) + "), T=4 "
+          f"B=2 O=8 384px bf16, 3 steps, a validation and the post-fit eval "
+          f"(OpenCV's bits, else Pillow's): {wall:.1f} s; eval metrics "
+          + json.dumps(m) + f"; {card}", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+
 # the eval phase: the predictor both ways, several conditioning frames, a
 # correction click; then the train CLI's post-fit eval
 EVAL_FRAMES, EVAL_PROMPT_FRAME = 16, 8
@@ -4319,6 +4530,9 @@ def main() -> int:
     if "webp" in phases:
         phase_webp(cfg, args.seed, card)
         lap("webp")
+    if "simple" in phases:
+        phase_simple(cfg, args.seed, card)
+        lap("simple")
     if "eval" in phases:
         cpu_run = phase_eval_predictor(params, cfg, args.seed, OBJECTS)
         phase_eval_batched(params, cfg, args.seed, OBJECTS, cpu_run)

@@ -2,8 +2,9 @@
 ctypes: the COCO RLE codec (``native/rle.cpp`` at the repository root),
 the PNG row unfilter (``csrc/png_unfilter.cpp``), the JPEG decoder
 (``csrc/jpeg_decode.cpp``), the TIFF, BMP and GIF codecs' loops
-(``csrc/raster_decode.cpp``) and the WebP decoder's
-(``csrc/webp_decode.cpp``).
+(``csrc/raster_decode.cpp``), the WebP decoder's
+(``csrc/webp_decode.cpp``) and the simple formats' run-length, QOI, HDR and
+ASCII Netpbm loops (``csrc/simple_decode.cpp``).
 
 Each library lands in the package's ``build/`` directory, written under a
 temporary name and renamed into place, so processes that build at the same
@@ -27,7 +28,8 @@ SOURCES = {"rle": PKG.parent / "native" / "rle.cpp",
            "png_unfilter": PKG / "csrc" / "png_unfilter.cpp",
            "jpeg_decode": PKG / "csrc" / "jpeg_decode.cpp",
            "raster_decode": PKG / "csrc" / "raster_decode.cpp",
-           "webp_decode": PKG / "csrc" / "webp_decode.cpp"}
+           "webp_decode": PKG / "csrc" / "webp_decode.cpp",
+           "simple_decode": PKG / "csrc" / "simple_decode.cpp"}
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()

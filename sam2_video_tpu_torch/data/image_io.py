@@ -5,14 +5,19 @@ reader and writer (zlib and numpy, the row unfilter in C++), TIFF, BMP and
 GIF readers (their LZW, PackBits, RLE and predictor loops in C++,
 ``csrc/raster_decode.cpp``, with numpy references), a WebP reader
 (``data/webp.py``: the container, VP8, VP8L and the alpha plane, their
-loops in ``csrc/webp_decode.cpp``) and Pillow's ``resize``
+loops in ``csrc/webp_decode.cpp``), readers of the simple formats that
+ffmpeg writes (``data/simple_formats.py``: Netpbm, PAM, PFM, Sun raster,
+TGA, SGI, PCX, DCX, QOI, XBM, Radiance HDR and DIB, their loops in
+``csrc/simple_decode.cpp``) and Pillow's ``resize``
 BILINEAR and NEAREST for 8-bit images, reproduced bit for bit (Pillow's
 ``libImaging/Resample.c`` and ``Geometry.c``), so the port's frames and
 masks equal the JAX pipeline's, which reads them with Pillow in training
 and in its tools and with OpenCV in its eval.
 
 ``read_rgb`` returns what ``Image.open(path).convert("RGB")`` gives, the
-format told by the first bytes (``reader="opencv"``: what ``cv2.imread``
+format told by the first bytes as Pillow's plugins tell it, in the order a
+process that imports ``PIL.Image`` alone tries them
+(``simple_formats.pillow_open``; ``reader="opencv"``: what ``cv2.imread``
 with IMREAD_COLOR | IMREAD_IGNORE_ORIENTATION gives, as RGB, or Pillow's
 where it returns None, as the JAX eval falls back). A JPEG: 8-bit samples,
 Huffman-coded baseline, extended or progressive, arithmetic-coded
@@ -38,7 +43,15 @@ A WebP: simple (``VP8 ``, ``VP8L``), extended (``VP8X`` with ``ALPH``,
 ``ICCP``, ``EXIF``, ``XMP ``) or animated (the first ``ANMF`` frame on its
 zeroed canvas): VP8 lossy through libwebp's fancy upsampling, VP8L
 lossless, alpha read (``read_raw``) and dropped by both readers; EXIF
-orientation is not applied, by either reader.
+orientation is not applied, by either reader. The simple formats
+(``data/simple_formats.py``, whose docstring lists what each reader reads
+of them and where the two differ): ASCII and binary Netpbm of maxval
+1-65535, PAM (OpenCV only), PFM (``Pf`` both, ``PF`` OpenCV only), Sun
+raster of 1, 4, 8, 24 and 32 bits, raw or RLE, with or without a colour
+map, TGA of image types 1, 2, 3, 9, 10 and 11 in every orientation, SGI of
+8 or 16 bits and 1-4 channels, verbatim or RLE, PCX of 1 bit, 1-bit planes
+(2 or 4), 8 bits with a palette or grey and 24 bits in three planes, the
+first page of a DCX, QOI, XBM, Radiance HDR (OpenCV only) and DIB.
 
 The two readers' bits differ on: CMYK / YCCK JPEG (Pillow reads it
 inverted and converts with ``MULDIV255``, OpenCV with ``k - ((255 - c) k
@@ -55,13 +68,16 @@ a BMP palette of greys 0..n-1 (Pillow reads the file as mode "L", a
 length (Pillow reads two bytes past a delta and n // 2 bytes of a run);
 GIF transparency and a GIF image smaller than its screen (OpenCV shows the
 screen's background colour there, Pillow the transparent index's colour or
-colour 0). They agree on every WebP kind. OpenCV reads nothing (the JAX
+colour 0); the simple formats' differences (Netpbm of maxval other than
+255, PAM, PFM, HDR and Sun, listed in ``data/simple_formats.py``). They
+agree on every WebP kind. OpenCV reads nothing (the JAX
 eval falls back to Pillow, which the port's eval reader returns) from
 lossless grey JPEG, 32-bit and floating-point TIFF, TIFF of orientations
 5-8, 2- and 4-bit grey TIFF, 16-bit BMP with bit fields in a V3+ header
 and GIF indices past their table; Pillow reads nothing from uncompressed
 YCbCr and big-endian BigTIFF, which OpenCV reads. What neither reads,
-and the kinds the port does not read yet (the other formats Pillow opens,
+and the kinds the port does not read yet (the other formats Pillow opens
+but the port does not read, JPEG 2000, AVIF, ICO and CUR among them,
 CCITT, LZMA, ZSTD and old-style JPEG TIFF, CIELab TIFF, compressed planar
 TIFF of modes other than RGB, CMYK and RGBA with unassociated alpha, BMP
 with embedded JPEG or PNG; for the eval's reader a tiled TIFF of 2-byte
@@ -70,7 +86,7 @@ misplaces, and a GIF without a colour table; a WebP that libwebp refuses,
 truncated or corrupt), raise ``ValueError`` naming the file and what it
 is. ``read_raw`` gives ``np.asarray(Image.open(path))`` (class-id masks:
 16-bit grey as uint16), ``image_size`` ``Image.open(path).size`` from the
-headers.
+headers; both raise where Pillow raises (on PAM, ``PF`` and HDR too).
 """
 
 from __future__ import annotations
@@ -84,7 +100,7 @@ from pathlib import Path
 
 import numpy as np
 
-from . import host_build, webp
+from . import host_build, simple_formats, webp
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> (name, channels)
@@ -195,6 +211,9 @@ def _what(head: bytes) -> str:
     named, so that the ``ValueError`` says what the file is)."""
     if head.startswith(JPEG_SIGNATURE):
         return "a JPEG file, not a PNG"
+    what = simple_formats.refusal(head)
+    if what:
+        return what
     for magic, kind in _OTHER_FORMATS:
         if head.startswith(magic):
             return f"{kind}, a format the port does not read yet"
@@ -203,24 +222,20 @@ def _what(head: bytes) -> str:
     if head[4:8] == b"ftyp":
         return "an ISO media file (AVIF or HEIF?), a format the port does " \
             "not read yet"
-    return "not a PNG, JPEG, TIFF, BMP, GIF or WebP file"
+    return ("not a PNG, JPEG, TIFF, BMP, GIF, WebP, Netpbm, Sun raster, "
+            "TGA, SGI, PCX, DCX, QOI, XBM or DIB file (Pillow cannot "
+            "identify it)")
 
 
 # first bytes -> the format, for the error message of a refused file
 _OTHER_FORMATS = (
     (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "a JPEG 2000 file"),
-    (b"\xffO\xffQ", "a JPEG 2000 codestream"), (b"qoif", "a QOI file"),
-    (b"8BPS", "a Photoshop file"), (b"\x00\x00\x01\x00", "an ICO file"),
-    (b"\x00\x00\x02\x00", "a CUR file"), (b"\x01\xda", "an SGI file"),
-    (b"icns", "an ICNS file"), (b"DDS ", "a DDS file"),
-    (b"\x59\xa6\x6a\x95", "a Sun raster file"), (b"\x0a", "a PCX file"),
+    (b"\xffO\xffQ", "a JPEG 2000 codestream"),
+    (b"8BPS", "a Photoshop file"), (b"icns", "an ICNS file"),
+    (b"DDS ", "a DDS file"),
     (b"%!PS", "a PostScript file"), (b"\xc5\xd0\xd3\xc6", "an EPS file"),
     (b"\x97JB2", "a JBIG2 file"), (b"FLIF", "a FLIF file"),
-    (b"#?RADIANCE", "a Radiance HDR file"), (b"\x76\x2f\x31\x01",
-                                             "an OpenEXR file"),
-    (b"P1", "a PNM file"), (b"P2", "a PNM file"), (b"P3", "a PNM file"),
-    (b"P4", "a PNM file"), (b"P5", "a PNM file"), (b"P6", "a PNM file"),
-    (b"P7", "a PAM file"), (b"Pf", "a PFM file"), (b"PF", "a PFM file"))
+    (b"\x76\x2f\x31\x01", "an OpenEXR file"))
 
 
 # Adam7: (x0, y0, dx, dy) of the seven passes
@@ -350,9 +365,13 @@ def read_raw(path: str | Path) -> np.ndarray:
     orientation applied: "1" as bool, "L" / "P" [H, W] uint8, "I;16"
     uint16 (">u2" for "I;16B"), "I" int32, "F" float32, "LA" / "PA"
     [H, W, 2], "RGB", "RGBA", "CMYK". A WebP: "RGBA" [H, W, 4] where
-    libwebp reports alpha, else "RGB" (``webp.webp_raw``)."""
+    libwebp reports alpha, else "RGB" (``webp.webp_raw``). A simple format
+    (``simple_formats``): the pixels of its Pillow mode, "I" as int32 and
+    "F" as float32."""
     data = Path(path).read_bytes()
-    kind = _kind(data[:12])
+    kind = _kind(data, str(path))
+    if isinstance(kind, simple_formats.Pic):
+        return simple_formats.pic_raw(kind)
     if kind == "tiff":
         return tiff_raw(data, str(path))
     if kind == "bmp":
@@ -361,6 +380,8 @@ def read_raw(path: str | Path) -> np.ndarray:
         return gif_raw(data, str(path))
     if kind == "webp":
         return webp.webp_raw(data, str(path))
+    if kind == "other":
+        raise ValueError(f"{path}: {_what(data[:16])}")
     px, depth, ctype, _ = _png_samples(data, str(path))
     if depth == 16:
         if ctype == 0:
@@ -381,24 +402,29 @@ def read_raw(path: str | Path) -> np.ndarray:
 def image_size(path: str | Path) -> tuple[int, int]:
     """(width, height) of an image file from its header alone (PNG IHDR,
     JPEG SOFn, a TIFF's first directory, BMP and GIF headers, a WebP's
-    canvas), as Pillow's ``Image.open(path).size``: a TIFF of orientation
-    5-8 transposed."""
+    canvas, a simple format's header), as Pillow's
+    ``Image.open(path).size``: a TIFF of orientation 5-8 transposed; a
+    file ``Image.open`` refuses raises."""
     with open(path, "rb") as f:
         head = f.read(33)
         if head.startswith(PNG_SIGNATURE) and head[12:16] == b"IHDR":
             return struct.unpack(">II", head[16:24])
-        kind = _kind(head[:12])
-        if kind == "jpeg":
-            return jpeg_header(head + f.read(), str(path)).size
-        if kind == "tiff":
-            return _Tiff(head + f.read(), str(path)).pillow().size
-        if kind == "bmp":
-            return _Bmp(head + f.read(), str(path)).size
-        if kind == "gif":
-            return _Gif(head + f.read(), str(path)).size
-        if kind == "webp":
-            return webp.webp_size(head + f.read(), str(path))
-    raise ValueError(f"{path}: {_what(head[:8])}")
+        data = head + f.read()
+    name = str(path)
+    kind = _kind(data, name)
+    if isinstance(kind, simple_formats.Pic):
+        return kind.size
+    if kind == "jpeg":
+        return jpeg_header(data, name).size
+    if kind == "tiff":
+        return _Tiff(data, name).pillow().size
+    if kind == "bmp":
+        return _Bmp(data, name).size
+    if kind == "gif":
+        return _Gif(data, name).size
+    if kind == "webp":
+        return webp.webp_size(data, name)
+    raise ValueError(f"{path}: {_what(head[:16])}")
 
 
 # ---------------------------------------------------------------------------
@@ -2938,34 +2964,32 @@ def gif_raw(data: bytes, name: str = "<bytes>") -> np.ndarray:
     return _gif_pillow_pixels(_Gif(data, name))
 
 
-def _kind(head: bytes) -> str:
-    """The format the first bytes name, as Pillow and OpenCV tell it."""
-    if head.startswith(JPEG_SIGNATURE):
-        return "jpeg"
-    if head.startswith(PNG_SIGNATURE):
-        return "png"
-    if head[:4] in TIFF_SIGNATURES:
-        return "tiff"
-    if head[:2] == b"BM":
-        return "bmp"
-    if head[:6] in (b"GIF87a", b"GIF89a"):
-        return "gif"
-    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
-        return "webp"
-    return "other"
+def _kind(data: bytes, name: str):
+    """The plugin Pillow opens the file with (``simple_formats.pillow_open``):
+    "jpeg", "png", "tiff", "bmp", "gif" or "webp", a ``simple_formats.Pic``,
+    or "other" where no plugin takes it; a file that makes ``Image.open``
+    raise raises ``ValueError`` naming it."""
+    got = simple_formats.pillow_open(data, name)
+    return "other" if got is None else got
 
 
 def read_rgb(path: str | Path, reader: str = "pillow") -> np.ndarray:
     """The image file at ``path`` as uint8 [H, W, 3]: a JPEG, PNG, TIFF,
-    BMP, GIF or WebP, told apart by their first bytes, as both readers do
-    (the extension is ignored). ``reader`` "pillow" gives
-    ``Image.open(path).convert("RGB")`` (the training pipeline's reader),
-    "opencv" what the JAX eval's frame reader gives: ``cv2.imread(path,
-    IMREAD_COLOR | IMREAD_IGNORE_ORIENTATION)`` as RGB, or Pillow's where
-    ``imread`` returns None (the module docstring lists where the two
-    differ)."""
+    BMP, GIF, WebP or one of the simple formats, told apart by their first
+    bytes, as both readers do (the extension is ignored). ``reader``
+    "pillow" gives ``Image.open(path).convert("RGB")`` (the training
+    pipeline's reader), "opencv" what the JAX eval's frame reader gives:
+    ``cv2.imread(path, IMREAD_COLOR | IMREAD_IGNORE_ORIENTATION)`` as RGB,
+    or Pillow's where ``imread`` returns None (the module docstring lists
+    where the two differ)."""
     data = Path(path).read_bytes()
-    kind = _kind(data[:12])
+    if reader == "opencv":
+        rgb = simple_formats.opencv_read(data, str(path))
+        if rgb is not None:
+            return rgb
+    kind = _kind(data, str(path))
+    if isinstance(kind, simple_formats.Pic):
+        return simple_formats.pic_rgb(kind)
     if kind == "jpeg":
         return decode_jpeg(data, str(path), reader)
     if kind == "tiff":
@@ -2976,6 +3000,8 @@ def read_rgb(path: str | Path, reader: str = "pillow") -> np.ndarray:
         return decode_gif(data, str(path), reader)
     if kind == "webp":
         return webp.decode_webp(data, str(path), reader)
+    if kind == "other":
+        raise ValueError(f"{path}: {_what(data[:16])}")
     return decode_png(data, str(path), reader)
 
 

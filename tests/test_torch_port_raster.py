@@ -329,7 +329,8 @@ def _refused():
             "pillow", "bit fields"),
            ("nopal.gif", rf.gif(g.integers(0, 16, (4, 5))), "opencv",
             "colour table"),
-           ("pnm.tif", b"P6\n3 2\n255\n" + bytes(18), "pillow", "PNM")]
+           ("j2k.tif", b"\xffO\xffQ\x00\x29" + bytes(41), "pillow",
+            "JPEG 2000")]
     old_jpeg = bytearray(rf.tiff(rgb, photometric=2, bps=8))
     i = old_jpeg.index(struct_tag(259, 1))
     old_jpeg[i:i + 10] = struct_tag(259, 6)

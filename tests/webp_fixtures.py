@@ -331,7 +331,7 @@ def _alpha_plane(h: int, w: int, seed: int) -> np.ndarray:
     yy, xx = np.mgrid[0:h, 0:w]
     a = (xx * 255 // max(w - 1, 1) + yy * 3) % 256
     a[(yy - h // 2) ** 2 + (xx - w // 3) ** 2 < (min(h, w) // 4) ** 2] = 0
-    a[h - 3:] = g.integers(0, 256, (min(3, h), w))
+    a[max(h - 3, 0):] = g.integers(0, 256, (min(3, h), w))
     return a.astype(np.uint8)
 
 
