@@ -3,8 +3,8 @@
 NVIDIA GPU. Run from the repository root:
 
     python3 chip_smoke.py [--seed 0]
-        [--phases build,kernels,train,train_all,train_remat,train_cpu,serve,
-                  cpu,fit,jpeg,formats,raster,webp,simple,eval,ddp]
+        [--phases build,kernels,presets,train,train_all,train_remat,
+                  train_cpu,serve,cpu,fit,frames,eval,ddp]
 
 Phases (all by default):
   build      compile every CUDA kernel from csrc/ (one nvcc per source, all
@@ -53,10 +53,24 @@ Phases (all by default):
              operations, launches and device ms of one call, beside
              F.scaled_dot_product_attention forward and backward (CUDA
              events and device ms);
-             and SAM2-base+ and SAM2-large (phase_presets): forward_image
-             at 384 px, 2 frames, against the CPU float32 trunk, a
-             trainable trunk pass, #1 / #6 per trunk pass and #6 per
-             geometry class against plain
+             and SAM2-small, base+ and large (phase_preset_blocks): #1
+             against plain at every block of each trunk (2 frames, 384
+             px), #1 / #6 timed per trunk pass and #6 against plain at the
+             first block of each geometry class
+  presets    SAM2-small, SAM2-base+ and SAM2-large at 384 px, bf16, full
+             width and depth: forward_image against the CPU in float32 (#1
+             at every block), the memory-only and all-trainable train steps
+             at the headline shapes with the train and train_all phases'
+             checks (median step ms, device ms, busy share, peak memory,
+             #1-#6 launches per step), one all-trainable step at train_cpu's
+             shapes against the CPU in float32 (train_cpu's check and
+             limits); then train_torch.py
+             (small: data=endovis17 loss=focal_main, 2 x 20 frames of
+             1024x1280, 4 steps, a validation batch, the post-fit eval),
+             grid_search_threshold_torch.py (base+: probability maps, the
+             best threshold, the evaluation at it) and the predictor
+             (large: the serve phase's videos and checks, 4 frames against
+             the CPU in float32)
   train      the headline train step (SAM2-tiny 384 px, bf16, T=10, O=8,
              C=7, B=2, point prompts, trainable memory attention and memory
              encoder, AdamW lr 1e-4): 1 warm-up and 5 timed steps; finite
@@ -88,7 +102,9 @@ Phases (all by default):
   train_cpu  one step of a short clip (T=3, O=4, 384 px) on the card (bf16)
              and on the CPU (float32, plain versions), memory-only,
              all-trainable and memory-only with two memory-attention heads:
-             loss and each trainable top-level entry's gradient must agree
+             loss and each trainable top-level entry's gradient must agree;
+             the card's step takes the CPU step's ReLU decisions, and the
+             weights are synthetic_params(only_constant=True)
   serve      the streaming VideoPredictor in the usual configuration
              (use_flash_attention=True, 384 px, bf16, 8 objects, 7 memory
              slots): 2 synthetic 480x854 videos, point prompts on frame 0,
@@ -112,43 +128,32 @@ Phases (all by default):
              last / top-k checkpoints and index.json, kernels #1-#5 launched
              (counts at 0 just before the run); a second run resumed from
              the best checkpoint (bit-exact restore, steps continue from
-             it); the first batch's loss against one CPU step of the CLI in
-             float32; the fit loop's clips/s with the loader's waits and
-             the loader's ms per batch beside the step's; then the
-             single-clip overfit check of tests/test_overfit.py (150 steps,
-             mask prompts, bce, lr 1e-3, Dice of the eval forward) on that
-             test's T=2 clip scaled to 384 px; one CLI step with
+             it); the fit loop's clips/s with the loader's waits and the
+             loader's ms per batch beside the step's; then the single-clip
+             overfit check of tests/test_overfit.py (150 steps, mask
+             prompts, bce, lr 1e-3, Dice of the eval forward) on that
+             test's T=2 clip scaled to 384 px, beside which one CPU step of
+             the CLI in float32 runs as a second process (the first
+             batch's loss against the card's); one CLI step with
              model.use_activation_checkpoint=true (the remat loop), its
              loss within TRAIN_CPU_LOSS_TOL of the run's first
-  jpeg       JPEG frames: (a) every committed fixture
-             (sam2_video_tpu_torch/data/fixtures/jpeg) decoded by the C++
-             helper, which must build, to its digest of Pillow's
-             convert("RGB") (digests.json); (b) the median decode ms per
-             frame of the 240x320 video frames and of the 480x854 fixture
-             beside the PNG reader on the same pixels, with the host's CPU;
-             (c) train_torch.py with the fit phase's overrides at T=4, B=2
-             (3 train steps, one validation batch) on the JPEG video
-             dataset, then twice on a PNG copy of its decoded frames: the
-             losses equal bit for bit when the two PNG runs are, else
-             within TRAIN_CPU_LOSS_TOL; clips/s, loader waits and the
-             loader's ms per batch on both; (d) kernels #1-#5 launched in
-             the JPEG run
-  webp       WebP frames (phase_webp): every committed fixture
-             (sam2_video_tpu_torch/data/fixtures/webp) read by the C++
-             helper, which must build, to its digests; decode ms beside
-             PNG and JPEG of the same pictures; train_torch.py on the
-             lossy WebP video with its post-fit eval, its losses bit-equal
-             to a PNG copy's, kernels #1-#5 launched
-  simple     the simple formats ffmpeg writes (phase_simple): every
-             committed fixture (sam2_video_tpu_torch/data/fixtures/simple:
-             Netpbm, PAM, PFM, Sun, TGA, SGI, PCX, DCX, QOI, XBM, HDR, DIB)
-             read by the C++ helper, which must build, to its digests;
-             decode ms of each video frame kind and of 1280x1024 frames
-             beside PNG; train_torch.py on the mixed-format video with its
-             post-fit eval, its losses bit-equal to a PNG copy's, kernels
-             #1-#5 launched
+  frames     every frame format the port reads, one committed fixture set
+             at a time (sam2_video_tpu_torch/data/fixtures/: jpeg, formats,
+             raster, webp, simple): (a) every fixture read by the C++
+             helpers, which must build, equal to its digests (Pillow's
+             convert("RGB"), the eval's OpenCV reader, read_raw, the size;
+             ValueError where the library raises); (b) decode ms per frame
+             of each kind beside an 8-bit PNG of the same pixels (and large
+             frames up to 1280x1024), with the host's CPU; (c) the converter
+             CLI (npz equal to the checkpoint's weights) and the EndoVis
+             converter (JSON equal to the JAX converter's sha256); (d)
+             train_torch.py from the converted npz on one video of each set
+             in one dataset (T=4, B=2, 5 steps that read every frame, a
+             validation batch) with its post-fit eval, fit clips/s and the
+             loader's ms per batch; (e) the same fit on a PNG copy of the
+             loader's frames: losses bit-equal; (f) kernels #1-#5 launched
   eval       the evaluation path: (a) the predictor at the serve cell's
-             sizes on one 16-frame 480x854 video, every object prompted
+             sizes on one 12-frame 480x854 video, every object prompted
              at frame 8, reverse to frame 0 then forward; then a
              predictor with max_cond_frames=2, all objects at frame 0 and
              half again at frame 10 (a partly prompted conditioning frame)
@@ -167,7 +172,7 @@ Phases (all by default):
              within relative L2 0.1); the CLI again with
              eval.batch_videos=2 (clips of 3 frames, the second video cut
              to 9: full lockstep groups and one clip left for the
-             sequential path); (c) the batched predictor: 4 clips of 16
+             sequential path); (c) the batched predictor: 4 clips of 12
              frames (the first (a)'s), 8 objects each, prompted at frame
              8, reverse then forward in lockstep, each video against the
              sequential predictor on the card (logits relative L2 2e-2,
@@ -175,8 +180,8 @@ Phases (all by default):
              launches per lockstep frame, grouped video-frames/s beside
              sequential frames/s, the busy share
   ddp        data-parallel training through train_torch.py at the fit
-             phase's shapes (4 train steps and 2 validation batches of 2
-             clips, centre-point prompts, a training GIF every 2 steps):
+             phase's shapes (2 train steps and a validation batch of 2
+             clips, centre-point prompts, a training GIF at step 2):
              the plain run; (a) trainer.distributed.enabled=true under
              torchrun's variables, a world of one under NCCL, its
              metrics.jsonl and last checkpoint bit-equal to the plain run's;
@@ -197,7 +202,8 @@ reads present and the card-vs-CPU check compares mask logits rather than a
 presence threshold. TF32 is off for both matmuls and cuDNN. The last lines
 are the card's name and power limit, a JSON line of per-kernel numbers
 (``launches`` from the train phase, #6's from train_all, #7's from the
-two-head train steps, #8's from the fused all-trainable steps, else the
+two-head train steps, #8's from the fused all-trainable steps, each
+preset's trunk-pass rows from its steps in the presets phase, else the
 serve phase, else null), and
 {"ok": true, "device": ...}.
 The script needs the repository beside it and a CUDA device; without
@@ -229,9 +235,9 @@ KERNEL_TOL = 2e-2             # of max(1, |plain|): bf16 rounding points differ
 # 1: their limit is KERNEL_TOL of max|plain| itself
 ATTENTION_FLOOR = 0.0
 CPU_REL_L2_TOL = 0.1          # card bf16 vs CPU float32, over 4 frames
-PHASES = ("build", "kernels", "train", "train_all", "train_remat",
-          "train_cpu", "serve", "cpu", "fit", "jpeg", "formats", "raster",
-          "webp", "simple", "eval", "ddp")
+PHASES = ("build", "kernels", "presets", "train", "train_all",
+          "train_remat", "train_cpu", "serve", "cpu", "fit", "frames", "eval",
+          "ddp")
 DEVICE = "cuda"
 FRAMES, OBJECTS, CHUNK = 16, 8, 8   # frames per video, objects, encode chunk
 TINY_GEOMETRY = {0: "window 8, no pad", 1: "q-pool, even window 8",
@@ -1264,31 +1270,23 @@ def phase_hiera_bwd_kernels(params, cfg, seed: int, frames: int,
     return rows
 
 
-PRESETS = ("base_plus", "large")
+# SAM2-small, base+ and large (widths 96-768 / 112-896 / 144-1152, head dims
+# 96 / 56 / 72): their trunk blocks in the kernels phase, the whole model in
+# the presets phase
+PRESETS = ("small", "base_plus", "large")
 PRESET_FRAMES = 2
 
 
-def phase_presets(cfg, seed: int):
-    """SAM2-base+ and SAM2-large (widths 112-896 / 144-1152, head dims 56 /
-    72; ``synthetic_params``) at cfg.image_size, PRESET_FRAMES frames:
-      - forward_image on the card, kernel #1 at every block of the trunk
-        (its launches counted), against the same on the CPU in float32
-        (plain blocks): each FPN level and vision_pos_enc within relative L2
-        CPU_REL_L2_TOL;
-      - one trainable trunk pass on the card (fused_backbone_vjp, the
-        gradient of every trunk leaf from a random cotangent per FPN
-        level): kernel #6 at every block, finite gradients;
-      - #1 and #6 per block on random inputs of each block's shape: #1
-        against its plain block within KERNEL_TOL; CUDA-event ms, device
-        ms and operations (kernel and plain) and the bound, summed per
-        trunk pass;
-      - #6 against its plain version at the first block of each geometry
-        class, with #6's limits (phase_hiera_bwd_kernels).
-    Returns the JSON rows (#1 and #6 per trunk pass of each preset). Their
-    launches stay null: neither preset runs on a training step or in
-    serving; the counts of the two card passes above are checked and
-    printed only."""
-    from sam2_video_tpu_torch.models import sam2 as sam2_mod
+def phase_preset_blocks(cfg, seed: int):
+    """#1 and #6 at every block of each preset's trunk (``synthetic_params``,
+    cfg.image_size, PRESET_FRAMES frames of random input): #1 against its
+    plain block within KERNEL_TOL; CUDA-event ms and the bound per block,
+    summed per trunk pass, and device ms and operations of the whole pass
+    (kernel and plain, one profiler trace over all its blocks' calls);
+    then #6 against its plain version at the first block of each geometry
+    class, with #6's limits (phase_hiera_bwd_kernels). Returns the JSON rows
+    (#1 and #6 per trunk pass of each preset); their launches are the
+    presets phase's steps'."""
     from sam2_video_tpu_torch.ops import hiera_block_bwd as hbb
     from sam2_video_tpu_torch.ops import hiera_block_kernel as hbk
 
@@ -1297,78 +1295,22 @@ def phase_presets(cfg, seed: int):
     for name in PRESETS:
         pcfg = dataclasses.replace(cfg, backbone=name)
         tcfg = pcfg.trunk_config
+        q, ratio = tcfg.q_stride, tcfg.mlp_ratio
         blocks = _trunk_blocks(pcfg)
-        params = synthetic_params(pcfg, seed).to(DEVICE)
-        rng = np.random.default_rng(seed + 21)
-        images = torch.from_numpy(rng.integers(
-            0, 256, (PRESET_FRAMES, S, S, 3), dtype=np.uint8))
-        n1 = hbk.fused_block.launches
-        with torch.no_grad():
-            card = sam2_mod.forward_image(sam2_mod.prepare(params, pcfg),
-                                          pcfg, images.to(DEVICE))
-        torch.cuda.synchronize()
-        n1 = hbk.fused_block.launches - n1
-        cpu_cfg = dataclasses.replace(pcfg, compute_dtype="float32")
-        with torch.no_grad():
-            ref = sam2_mod.forward_image(synthetic_params(cpu_cfg, seed),
-                                         cpu_cfg, images)
-        pairs = [(f"fpn[{k}]", a, b) for k, (a, b) in enumerate(zip(
-            card["backbone_fpn"], ref["backbone_fpn"]))]
-        pairs += [(f"pos[{k}]", a, b) for k, (a, b) in enumerate(zip(
-            card["vision_pos_enc"], ref["vision_pos_enc"]))]
-        rel = {k: _rel_l2(a.cpu(), b) for k, a, b in pairs}
-        finite = all(bool(torch.isfinite(a.float()).all()) for _, a, _ in pairs)
-        ok = finite and n1 == len(blocks) and max(rel.values()) <= CPU_REL_L2_TOL
-        print(f"preset {name} forward_image ({PRESET_FRAMES} frames, {S} px) "
-              f"card vs cpu float32: rel_l2 " + ", ".join(
-                  f"{k} {v:.4g}" for k, v in rel.items())
-              + f" (tol {CPU_REL_L2_TOL}); fused_block launches {n1} of "
-              f"{len(blocks)} blocks {'OK' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            raise SystemExit(f"{name}: the card's image features disagree "
-                             f"with the CPU's, or a block skipped kernel #1")
-        del card, ref
-
-        # a trainable trunk pass: kernel #6 at every block
-        vcfg = dataclasses.replace(pcfg, fused_backbone_vjp=True)
-        leaves = list(params["image_encoder"]["trunk"].parameters())
-        for t in leaves:
-            t.requires_grad_(True)
-        n6 = hbb.fused_block_trainable.launches
-        out = sam2_mod.forward_image(params, vcfg, images.to(DEVICE))
-        fpn = out["backbone_fpn"]
-        gen = torch.Generator().manual_seed(seed + 22)
-        cots = [torch.randn(f.shape, generator=gen).to(DEVICE, f.dtype)
-                for f in fpn]
-        grads = torch.autograd.grad(fpn, leaves, cots, allow_unused=True)
-        torch.cuda.synchronize()
-        n6 = hbb.fused_block_trainable.launches - n6
-        for t in leaves:
-            t.requires_grad_(False)
-        finite = all(g is None or bool(torch.isfinite(g).all())
-                     for g in grads)
-        ok = finite and n6 == 2 * len(blocks)
-        print(f"preset {name} trainable trunk pass: kernel #6 launches {n6} "
-              f"(B1 + B2 of {len(blocks)} blocks), finite gradients "
-              f"{finite} {'OK' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            raise SystemExit(f"{name}: the trainable trunk pass failed")
-        del out, fpn, grads
-
-        # #1 and #6 per block, summed per trunk pass
+        params = weights(pcfg, seed).to(DEVICE)
         trunk = params["image_encoder"]["trunk"]
-        f_sum = np.zeros(7)        # ms, plain ms, bound, dev ms, dev ops, plain dev ms, plain ops
-        b_sum = np.zeros(7)
+        f_sum = np.zeros(3)        # kernel ms, plain ms, bound
+        b_sum = np.zeros(3)
         f_by, b_by, f_err = set(), set(), 0.0
+        calls = {"fwd": [], "fwd_plain": [], "bwd": [], "bwd_plain": []}
         gen = torch.Generator().manual_seed(seed + 23)
         for i, spec, H, geom in blocks:
             bp = trunk["blocks"][str(i)]
             x = torch.randn((PRESET_FRAMES, H, H, spec["dim"]),
                             generator=gen).to(DEVICE, torch.bfloat16)
-            q = tcfg.q_stride
             with torch.no_grad():
-                got = hbk.fused_block(bp, x, spec, q, tcfg.mlp_ratio)
-                want = hbk.fused_block_plain(bp, x, spec, q, tcfg.mlp_ratio)
+                got = hbk.fused_block(bp, x, spec, q, ratio)
+                want = hbk.fused_block_plain(bp, x, spec, q, ratio)
                 err = (got.float() - want.float()).abs().max().item()
                 scale = max(1.0, want.float().abs().max().item())
                 if not (bool(torch.isfinite(got.float()).all())
@@ -1377,40 +1319,46 @@ def phase_presets(cfg, seed: int):
                                      f"disagrees with plain ({err} > "
                                      f"{KERNEL_TOL * scale})")
                 f_err = max(f_err, err)
-                t_k = cuda_ms(lambda: hbk.fused_block(bp, x, spec, q,
-                                                      tcfg.mlp_ratio))
-                t_p = cuda_ms(lambda: hbk.fused_block_plain(bp, x, spec, q))
-                l_k = _device_launches(lambda: hbk.fused_block(
-                    bp, x, spec, q, tcfg.mlp_ratio))
-                l_p = _device_launches(lambda: hbk.fused_block_plain(
-                    bp, x, spec, q))
-            b, by = bound_ms(*block_cost(spec, PRESET_FRAMES, H, H,
-                                         tcfg.mlp_ratio, bp, x, got))
+                fwd = (lambda bp=bp, x=x, spec=spec:
+                       hbk.fused_block(bp, x, spec, q, ratio))
+                fwd_plain = (lambda bp=bp, x=x, spec=spec:
+                             hbk.fused_block_plain(bp, x, spec, q))
+                t_k, t_p = cuda_ms(fwd), cuda_ms(fwd_plain)
+            calls["fwd"].append(fwd)
+            calls["fwd_plain"].append(fwd_plain)
+            b, by = bound_ms(*block_cost(spec, PRESET_FRAMES, H, H, ratio,
+                                         bp, x, got))
             f_by.add(by)
-            f_sum += [t_k, t_p, b, l_k[2], l_k[0], l_p[2], l_p[0]]
+            f_sum += [t_k, t_p, b]
             w0 = hbb.leaves(bp, spec)
-            res = []
-            for fn in (hbb.fused_block_trainable,
-                       hbb.fused_block_trainable_plain):
+            times = []
+            for kind, fn in (("bwd", hbb.fused_block_trainable),
+                             ("bwd_plain", hbb.fused_block_trainable_plain)):
                 w = _leaves(w0)
                 xl = x.detach().clone().requires_grad_(True)
-                o = fn(hbb.block_params(w, spec), xl, spec, q, tcfg.mlp_ratio)
+                o = fn(hbb.block_params(w, spec), xl, spec, q, ratio)
                 cot = torch.randn(o.shape, generator=gen).to(DEVICE, o.dtype)
-                res.append((_time_backward(o, [xl] + w, cot),
-                            _device_launches(lambda: torch.autograd.grad(
-                                o, [xl] + w, cot, retain_graph=True))))
-                if fn is hbb.fused_block_trainable:
+                times.append(_time_backward(o, [xl] + w, cot))
+                calls[kind].append(
+                    lambda o=o, ins=[xl] + w, cot=cot: torch.autograd.grad(
+                        o, ins, cot, retain_graph=True))
+                if kind == "bwd":
                     dx = torch.autograd.grad(o, xl, cot, retain_graph=True)[0]
-                del o
-            (tb, lb), (tpb, lpb) = res
             b, by = bound_ms(*hiera_block_bwd_cost(
-                spec, PRESET_FRAMES, H, H, tcfg.mlp_ratio,
+                spec, PRESET_FRAMES, H, H, ratio,
                 sum(t.numel() for t in w0), [x, got, got, dx]))
             b_by.add(by)
-            b_sum += [tb, tpb, b, lb[2], lb[0], lpb[2], lpb[0]]
-        for kind, sm, bys, cnt in (("fused_block", f_sum, f_by, n1),
-                                   ("fused_block_trainable_bwd", b_sum, b_by,
-                                    n6)):
+            b_sum += [times[0], times[1], b]
+        dev = {}
+        for kind, fns in calls.items():
+            with torch.no_grad() if kind.startswith("fwd") else \
+                    torch.enable_grad():
+                dev[kind] = _device_launches(
+                    lambda fns=fns: [fn() for fn in fns], traces=1)
+        del calls
+        for kind, sm, bys, k in (("fused_block", f_sum, f_by, "fwd"),
+                                 ("fused_block_trainable_bwd", b_sum, b_by,
+                                  "bwd")):
             rname = f"{kind}[{name} trunk pass]"
             src = ("hiera_block.cu" if kind == "fused_block"
                    else "hiera_block_bwd.cu")
@@ -1426,11 +1374,11 @@ def phase_presets(cfg, seed: int):
                              bound_ms=float(sm[2]),
                              bound_by="operations" if "operations" in bys
                              else "bytes", library_ms=None))
+            kd, pd = dev[k], dev[k + "_plain"]
             print(f"{rname} ({len(blocks)} blocks, {PRESET_FRAMES} frames, "
-                  f"{S} px; launches in the card pass {cnt}, not on the "
-                  f"main path): kernel_ms={sm[0]:.4f} plain_ms={sm[1]:.4f} "
-                  f"bound_ms={sm[2]:.4f} device_ms={sm[3]:.4f} (plain "
-                  f"{sm[5]:.4f}) device_ops={sm[4]:g} (plain {sm[6]:g})",
+                  f"{S} px): kernel_ms={sm[0]:.4f} plain_ms={sm[1]:.4f} "
+                  f"bound_ms={sm[2]:.4f} device_ms={kd[2]:.4f} (plain "
+                  f"{pd[2]:.4f}) device_ops={kd[0]:g} (plain {pd[0]:g})",
                   flush=True)
         cls = phase_hiera_bwd_kernels(params, pcfg, seed, PRESET_FRAMES,
                                       classes_only=True)
@@ -1480,14 +1428,22 @@ def _device_launches(fn, traces: int = 3,
         with profile(activities=activities) as prof:
             fn()
             torch.cuda.synchronize()
-        avgs = prof.key_averages()
-        on_dev = [e for e in avgs
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        host = sum(e.count for e in avgs if e.key.startswith(
-            ("cudaLaunchKernel", "cuLaunchKernel")))
-        dev_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
-        best = max(best, (sum(e.count for e in on_dev), host, dev_ms))
+        best = max(best, _trace_counts(prof))
     return best
+
+
+def _trace_counts(prof) -> tuple[int, int, float]:
+    """``_device_launches``'s three numbers of a finished trace, summed over
+    its raw events (``key_averages`` first builds every event's tree, which
+    takes seconds for a train step's trace, for the same sums)."""
+    n = host = ns = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            n += 1
+            ns += e.duration_ns()
+        elif e.name().startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            host += 1
+    return n, host, ns / 1e6
 
 
 # (O, N, HW): 384 px, 448 px, one object (7 token rows), 144 token rows
@@ -1905,7 +1861,7 @@ def phase_cpu(params, cfg, seed: int, objects: int):
     card = VideoPredictor(params, cfg, max_objects=objects, device="cuda")
     _, _, on_card = run_video(card, video, centres)
     cpu_cfg = dataclasses.replace(cfg, compute_dtype="float32")
-    cpu = VideoPredictor(synthetic_params(cpu_cfg, seed), cpu_cfg,
+    cpu = VideoPredictor(weights(cpu_cfg, seed), cpu_cfg,
                          max_objects=objects, device="cpu")
     state = cpu.init_state(video)
     prompt_all(cpu, state, centres)
@@ -1937,6 +1893,19 @@ TRAINABLE_ALL = ["memory_attention", "memory_encoder", "mask_decoder",
                  "prompt_encoder", "image_encoder"]
 
 
+_WEIGHTS: dict = {}
+
+
+def weights(cfg, seed: int):
+    """A copy of ``synthetic_params(cfg, seed)`` on the CPU, made once per
+    configuration but its compute dtype (the weights do not depend on it)
+    and kept until ``_WEIGHTS`` is cleared."""
+    key = (repr(dataclasses.replace(cfg, compute_dtype="float32")), seed)
+    if key not in _WEIGHTS:
+        _WEIGHTS[key] = synthetic_params(cfg, seed)
+    return copy.deepcopy(_WEIGHTS[key])
+
+
 def _train_setup(cfg, params, device, T, O, C, B, trainable=TRAINABLE):
     from sam2_video_tpu_torch.data.synthetic import example_clip
     from sam2_video_tpu_torch.models.video_model import VideoModelConfig
@@ -1955,22 +1924,24 @@ def _train_setup(cfg, params, device, T, O, C, B, trainable=TRAINABLE):
     return TrainState.create(params, tx), step, batch
 
 
-def phase_train(cfg, seed: int):
-    """The headline train step (bench.py's _build_step): SAM2-tiny 384 px,
-    bf16, T=10, O=8, C=7, B=2, point prompts, trainable memory attention
-    and memory encoder, AdamW lr 1e-4 without a schedule. One warm-up step,
-    then TRAIN_STEPS timed steps with every launch counter at 0 just before
-    them. With one memory-attention head every kernel but #6, #7 and #8
-    must launch; with several (``cfg.memory_attention_num_heads``) #1, #2
-    and #7 forward and backward, and none of #3-#5. Returns (the counts,
-    median step ms)."""
-    heads = cfg.memory_attention_num_heads
-    label = "train" if heads == 1 else f"train {heads} heads"
-    params = synthetic_params(cfg, seed).to(DEVICE)
-    state, step, batch = _train_setup(cfg, params, DEVICE, TRAIN_T, TRAIN_O,
-                                      TRAIN_C, TRAIN_B)
-    before = {n: t.detach().clone() for n, t in params.named_parameters()}
-    state, m = step(state, batch)
+# the #1-#6 counters whose launches per step the presets phase prints
+PER_STEP = ("fused_block", "fused_memory_encoder", "flash_attention_kproj",
+            "flash_attention_kproj_bwd", "fused_self_block",
+            "fused_self_block_bwd", "fused_tail_block", "fused_tail_block_bwd",
+            "fused_block_trainable_bwd")
+
+
+def _timed_steps(label: str, cfg, run, state, profile: bool):
+    """One warm-up step of ``run`` (state -> (state, metrics)), then
+    TRAIN_STEPS timed steps with every launch counter at 0 just before
+    them; peak memory from just before the warm-up. With ``profile`` one
+    more step under torch.profiler (device operations only) gives the
+    device ms of a step and its busy share (device ms over the median step
+    ms). Prints the step line; returns (state, counts, info: ms, peak_gib,
+    device_ms, busy)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, m = run(state)
     torch.cuda.synchronize()
     print(f"{label} warm-up step: loss {float(m['total_loss']):.6g}",
           flush=True)
@@ -1979,22 +1950,64 @@ def phase_train(cfg, seed: int):
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = step(state, batch)
+        state, m = run(state)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(m["total_loss"]))
     counts = read_counts()
-    ms = 1e3 * float(np.median(times))
+    info = dict(ms=1e3 * float(np.median(times)),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    extra = ""
+    if profile:
+        box = [state]
+
+        def one():
+            box[0], _ = run(box[0])
+
+        ops, _, dev_ms = _device_launches(one, traces=1, host_ops=False)
+        state = box[0]
+        info.update(device_ms=dev_ms, busy=dev_ms / info["ms"])
+        extra = (f"; device ms per step {dev_ms:.3f} ({ops} device "
+                 f"operations), busy {info['busy']:.3f}; launches per step "
+                 + ", ".join(f"{k} {counts[k] / TRAIN_STEPS:g}"
+                             for k in PER_STEP))
     print(f"{label} B={TRAIN_B} T={TRAIN_T} O={TRAIN_O} {cfg.image_size}px "
-          f"{cfg.compute_dtype}: step ms median {ms:.3f} (each: "
+          f"{cfg.compute_dtype}: step ms median {info['ms']:.3f} (each: "
           + ", ".join(f"{1e3 * t:.3f}" for t in times) + f"), clips/s "
-          f"{TRAIN_B / (ms / 1e3):.3f}; losses "
+          f"{TRAIN_B / (info['ms'] / 1e3):.3f}; losses "
           + ", ".join(f"{x:.6g}" for x in losses)
           + f"; grad_norm {float(m['grad_norm']):.6g}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
-          flush=True)
+          f"{info['peak_gib']:.2f} GiB" + extra, flush=True)
     if not all(np.isfinite(losses)):
         raise SystemExit(f"{label}: non-finite loss {losses}")
+    return state, counts, info
+
+
+def _train_label(cfg, what: str) -> str:
+    heads = cfg.memory_attention_num_heads
+    label = what if heads == 1 else f"{what} {heads} heads"
+    return label if cfg.backbone == "tiny" else f"{cfg.backbone} {label}"
+
+
+def phase_train(cfg, seed: int, profile: bool = False):
+    """The headline train step (bench.py's _build_step): SAM2-tiny (or
+    cfg.backbone) 384 px, bf16, T=10, O=8, C=7, B=2, point prompts,
+    trainable memory attention and memory encoder, AdamW lr 1e-4 without a
+    schedule. One warm-up step, then TRAIN_STEPS timed steps with every
+    launch counter at 0 just before them (``_timed_steps``). With one
+    memory-attention head every kernel but #6, #7 and #8 must launch; with
+    several (``cfg.memory_attention_num_heads``) #1, #2 and #7 forward and
+    backward, and none of #3-#5. Returns (the counts, ``_timed_steps``'s
+    info)."""
+    heads = cfg.memory_attention_num_heads
+    label = _train_label(cfg, "train")
+    params = weights(cfg, seed).to(DEVICE)
+    state, step, batch = _train_setup(cfg, params, DEVICE, TRAIN_T, TRAIN_O,
+                                      TRAIN_C, TRAIN_B)
+    before = {n: t.detach().clone() for n, t in params.named_parameters()}
+    state, counts, info = _timed_steps(label, cfg,
+                                       lambda s: step(s, batch), state,
+                                       profile)
     moved = frozen_changed = 0
     for n, t in params.named_parameters():
         same = torch.equal(t, before[n])
@@ -2023,10 +2036,10 @@ def phase_train(cfg, seed: int):
     ran = [n for n in absent + ("fused_block_trainable_bwd",) if counts[n]]
     if ran:
         raise SystemExit(f"{label} ran {ran}")
-    return counts, ms
+    return counts, info
 
 
-def phase_train_all(cfg, seed: int):
+def phase_train_all(cfg, seed: int, profile: bool = False):
     """The all-trainable step (bench.py's second configuration, the
     reference's mem+md+pe+ie): the headline shapes (SAM2-tiny 384 px, bf16,
     T=10, O=8, C=7, B=2, point prompts, AdamW lr 1e-4) with every module
@@ -2035,44 +2048,21 @@ def phase_train_all(cfg, seed: int):
     TRAIN_STEPS timed steps with every launch counter at 0 just before
     them; finite losses, every image encoder leaf moved and every mask
     decoder and prompt encoder leaf that got a gradient, the pointer
-    projections unchanged, every kernel launched. Returns the counts."""
-    params = synthetic_params(cfg, seed).to(DEVICE)
+    projections unchanged, every kernel launched. Returns (the counts,
+    ``_timed_steps``'s info)."""
+    params = weights(cfg, seed).to(DEVICE)
     state, step, batch = _train_setup(cfg, params, DEVICE, TRAIN_T, TRAIN_O,
                                       TRAIN_C, TRAIN_B, TRAINABLE_ALL)
     before = {n: t.detach().clone() for n, t in params.named_parameters()}
-    torch.cuda.reset_peak_memory_stats()
     used = set()        # leaves that got a nonzero gradient in some step
+    label = _train_label(cfg, "train_all")
 
     def run(state):
         state, m, grads = step.with_grads(state, batch)
         used.update(n for n, g in grads.items() if bool(g.any()))
         return state, m
 
-    state, m = run(state)
-    torch.cuda.synchronize()
-    print(f"train_all warm-up step: loss {float(m['total_loss']):.6g}",
-          flush=True)
-    reset_counts()
-    times, losses = [], []
-    for _ in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = run(state)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(float(m["total_loss"]))
-    counts = read_counts()
-    ms = 1e3 * float(np.median(times))
-    print(f"train_all B={TRAIN_B} T={TRAIN_T} O={TRAIN_O} {cfg.image_size}px "
-          f"{cfg.compute_dtype}: step ms median {ms:.3f} (each: "
-          + ", ".join(f"{1e3 * t:.3f}" for t in times) + f"), clips/s "
-          f"{TRAIN_B / (ms / 1e3):.3f}; losses "
-          + ", ".join(f"{x:.6g}" for x in losses)
-          + f"; grad_norm {float(m['grad_norm']):.6g}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
-          flush=True)
-    if not all(np.isfinite(losses)):
-        raise SystemExit(f"train_all: non-finite loss {losses}")
+    state, counts, info = _timed_steps(label, cfg, run, state, profile)
     # every leaf with a gradient moves (AdamW without weight decay leaves a
     # leaf whose gradient is exactly zero where it is: the prompt encoder's
     # mask and box embeddings, the unused multimask heads); every trunk
@@ -2083,29 +2073,29 @@ def phase_train_all(cfg, seed: int):
         same = torch.equal(t, before[n])
         if top in ("obj_ptr_proj", "obj_ptr_tpos_proj"):
             if not same:
-                raise SystemExit(f"train_all: frozen leaf {n} changed")
+                raise SystemExit(f"{label}: frozen leaf {n} changed")
         elif top in ("image_encoder", "sam_mask_decoder",
                      "sam_prompt_encoder"):
             moved[top] = moved.get(top, 0) + (not same)
             if n not in used and top != "image_encoder":
                 unused[top] = unused.get(top, 0) + 1
                 if not same:
-                    raise SystemExit(f"train_all: {n} moved without a "
+                    raise SystemExit(f"{label}: {n} moved without a "
                                      "gradient")
             elif same:
                 still.append(n)
     if still:
-        raise SystemExit(f"train_all: {len(still)} leaves did not move: "
+        raise SystemExit(f"{label}: {len(still)} leaves did not move: "
                          + ", ".join(still[:10]))
-    print("train_all: every leaf with a gradient moved (" + ", ".join(
+    print(f"{label}: every leaf with a gradient moved (" + ", ".join(
         f"{k} {v}" for k, v in sorted(moved.items())) + "; without one, "
         "unchanged: " + ", ".join(f"{k} {v}" for k, v in sorted(
             unused.items())) + "), pointer projections bit-for-bit "
         "unchanged", flush=True)
     _require(counts, [n for n in counts if n not in TWOWAY + FLASH] + [
         f"fused_block_trainable_bwd[{g}]" for g in _trunk_classes(cfg)],
-        "all-trainable training")
-    return counts, ms
+        f"{label} all-trainable training")
+    return counts, info
 
 
 def phase_train_cpu(cfg, seed: int):
@@ -2113,7 +2103,7 @@ def phase_train_cpu(cfg, seed: int):
     (kernels) and on the CPU in float32 (plain versions), from the same
     weights and clip, for the memory-only and the all-trainable combos and
     the memory-only combo with HEADS memory-attention heads: the loss and
-    each trainable top-level entry's gradient must agree."""
+    each trainable top-level entry's gradient must agree (``_train_cpu``)."""
     for trainable in (TRAINABLE, TRAINABLE_ALL):
         _train_cpu(cfg, seed, trainable)
     _train_cpu(dataclasses.replace(cfg, memory_attention_num_heads=HEADS),
@@ -2121,19 +2111,36 @@ def phase_train_cpu(cfg, seed: int):
 
 
 def _train_cpu(cfg, seed: int, trainable):
-    out = {}
-    for dev, c in ((DEVICE, cfg),
-                   ("cpu", dataclasses.replace(cfg, compute_dtype="float32"))):
-        params = synthetic_params(c, seed).to(dev)
-        state, step, batch = _train_setup(c, params, dev, 3, 4, 2, 1,
-                                          trainable)
-        _, m, grads = step.with_grads(state, batch)
-        out[dev] = (float(m["total_loss"]),
-                    {n: g.detach().float().cpu() for n, g in grads.items()})
-        del params, state, step, grads
+    """One step of a short clip (T=3, O=4, B=1) on the CPU in float32 (the
+    plain versions; the reference, first) and on the card in bf16 (the
+    kernels), from the same weights and clip: the loss and each trainable
+    top-level entry's gradient must agree (``_compare_steps``). The card's
+    step takes the reference's ReLU decisions (``relu_decisions``: the
+    mask decoder's, the heads' and the pointer MLP's), and the weights are
+    ``synthetic_params(only_constant=True)``: a unit within rounding of 0
+    that switches, or a feature grown by the noise on the wide products,
+    moves the gradients by as much as the limits at ``synthetic_params``,
+    in any bf16 run, the plain versions' on the CPU too."""
+    from sam2_video_tpu_torch.ops.common import relu_decisions
+
+    params = synthetic_params(cfg, seed, only_constant=True)
+    with relu_decisions() as decisions:
+        want = _short_step(dataclasses.replace(cfg, compute_dtype="float32"),
+                           copy.deepcopy(params), "cpu", trainable)
+    with relu_decisions(decisions):
+        got = _short_step(cfg, params.to(DEVICE), DEVICE, trainable)
     _compare_steps(f"train card vs cpu, trainable {'+'.join(trainable)}, "
                    f"memory attention heads {cfg.memory_attention_num_heads}",
-                   out[DEVICE], out["cpu"])
+                   got, want)
+
+
+def _short_step(c, params, dev, trainable):
+    """(loss, {name: gradient on the CPU}) of one train step at train_cpu's
+    shapes on ``dev``, from ``params`` (already there)."""
+    state, step, batch = _train_setup(c, params, dev, 3, 4, 2, 1, trainable)
+    _, m, grads = step.with_grads(state, batch)
+    return (float(m["total_loss"]),
+            {n: g.detach().float().cpu() for n, g in grads.items()})
 
 
 def _compare_steps(title: str, got, want):
@@ -2168,6 +2175,304 @@ def _compare_steps(title: str, got, want):
             bad.append(f"{top}: rel_l2 {r}")
     if bad:
         raise SystemExit(f"{title}: " + "; ".join(bad))
+
+
+# the presets phase: SAM2-small, base+ and large at the headline shapes
+# through both train steps and card against CPU, then one entry point each
+# in BASELINE.json's pairing
+PRESET_ENTRY = {"small": "train_torch.py", "base_plus":
+                "grid_search_threshold_torch.py", "large": "VideoPredictor"}
+# small's fit: an EndoVis17-like dataset (1024x1280 frames, 7 categories,
+# clips of 10: data=endovis17, B=1), 4 train steps, one validation batch
+PRESET_FIT_VIDEOS, PRESET_FIT_FRAMES, PRESET_FIT_HW = 2, 20, (1024, 1280)
+PRESET_FIT_STEPS = 4
+# base+'s threshold search: 2 videos of 8 480x854 frames, 7 categories
+PRESET_GRID_VIDEOS, PRESET_GRID_FRAMES, PRESET_GRID_HW = 2, 8, (480, 854)
+
+
+def phase_presets(cfg, seed: int, card: str) -> dict:
+    """For each of PRESETS at cfg's shapes (384 px, bf16,
+    ``synthetic_params``, the published widths and depths): forward_image
+    on the card (#1 at every block) against the CPU in float32; the
+    memory-only and all-trainable train steps at the headline shapes
+    (phase_train, phase_train_all: T=10, O=8, C=7, B=2, every check of the
+    tiny steps, with device ms, busy share, peak memory and #1-#6 launches
+    per step); one all-trainable step at train_cpu's shapes on the card
+    against the CPU in float32 (``_train_cpu``: the loss and each top-level
+    gradient, memory attention and the memory encoder among them); then
+    the preset's entry point (PRESET_ENTRY): ``_preset_fit``,
+    ``_preset_grid``, or the predictor (phase_serve, phase_cpu). Returns the
+    launches of the kernel rows of each preset's trunk pass (#1: the
+    memory-only step's, #6: the all-trainable step's, over TRAIN_STEPS
+    steps). Small's fit dataset is written by a second process while the
+    card runs the presets' steps."""
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    from sam2_video_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    fit_data = _preset_work("fit_data") / "ds"
+    writer = ProcessPoolExecutor(max_workers=1, mp_context=get_context(
+        "spawn"))
+    dataset = writer.submit(
+        make_synthetic_dataset, fit_data, num_videos=PRESET_FIT_VIDEOS,
+        frames_per_video=PRESET_FIT_FRAMES, image_hw=PRESET_FIT_HW,
+        num_categories=FIT_CATS, seed=seed)
+    writer.shutdown(wait=False)
+    launches = {}
+    for name in PRESETS:
+        pcfg = dataclasses.replace(cfg, backbone=name)
+        t0 = time.perf_counter()
+        print(f"presets {name}: {len(_trunk_blocks(pcfg))} trunk blocks, "
+              f"widths {pcfg.trunk_config.channel_list[::-1]}, entry point "
+              f"{PRESET_ENTRY[name]}", flush=True)
+        _preset_forward_image(pcfg, seed)
+        mem, _ = phase_train(pcfg, seed, profile=True)
+        torch.cuda.empty_cache()
+        trained, _ = phase_train_all(pcfg, seed, profile=True)
+        torch.cuda.empty_cache()
+        launches[f"fused_block[{name} trunk pass]"] = mem["fused_block"]
+        launches[f"fused_block_trainable_bwd[{name} trunk pass]"] = trained[
+            "fused_block_trainable_bwd"]
+        _train_cpu(pcfg, seed, TRAINABLE_ALL)
+        if name == "small":
+            t1 = time.perf_counter()
+            json_path = dataset.result()
+            print(f"presets: the fit dataset ({PRESET_FIT_VIDEOS} x "
+                  f"{PRESET_FIT_FRAMES} PNG frames of {PRESET_FIT_HW[0]}x"
+                  f"{PRESET_FIT_HW[1]}, written by a second process) waited "
+                  f"for {time.perf_counter() - t1:.1f} s", flush=True)
+            _preset_fit(pcfg, seed, card, json_path)
+        elif name == "base_plus":
+            _preset_grid(pcfg, seed, card)
+        else:
+            params = weights(pcfg, seed).to(DEVICE)
+            phase_serve(params, pcfg, seed, FRAMES, OBJECTS)
+            phase_cpu(params, pcfg, seed, OBJECTS)
+            del params
+        _WEIGHTS.clear()
+        torch.cuda.empty_cache()
+        print(f"presets {name}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    shutil.rmtree(fit_data.parent.parent, ignore_errors=True)
+    return launches
+
+
+def _preset_forward_image(pcfg, seed: int):
+    """forward_image of PRESET_FRAMES random frames at pcfg.image_size on
+    the card (kernel #1 at every block of the trunk, its launches counted)
+    against the same on the CPU in float32 (plain blocks): each FPN level
+    and vision_pos_enc within relative L2 CPU_REL_L2_TOL."""
+    from sam2_video_tpu_torch.models import sam2 as sam2_mod
+    from sam2_video_tpu_torch.ops import hiera_block_kernel as hbk
+
+    S, name = pcfg.image_size, pcfg.backbone
+    blocks = _trunk_blocks(pcfg)
+    rng = np.random.default_rng(seed + 21)
+    images = torch.from_numpy(rng.integers(
+        0, 256, (PRESET_FRAMES, S, S, 3), dtype=np.uint8))
+    params = weights(pcfg, seed)
+    n1 = hbk.fused_block.launches
+    with torch.no_grad():
+        card = sam2_mod.forward_image(
+            sam2_mod.prepare(copy.deepcopy(params).to(DEVICE), pcfg), pcfg,
+            images.to(DEVICE))
+    torch.cuda.synchronize()
+    n1 = hbk.fused_block.launches - n1
+    cpu_cfg = dataclasses.replace(pcfg, compute_dtype="float32")
+    with torch.no_grad():
+        ref = sam2_mod.forward_image(params, cpu_cfg, images)
+    pairs = [(f"fpn[{k}]", a, b) for k, (a, b) in enumerate(zip(
+        card["backbone_fpn"], ref["backbone_fpn"]))]
+    pairs += [(f"pos[{k}]", a, b) for k, (a, b) in enumerate(zip(
+        card["vision_pos_enc"], ref["vision_pos_enc"]))]
+    rel = {k: _rel_l2(a.float().cpu(), b) for k, a, b in pairs}
+    finite = all(bool(torch.isfinite(a.float()).all()) for _, a, _ in pairs)
+    ok = finite and n1 == len(blocks) and max(rel.values()) <= CPU_REL_L2_TOL
+    print(f"{name} forward_image ({PRESET_FRAMES} frames, {S} px) card vs "
+          f"cpu float32: rel_l2 " + ", ".join(f"{k} {v:.4g}"
+                                               for k, v in rel.items())
+          + f" (tol {CPU_REL_L2_TOL}); fused_block launches {n1} of "
+          f"{len(blocks)} blocks {'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"{name}: the card's image features disagree with "
+                         "the CPU's, or a block skipped kernel #1")
+
+
+def _preset_work(name: str):
+    import os
+    import shutil
+    from pathlib import Path
+
+    work = Path.cwd() / "outputs" / "chip_smoke_presets" / str(
+        os.getpid()) / name
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    return work
+
+
+def _preset_fit(pcfg, seed: int, card: str, json_path):
+    """``train_torch.py data=endovis17 model.backbone=<preset>
+    loss=focal_main`` from an npz of the preset's ``synthetic_params`` on
+    ``json_path``, a synthetic EndoVis17-like dataset (PRESET_FIT_VIDEOS
+    videos of PRESET_FIT_FRAMES PNG frames of 1024x1280, 7 categories,
+    clips of 10, B=1): PRESET_FIT_STEPS train steps, one validation batch
+    and the
+    post-fit eval; finite losses and metrics, kernels #1-#5 launched (counts
+    at 0 just before the run), fit clips/s beside the loader's ms per
+    batch."""
+    import os
+    import shutil
+
+    from pathlib import Path
+
+    import train_torch
+    from sam2_video_tpu_torch.data.coco import COCOIndex
+    from sam2_video_tpu_torch.data.pipeline import (ClipDataset,
+                                                    ClipDatasetConfig,
+                                                    ClipLoader)
+    from sam2_video_tpu_torch.training.checkpoint import save_params_npz
+
+    name, home = pcfg.backbone, os.getcwd()
+    work = _preset_work(name)
+    npz = work / f"{name}.npz"
+    save_params_npz(weights(pcfg, seed), npz)
+    argv = ["data=endovis17", "loss=focal_main", f"model.backbone={name}",
+            f"data.train_path={json_path}", f"data.val_path={json_path}",
+            f"data.image_size={pcfg.image_size}",
+            f"model.checkpoint_path={npz}", f"model.max_objects={OBJECTS}",
+            "trainer.max_epochs=1",
+            f"trainer.limit_train_batches={PRESET_FIT_STEPS}",
+            "trainer.limit_val_batches=1", "trainer.log_every_n_steps=1",
+            "trainer.enable_checkpointing=false",
+            "visualization.enabled=false", "eval.enabled=true",
+            f"device={DEVICE}"]
+    steps, waits = [], []
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    os.chdir(work)
+    try:
+        run_dir, _ = train_torch.run(argv, step_timer=steps,
+                                     wait_timer=waits)
+    finally:
+        os.chdir(home)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    run = work / run_dir
+    log = [(r["split"], r["step"],
+            r.get("train/total_loss", r.get("val/total_loss")))
+           for r in _fit_log(run)]
+    metrics = json.loads((run / "eval" / "metrics.json").read_text())
+    m = {k: metrics[f"eval/{k}"] for k in ("dice", "iou", "mae")}
+    print(f"{name} train_torch.py losses (split, step, total_loss): "
+          + json.dumps(log) + "; eval metrics " + json.dumps(m), flush=True)
+    losses = [v for _, _, v in log]
+    if (len(log) != PRESET_FIT_STEPS + 1 or not all(np.isfinite(losses))
+            or not all(np.isfinite(v) for v in m.values())):
+        raise SystemExit(f"{name} fit: log {log}, eval metrics {m}")
+    _require(counts, FIT_REQUIRED, f"{name} fit and post-fit eval")
+    loader = ClipLoader(ClipDataset(
+        COCOIndex(json_path, pcfg.image_size, FIT_CATS),
+        ClipDatasetConfig(clip_length=10, stride=10, num_pos_points=2)),
+        batch_size=1, seed=seed)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    loader_ms = 1e3 * (time.perf_counter() - t0) / n
+    per = [w + t for w, t in zip(waits, steps)]
+    print(f"{name} train_torch.py data=endovis17 loss=focal_main on "
+          f"{PRESET_FIT_VIDEOS} x {PRESET_FIT_FRAMES} PNG frames of "
+          f"{PRESET_FIT_HW[0]}x{PRESET_FIT_HW[1]}, B=1 T=10 O={OBJECTS} "
+          f"{pcfg.image_size}px bf16: "
+          f"{len(steps)} train steps, wait + step ms "
+          + ", ".join(f"{1e3 * t:.3f} (wait {1e3 * w:.3f})"
+                      for t, w in zip(per, waits))
+          + f"; fit clips/s host-inclusive {len(per[1:]) / sum(per[1:]):.3f}"
+          f" over the warm steps; step ms median "
+          f"{1e3 * float(np.median(steps)):.3f}; loader ms per batch "
+          f"{loader_ms:.3f} ({n} batches, 2 threads, alone); whole CLI run "
+          f"with the post-fit eval {wall:.1f} s; launches " + json.dumps(
+              {k: counts[k] for k in FIT_REQUIRED}) + f"; {card}",
+          flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(Path(json_path).parent.parent, ignore_errors=True)
+
+
+def _preset_grid(pcfg, seed: int, card: str):
+    """``grid_search_threshold_torch.py checkpoint=<npz>
+    model.backbone=<preset>`` on the card on a synthetic dataset
+    (PRESET_GRID_VIDEOS videos of PRESET_GRID_FRAMES 480x854 PNG frames, 7
+    categories, point prompts): the inference with the probability maps
+    dumped, ``best_threshold.json``, the evaluation at the best threshold
+    with finite metrics, kernels #1-#5 launched (counts at 0 just before
+    it); the inference's wall and frames/s and the whole CLI's wall."""
+    import os
+    import shutil
+    from unittest import mock
+
+    import grid_search_threshold_torch
+    from sam2_video_tpu_torch.data.synthetic import make_synthetic_dataset
+    from sam2_video_tpu_torch.eval import inference as inference_mod
+    from sam2_video_tpu_torch.training.checkpoint import save_params_npz
+
+    name, home = pcfg.backbone, os.getcwd()
+    work = _preset_work(name)
+    json_path = make_synthetic_dataset(
+        work / "ds", num_videos=PRESET_GRID_VIDEOS,
+        frames_per_video=PRESET_GRID_FRAMES, image_hw=PRESET_GRID_HW,
+        num_categories=FIT_CATS, seed=seed + 1)
+    npz = work / f"{name}.npz"
+    save_params_npz(weights(pcfg, seed), npz)
+    plain, timed = inference_mod.inference, []
+
+    def inference(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain(*a, **kw)
+        torch.cuda.synchronize()
+        timed.append(time.perf_counter() - t0)
+        return out
+
+    reset_counts()
+    t0 = time.perf_counter()
+    os.chdir(work)
+    try:
+        with mock.patch.object(inference_mod, "inference", inference):
+            rc = grid_search_threshold_torch.main([
+                f"checkpoint={npz}", f"model.backbone={name}",
+                f"data.train_path={json_path}", f"data.val_path={json_path}",
+                f"data.image_size={pcfg.image_size}",
+                f"model.max_objects={OBJECTS}", f"device={DEVICE}"])
+    finally:
+        os.chdir(home)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    runs = sorted((work / "outputs").glob("*/*-thr"))
+    if rc != 0 or len(runs) != 1 or len(timed) != 1:
+        raise SystemExit(f"{name} grid_search_threshold_torch.py: exit {rc}, "
+                         f"runs {runs}")
+    best = json.loads((runs[0] / "best_threshold.json").read_text())
+    scores = json.loads((runs[0] / "eval.json").read_text())["avg_scores"]
+    probs = list((runs[0] / "eval" / "probs").rglob("*.npz"))
+    frames = PRESET_GRID_VIDEOS * PRESET_GRID_FRAMES
+    finite = all(np.isfinite(v) for v in scores.values()) and np.isfinite(
+        best["best_threshold"]) and np.isfinite(best["best_dice"])
+    print(f"{name} grid_search_threshold_torch.py on {PRESET_GRID_VIDEOS} x "
+          f"{PRESET_GRID_FRAMES} frames of {PRESET_GRID_HW[0]}x"
+          f"{PRESET_GRID_HW[1]} ({len(probs)} probability maps): best "
+          f"threshold {best['best_threshold']:.3f}, dice there "
+          f"{best['best_dice']:.6g}; evaluation at it " + json.dumps(scores)
+          + f"; inference {timed[0]:.3f} s, {frames / timed[0]:.2f} frames/s;"
+          f" whole CLI {wall:.1f} s; launches " + json.dumps(
+              {k: counts[k] for k in FIT_REQUIRED if "_bwd" not in k})
+          + f"; {card}", flush=True)
+    if not finite or not probs:
+        raise SystemExit(f"{name} threshold search: {best}, {scores}, "
+                         f"{len(probs)} probability maps")
+    _require(counts, [k for k in FIT_REQUIRED if "_bwd" not in k],
+             f"{name} threshold search inference")
+    shutil.rmtree(work, ignore_errors=True)
 
 
 # the fit phase: the port's train CLI on a COCO-RLE dataset on disk
@@ -2227,11 +2532,11 @@ def phase_fit(cfg, seed: int, card: str):
     and ``index.json``, kernels #1-#5 launched in the fit; ``last`` equal
     bit for bit to the run's final parameters, optimizer state and step; a
     second run resumed from the first's checkpoints, which starts from the
-    best one's state bit for bit and logs the steps after it; the first
-    batch's loss on the card against one step of the same CLI on the CPU in
-    float32 (TRAIN_CPU_LOSS_TOL); the fit loop's clips/s with the loader's
-    waits, and the loader's ms per batch beside the step's; and
-    ``phase_overfit``."""
+    best one's state bit for bit and logs the steps after it; the fit
+    loop's clips/s with the loader's waits, and the loader's ms per batch
+    beside the step's; ``phase_overfit``, beside which the same CLI runs
+    one step on the CPU in float32 as a second process: its first batch's
+    loss against the card's (TRAIN_CPU_LOSS_TOL)."""
     import os
     import shutil
     from pathlib import Path
@@ -2316,58 +2621,6 @@ def phase_fit(cfg, seed: int, card: str):
     if ran:
         raise SystemExit(f"fit ran {ran}")
 
-    saved = Checkpointer(ckpt).restore(ckpt / "last", device=DEVICE)
-    _same_state(state_dict_of(TrainState(**saved)),
-                state_dict_of(res1.state), "last checkpoint")
-    # a resumed run starts from the best checkpoint (train.py's
-    # resume_from): the state it starts from is the one saved there, bit
-    # for bit, and its logged steps continue from that checkpoint's step
-    best = index[0]
-    started = []
-    plain_fit = loop.fit
-
-    def fit(state, *a, **kw):
-        started.append(state_dict_of(state))
-        return plain_fit(state, *a, **kw)
-
-    with mock.patch.object(loop, "fit", fit):
-        run2, _ = cli("run2", [f"trainer.resume_from={ckpt}"])
-    _same_state(started[0], saved_states[best["step"]], "resumed state")
-    steps1 = [r["step"] for r in log1 if r["split"] == "train"]
-    steps2 = [r["step"] for r in _fit_log(run2) if r["split"] == "train"]
-    if not steps2 or min(steps2) != best["step"] + 1:
-        raise SystemExit(f"resume: steps {steps2} after the best "
-                         f"checkpoint's step {best['step']}")
-    print(f"fit resume: the last checkpoint restores the final parameters, "
-          f"optimizer state and step {res1.state.step} bit for bit; the "
-          f"resumed run starts from the best checkpoint, {best['name']}, "
-          f"with its parameters, optimizer state and step bit for bit: "
-          f"train steps {steps1} then {steps2}", flush=True)
-
-    cpu, _ = cli("cpu", ["trainer.max_epochs=1",
-                         "trainer.limit_train_batches=1",
-                         "trainer.limit_val_batches=0",
-                         "model.compute_dtype=float32"], device="cpu")
-    card_loss = log1[0]["train/total_loss"]
-    cpu_loss = _fit_log(cpu)[0]["train/total_loss"]
-    rel = abs(card_loss - cpu_loss) / max(abs(cpu_loss), 1e-12)
-    print(f"fit card vs cpu, first batch: loss {card_loss:.6g} vs "
-          f"{cpu_loss:.6g} rel {rel:.4g} (tol {TRAIN_CPU_LOSS_TOL})",
-          flush=True)
-    if not rel <= TRAIN_CPU_LOSS_TOL:
-        raise SystemExit(f"fit card vs cpu: loss rel {rel}")
-    remat, _ = cli("remat", ["trainer.max_epochs=1",
-                             "trainer.limit_train_batches=1",
-                             "trainer.limit_val_batches=0",
-                             "model.use_activation_checkpoint=true"])
-    remat_loss = _fit_log(remat)[0]["train/total_loss"]
-    rel = abs(remat_loss - card_loss) / max(abs(card_loss), 1e-12)
-    print(f"fit with model.use_activation_checkpoint=true (remat body), "
-          f"first batch: loss {remat_loss:.6g} vs {card_loss:.6g} without "
-          f"it, rel {rel:.4g} (tol {TRAIN_CPU_LOSS_TOL})", flush=True)
-    if not (np.isfinite(remat_loss) and rel <= TRAIN_CPU_LOSS_TOL):
-        raise SystemExit(f"fit with remat: loss {remat_loss}, rel {rel}")
-
     loader = ClipLoader(ClipDataset(
         COCOIndex(json_path, 384, FIT_CATS),
         ClipDatasetConfig(clip_length=10, stride=10, num_pos_points=2)),
@@ -2393,7 +2646,78 @@ def phase_fit(cfg, seed: int, card: str):
           f"{B * len(per) / wall:.3f} clips/s); loader ms per batch "
           f"{loader_ms:.3f} ({n} batches of 2 clips, 2 worker threads, cold "
           f"cache, alone) against step ms {step_ms:.3f}; {card}", flush=True)
-    phase_overfit(seed, DEVICE)
+    # the first batch on the CPU in float32: the CLI as a second process,
+    # while the card runs the resumed run, the remat step and the overfit
+    # check
+    (work / "cpu").mkdir()
+    with open(work / "cpu" / "cli.log", "w") as log:
+        cpu_cli = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve().parent /
+                                 "train_torch.py"),
+             *fit_overrides(json_path, npz, "cpu"), "trainer.max_epochs=1",
+             "trainer.limit_train_batches=1", "trainer.limit_val_batches=0",
+             "model.compute_dtype=float32"], cwd=work / "cpu", stdout=log,
+            stderr=subprocess.STDOUT)
+    try:
+        saved = Checkpointer(ckpt).restore(ckpt / "last", device=DEVICE)
+        _same_state(state_dict_of(TrainState(**saved)),
+                    state_dict_of(res1.state), "last checkpoint")
+        # a resumed run starts from the best checkpoint (train.py's
+        # resume_from): the state it starts from is the one saved there, bit
+        # for bit, and its logged steps continue from that checkpoint's step
+        best = index[0]
+        started = []
+        plain_fit = loop.fit
+
+        def fit(state, *a, **kw):
+            started.append(state_dict_of(state))
+            return plain_fit(state, *a, **kw)
+
+        with mock.patch.object(loop, "fit", fit):
+            run2, _ = cli("run2", [f"trainer.resume_from={ckpt}"])
+        _same_state(started[0], saved_states[best["step"]], "resumed state")
+        steps1 = [r["step"] for r in log1 if r["split"] == "train"]
+        steps2 = [r["step"] for r in _fit_log(run2) if r["split"] == "train"]
+        if not steps2 or min(steps2) != best["step"] + 1:
+            raise SystemExit(f"resume: steps {steps2} after the best "
+                             f"checkpoint's step {best['step']}")
+        print(f"fit resume: the last checkpoint restores the final "
+              f"parameters, optimizer state and step {res1.state.step} bit "
+              f"for bit; the "
+              f"resumed run starts from the best checkpoint, {best['name']}, "
+              f"with its parameters, optimizer state and step bit for bit: "
+              f"train steps {steps1} then {steps2}", flush=True)
+
+        card_loss = log1[0]["train/total_loss"]
+        remat, _ = cli("remat", ["trainer.max_epochs=1",
+                                 "trainer.limit_train_batches=1",
+                                 "trainer.limit_val_batches=0",
+                                 "model.use_activation_checkpoint=true"])
+        remat_loss = _fit_log(remat)[0]["train/total_loss"]
+        rel = abs(remat_loss - card_loss) / max(abs(card_loss), 1e-12)
+        print(f"fit with model.use_activation_checkpoint=true (remat body), "
+              f"first batch: loss {remat_loss:.6g} vs {card_loss:.6g} without "
+              f"it, rel {rel:.4g} (tol {TRAIN_CPU_LOSS_TOL})", flush=True)
+        if not (np.isfinite(remat_loss) and rel <= TRAIN_CPU_LOSS_TOL):
+            raise SystemExit(f"fit with remat: loss {remat_loss}, rel {rel}")
+
+        phase_overfit(seed, DEVICE)
+    except BaseException:
+        cpu_cli.kill()
+        raise
+    finally:
+        rc = cpu_cli.wait(timeout=900)
+    runs = sorted((work / "cpu" / "outputs").glob("*/*/metrics.jsonl"))
+    if rc or len(runs) != 1:
+        raise SystemExit(f"fit on the CPU: exit {rc}, "
+                         + (work / "cpu" / "cli.log").read_text()[-2000:])
+    cpu_loss = _fit_log(runs[0].parent)[0]["train/total_loss"]
+    rel = abs(card_loss - cpu_loss) / max(abs(cpu_loss), 1e-12)
+    print(f"fit card vs cpu, first batch: loss {card_loss:.6g} vs "
+          f"{cpu_loss:.6g} rel {rel:.4g} (tol {TRAIN_CPU_LOSS_TOL})",
+          flush=True)
+    if not rel <= TRAIN_CPU_LOSS_TOL:
+        raise SystemExit(f"fit card vs cpu: loss rel {rel}")
     shutil.rmtree(work, ignore_errors=True)
 
 
@@ -2419,15 +2743,36 @@ def phase_overfit(seed: int, device: str) -> None:
         raise SystemExit("overfit: the check did not converge")
 
 
-# the jpeg phase: the port's JPEG decoder against the committed digests, its
-# speed beside the PNG reader's, and the train CLI on JPEG frames beside a
-# PNG copy of them
+# the frames phase: every frame format the port reads, one fixture set each
+# (digests through the C++ helpers, decode times beside PNG), then the train
+# CLI with its post-fit eval on one video of each set in one dataset, beside
+# a PNG copy of its frames
 JPEG_FIXTURES = ("sam2_video_tpu_torch", "data", "fixtures", "jpeg")
 JPEG_DECODE_REPEATS = 5       # decodes of each file; the median is printed
-JPEG_FIT = ("data.video_clip_length=4", "data.stride=2",
-            "data.num_categories=3", "trainer.max_epochs=1",
-            "trainer.limit_train_batches=3", "trainer.limit_val_batches=1",
-            "trainer.enable_checkpointing=false")
+# the fixture sets: the C++ helpers each needs and its video's frames
+FRAME_SETS = {
+    "jpeg": (("jpeg_decode",), "baseline JPEG"),
+    "formats": (("jpeg_decode",), "CMYK arithmetic-coded JPEG"),
+    "raster": (("raster_decode", "jpeg_decode"), "LZW + predictor TIFF"),
+    "webp": (("webp_decode",), "lossy WebP (quality 80)"),
+    "simple": (("simple_decode",), "P6, P5, Sun RLE, TGA RLE, SGI RLE, "
+               "PCX, QOI and RLE8 DIB, one frame each"),
+}
+FRAMES_VIDEO = "vid0"         # the video of each set in the mixed dataset
+# T=4 clips at stride 4 over 8 frames: 2 clips a video, 10 in the mixed
+# dataset, so its 5 train batches of 2 read every frame of every set
+FRAMES_FIT = ("data.video_clip_length=4", "data.stride=4",
+              "data.num_categories=3", "trainer.max_epochs=1",
+              "trainer.limit_train_batches=5", "trainer.limit_val_batches=1",
+              "trainer.enable_checkpointing=false")
+RASTER_LARGE_HW = (1024, 1280)        # CholecSeg8k's frame size
+# the video's frame kinds by file extension (frame i of each video is in
+# the i-th; tests/simple_fixtures.py VIDEO_KINDS)
+SIMPLE_VIDEO_KINDS = {".ppm": "P6 PPM", ".pgm": "P5 PGM",
+                      ".ras": "8-bit Sun RLE with a colour map",
+                      ".tga": "TGA RLE", ".sgi": "SGI RLE",
+                      ".pcx": "24-bit PCX", ".qoi": "QOI",
+                      ".dib": "8-bit RLE8 DIB"}
 
 
 def host_cpu() -> str:
@@ -2460,154 +2805,6 @@ def _median_ms(fn, arg, repeats: int = JPEG_DECODE_REPEATS) -> float:
     return 1e3 * float(np.median(times))
 
 
-def phase_jpeg(cfg, seed: int, card: str):
-    """(a) every committed JPEG fixture decoded by the C++ helper (the phase
-    fails when it does not build: the numpy reference may not stand in for
-    it) to its digest in ``digests.json`` (sha256 of Pillow's
-    ``convert("RGB")``); (b) the median decode ms per frame of the video
-    fixture's 240x320 frames and of the largest fixture (480x854), beside
-    the port's PNG ``read_rgb`` of the same pixels; (c) ``train_torch.py``
-    with the fit phase's overrides on the JPEG video dataset (T=4, B=2, 3
-    train steps and one validation batch), then twice on a PNG copy of its
-    decoded frames (the same JSON, ``.png`` names): the JPEG run's losses
-    equal to the PNG run's bit for bit when the two PNG runs are, else
-    within TRAIN_CPU_LOSS_TOL; the JPEG fit's clips/s and loader waits, and
-    the loader's ms per batch on both copies; (d) kernels #1-#5 launched in
-    the JPEG run (counts at 0 just before it)."""
-    import hashlib
-    import os
-    import shutil
-    from pathlib import Path
-
-    import train_torch
-    from sam2_video_tpu_torch.data import host_build, image_io
-    from sam2_video_tpu_torch.data.coco import COCOIndex
-    from sam2_video_tpu_torch.data.pipeline import (ClipDataset,
-                                                    ClipDatasetConfig,
-                                                    ClipLoader)
-    from sam2_video_tpu_torch.training.checkpoint import save_params_npz
-
-    root = Path(__file__).resolve().parent.joinpath(*JPEG_FIXTURES)
-    if host_build.load("jpeg_decode") is None:
-        raise SystemExit("jpeg: the C++ JPEG decoder (csrc/jpeg_decode.cpp) "
-                         "did not build with g++")
-    digests = json.loads((root / "digests.json").read_text())
-    for rel, want in digests.items():
-        rgb = image_io.read_rgb(root / rel)
-        got = hashlib.sha256(np.ascontiguousarray(rgb).tobytes()).hexdigest()
-        if list(rgb.shape) != want["shape"] or got != want["sha256"]:
-            raise SystemExit(f"jpeg: {rel} decodes to {rgb.shape} "
-                             f"{got[:12]}, not {want['shape']} "
-                             f"{want['sha256'][:12]}")
-    print(f"jpeg (a): {len(digests)} fixtures decoded by the C++ helper, "
-          "each equal to its digest of Pillow's convert('RGB')", flush=True)
-
-    home = Path.cwd()
-    work = home / "outputs" / "chip_smoke_jpeg" / str(os.getpid())
-    shutil.rmtree(work, ignore_errors=True)
-    (work / "png" / "images").mkdir(parents=True)
-    video = root / "video"
-    ann = json.loads((video / "annotations.json").read_text())
-    for im in ann["images"]:
-        rgb = image_io.read_rgb(video / "images" / im["file_name"])
-        im["file_name"] = im["file_name"].replace(".jpg", ".png")
-        image_io.write_png(work / "png" / "images" / im["file_name"], rgb)
-    (work / "png" / "annotations.json").write_text(json.dumps(ann))
-    large = root / "coverage" / "large_480x854.jpg"
-    image_io.write_png(work / "large.png", image_io.read_rgb(large))
-    frames = sorted((video / "images").glob("*.jpg"))
-    jpeg_ms = float(np.median([_median_ms(image_io.read_rgb, p)
-                               for p in frames]))
-    png_ms = float(np.median([
-        _median_ms(image_io.read_rgb, work / "png" / "images" /
-                   p.name.replace(".jpg", ".png")) for p in frames]))
-    large_ms = _median_ms(image_io.read_rgb, large)
-    large_png_ms = _median_ms(image_io.read_rgb, work / "large.png")
-    print(f"jpeg (b): decode ms per frame, median of {JPEG_DECODE_REPEATS} "
-          f"reads of each: {len(frames)} 240x320 JPEG frames {jpeg_ms:.3f} "
-          f"(their PNG copies {png_ms:.3f}); the 480x854 JPEG {large_ms:.3f} "
-          f"(PNG {large_png_ms:.3f}); one thread, warm page cache; host "
-          f"{host_cpu()}; {card}", flush=True)
-
-    npz = work / "weights.npz"
-    save_params_npz(synthetic_params(cfg, seed), npz)
-    datasets = {"jpeg": (video / "annotations.json", video / "images"),
-                "png": (work / "png" / "annotations.json",
-                        work / "png" / "images")}
-
-    def cli(name, which, step_timer=None, wait_timer=None):
-        json_path, images = datasets[which]
-        (work / name).mkdir()
-        os.chdir(work / name)
-        try:
-            run_dir, _ = train_torch.run(
-                fit_overrides(json_path, npz) + list(JPEG_FIT)
-                + [f"data.image_root={images}"],
-                step_timer=step_timer, wait_timer=wait_timer)
-        finally:
-            os.chdir(home)
-        return [(r["split"], r["step"],
-                 r.get("train/total_loss", r.get("val/total_loss")))
-                for r in _fit_log(work / name / run_dir)]
-
-    steps, waits = [], []
-    reset_counts()
-    torch.cuda.synchronize()
-    jpeg_log = cli("run_jpeg", "jpeg", steps, waits)
-    counts = read_counts()
-    png_log, png_again = cli("run_png", "png"), cli("run_png_again", "png")
-    print("jpeg (c) losses (split, step, total_loss): JPEG "
-          + json.dumps(jpeg_log) + ", PNG " + json.dumps(png_log)
-          + ", PNG again " + json.dumps(png_again), flush=True)
-    losses = [v for _, _, v in jpeg_log]
-    if len(jpeg_log) != 4 or not all(np.isfinite(losses)):
-        raise SystemExit(f"jpeg fit: log {jpeg_log}")
-    repeat = png_log == png_again
-    for (s, i, a), (s2, i2, b) in zip(jpeg_log, png_log, strict=True):
-        rel = abs(a - b) / max(abs(b), 1e-12)
-        if (s, i) != (s2, i2) or (a != b if repeat
-                                  else not rel <= TRAIN_CPU_LOSS_TOL):
-            raise SystemExit(f"jpeg fit: {s} step {i} loss {a} on JPEG "
-                             f"frames, {b} on their PNG copy")
-    print("jpeg (c): the JPEG run's losses "
-          + ("equal the PNG run's bit for bit (two PNG runs repeat bit for "
-             "bit)" if repeat else
-             f"within {TRAIN_CPU_LOSS_TOL} of the PNG run's (two PNG runs "
-             "differ: the card's training does not repeat bit for bit)"),
-          flush=True)
-    _require(counts, FIT_REQUIRED, "jpeg fit")
-    B = 2
-    loader_ms = {}
-    for which, (json_path, images) in datasets.items():
-        loader = ClipLoader(ClipDataset(
-            COCOIndex(json_path, 384, 3),
-            ClipDatasetConfig(clip_length=4, stride=2, num_pos_points=2,
-                              image_root=str(images))),
-            batch_size=B, seed=seed)
-        t0 = time.perf_counter()
-        n = sum(1 for _ in loader)
-        loader_ms[which] = 1e3 * (time.perf_counter() - t0) / n
-    per = [w + t for w, t in zip(waits, steps)]
-    print(f"jpeg (c) fit B={B} T=4 O=8 384px bf16 on 240x320 JPEG frames: "
-          f"{len(steps)} train steps, wait + step ms "
-          + ", ".join(f"{1e3 * t:.3f} (wait {1e3 * w:.3f})"
-                      for t, w in zip(per, waits))
-          + f"; clips/s host-inclusive {B * len(per[1:]) / sum(per[1:]):.3f} "
-          f"over the warm steps; step ms median "
-          f"{1e3 * float(np.median(steps)):.3f}; loader ms per batch "
-          f"(alone, 2 threads, cold cache) JPEG {loader_ms['jpeg']:.3f}, PNG "
-          f"copy {loader_ms['png']:.3f}; {card}", flush=True)
-    shutil.rmtree(work, ignore_errors=True)
-
-
-# the formats phase: every kind of frame and mask the JAX package reads
-# (formats fixtures), decode times beside baseline JPEG and 8-bit PNG, and
-# the path convert -> EndoVis conversion -> fit -> post-fit eval on CMYK
-# arithmetic-coded frames beside a PNG copy of them
-FORMATS_FIXTURES = ("sam2_video_tpu_torch", "data", "fixtures", "formats")
-FORMATS_FIT = JPEG_FIT[:-1] + ("trainer.enable_checkpointing=true",)
-
-
 def _png16(rgb16: np.ndarray) -> bytes:
     """uint16 [H, W, 3] -> a 16-bit RGB PNG (filter type 0 on every row)."""
     import struct
@@ -2636,202 +2833,6 @@ def _sha256(a: np.ndarray) -> str:
     a = np.ascontiguousarray(a)
     return hashlib.sha256(a.astype(a.dtype.newbyteorder("<")).tobytes()
                           ).hexdigest()
-
-
-def phase_formats(cfg, seed: int, card: str):
-    """(a) Every formats fixture (arithmetic-coded, lossless, CMYK / YCCK
-    JPEG, 16-bit PNG; the CMYK video; the timing frames) read by the port
-    with the C++ helper, which must build, equal to its digests: Pillow's
-    ``convert("RGB")`` (the loader), OpenCV's ``imread`` or Pillow where it
-    reads nothing (the eval), ``np.asarray(Image.open())`` (``read_raw``).
-    (b) The median decode ms per 240x320 frame of each kind beside
-    baseline Huffman (the jpeg fixtures' video) and 8-bit PNG. (c) The
-    path: ``synthetic_params`` saved as a Meta-style ``{"model":
-    state_dict}`` checkpoint and converted by ``python -m
-    sam2_video_tpu_torch.training.convert`` (the npz equal to the weights
-    bit for bit); ``data_tools/convert_endovis_to_coco_torch.py`` on the
-    committed EndoVis tree of 16-bit masks, its JSON equal to the JAX
-    converter's committed sha256; ``train_torch.py`` from that npz on the
-    CMYK arithmetic-coded video (T=4, B=2, 3 train steps, one validation
-    batch) with its post-fit eval (predict.json, finite metrics). (d) The
-    same fit twice on a PNG copy of the loader's decoded frames (eval off):
-    the losses equal bit for bit when the two PNG runs are, else within
-    TRAIN_CPU_LOSS_TOL. (e) Kernels #1-#5 launched in the CMYK run (fit
-    and eval; counts at 0 just before it)."""
-    import hashlib
-    import os
-    import shutil
-    import subprocess
-    from pathlib import Path
-
-    import train_torch
-    from sam2_video_tpu_torch.data import host_build, image_io
-    from sam2_video_tpu_torch.training.checkpoint import load_params_npz
-
-    repo = Path(__file__).resolve().parent
-    root = repo.joinpath(*FORMATS_FIXTURES)
-    if host_build.load("jpeg_decode") is None:
-        raise SystemExit("formats: the C++ JPEG decoder (csrc/jpeg_decode."
-                         "cpp) did not build with g++")
-    digests = json.loads((root / "digests.json").read_text())
-    for rel, want in digests.items():
-        p = root / rel
-        got = {"sha256": _sha256(image_io.read_rgb(p)),
-               "opencv": _sha256(image_io.read_rgb(p, reader="opencv"))}
-        need = {"sha256": want["sha256"],
-                "opencv": want["opencv_sha256"] or want["sha256"]}
-        if p.suffix == ".png":
-            got["raw"] = _sha256(image_io.read_raw(p))
-            need["raw"] = want["raw_sha256"]
-        if got != need:
-            raise SystemExit(f"formats: {rel} decodes to {got}, not {need}")
-    print(f"formats (a): {len(digests)} fixtures read by the C++ helper, "
-          "each equal to its digests of Pillow's convert('RGB'), OpenCV's "
-          "imread and np.asarray(Image.open())", flush=True)
-
-    home = Path.cwd()
-    work = home / "outputs" / "chip_smoke_formats" / str(os.getpid())
-    shutil.rmtree(work, ignore_errors=True)
-    (work / "png" / "images").mkdir(parents=True)
-    video = root / "video"
-    base = repo.joinpath(*JPEG_FIXTURES) / "video" / "images"
-    plain = sorted(base.glob("*.jpg"))
-    for i, p in enumerate(plain[::8]):
-        rgb = image_io.read_rgb(p)
-        image_io.write_png(work / f"png8_{i}.png", rgb)
-        (work / f"png16_{i}.png").write_bytes(_png16(rgb.astype(np.uint16)
-                                                     * 257))
-    kinds = {"baseline Huffman YCbCr 4:2:0": plain,
-             "arithmetic-coded YCbCr 4:2:0": sorted(
-                 (root / "timing").glob("arith_*.jpg")),
-             "CMYK Huffman": sorted((root / "timing").glob("cmyk_*.jpg")),
-             "CMYK arithmetic-coded": sorted(
-                 (video / "images").glob("*.jpg")),
-             "lossless RGB": sorted((root / "timing").glob("lossless_*.jpg")),
-             "8-bit RGB PNG": sorted(work.glob("png8_*.png")),
-             "16-bit RGB PNG": sorted(work.glob("png16_*.png"))}
-    decode_ms = {k: float(np.median([_median_ms(image_io.read_rgb, p)
-                                     for p in files]))
-                 for k, files in kinds.items()}
-    print("formats (b): decode ms per 240x320 frame (read_rgb, the loader's "
-          f"bits), median over the files of the median of "
-          f"{JPEG_DECODE_REPEATS} reads of each: "
-          + ", ".join(f"{k} {v:.3f} ({len(kinds[k])} files)"
-                      for k, v in decode_ms.items())
-          + f"; one thread, warm page cache; host {host_cpu()}; {card}",
-          flush=True)
-
-    ckpt, npz = work / "sam2.1_hiera_tiny_synthetic.pt", work / "tiny.npz"
-    weights = {k: v.detach().clone()
-               for k, v in synthetic_params(cfg, seed).named_parameters()}
-    torch.save({"model": weights}, ckpt)
-    t0 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, "-m", "sam2_video_tpu_torch.training.convert",
-         str(ckpt), str(npz), "--backbone", "tiny", "--image-size",
-         str(cfg.image_size)], cwd=repo, capture_output=True, text=True,
-        timeout=600)
-    if out.returncode or "0 missing, 0 unexpected" not in out.stdout:
-        raise SystemExit(f"formats: the converter CLI: {out.stdout} "
-                         f"{out.stderr[-2000:]}")
-    loaded = load_params_npz(npz)
-    if sorted(loaded) != sorted(weights) or any(
-            not torch.equal(loaded[k], v) for k, v in weights.items()):
-        raise SystemExit("formats: the converted npz differs from the "
-                         "checkpoint's weights")
-    print(f"formats (c) converter CLI: {out.stdout.strip()} in "
-          f"{time.perf_counter() - t0:.1f} s; the npz loads back equal to the "
-          f"checkpoint's {len(weights)} tensors bit for bit", flush=True)
-
-    src = (root / "endovis16").relative_to(repo)
-    out = subprocess.run(
-        [sys.executable, "data_tools/convert_endovis_to_coco_torch.py",
-         str(src), str(work / "endovis16.json"), "--n-jobs", "2"],
-        cwd=repo, capture_output=True, text=True, timeout=600)
-    got = None if out.returncode else hashlib.sha256(
-        (work / "endovis16.json").read_bytes()).hexdigest()
-    want = (root / "endovis16.json.sha256").read_text().strip()
-    if out.returncode or got != want:
-        raise SystemExit(f"formats: the EndoVis converter on {src}: "
-                         f"{out.stdout} {out.stderr[-2000:]} sha256 {got} "
-                         f"!= {want}")
-    anns = json.loads((work / "endovis16.json").read_text())["annotations"]
-    print(f"formats (c) EndoVis converter on 16-bit class-id masks (ids "
-          f"256-65535): {len(anns)} annotations, the JSON's sha256 equal to "
-          "the JAX converter's", flush=True)
-
-    ann = json.loads((video / "annotations.json").read_text())
-    for im in ann["images"]:
-        rgb = image_io.read_rgb(video / "images" / im["file_name"])
-        im["file_name"] = im["file_name"].replace(".jpg", ".png")
-        image_io.write_png(work / "png" / "images" / im["file_name"], rgb)
-    (work / "png" / "annotations.json").write_text(json.dumps(ann))
-    datasets = {"cmyk": (video / "annotations.json", video / "images"),
-                "png": (work / "png" / "annotations.json",
-                        work / "png" / "images")}
-
-    def cli(name, which, evaluate):
-        json_path, images = datasets[which]
-        (work / name).mkdir()
-        os.chdir(work / name)
-        try:
-            run_dir, _ = train_torch.run(
-                fit_overrides(json_path, npz) + list(FORMATS_FIT)
-                + [f"data.image_root={images}",
-                   f"eval.enabled={str(evaluate).lower()}"])
-        finally:
-            os.chdir(home)
-        log = [(r["split"], r["step"],
-                r.get("train/total_loss", r.get("val/total_loss")))
-               for r in _fit_log(work / name / run_dir)]
-        return log, work / name / run_dir
-
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cmyk_log, run = cli("run_cmyk", "cmyk", True)
-    wall = time.perf_counter() - t0
-    counts = read_counts()
-    metrics = json.loads((run / "eval" / "metrics.json").read_text())
-    m = {k: metrics[f"eval/{k}"] for k in ("dice", "iou", "mae")}
-    if not (run / "eval" / "predict.json").exists() or not all(
-            np.isfinite(v) for v in m.values()):
-        raise SystemExit(f"formats: post-fit eval {m} in {run / 'eval'}")
-    png_log, _ = cli("run_png", "png", False)
-    png_again, _ = cli("run_png_again", "png", False)
-    print("formats (d) losses (split, step, total_loss): CMYK "
-          + json.dumps(cmyk_log) + ", PNG " + json.dumps(png_log)
-          + ", PNG again " + json.dumps(png_again), flush=True)
-    losses = [v for _, _, v in cmyk_log]
-    if len(cmyk_log) != 4 or not all(np.isfinite(losses)):
-        raise SystemExit(f"formats fit: log {cmyk_log}")
-    repeat = png_log == png_again
-    for (s, i, a), (s2, i2, b) in zip(cmyk_log, png_log, strict=True):
-        rel = abs(a - b) / max(abs(b), 1e-12)
-        if (s, i) != (s2, i2) or (a != b if repeat
-                                  else not rel <= TRAIN_CPU_LOSS_TOL):
-            raise SystemExit(f"formats fit: {s} step {i} loss {a} on CMYK "
-                             f"frames, {b} on their PNG copy")
-    print("formats (d): the CMYK run's losses "
-          + ("equal the PNG run's bit for bit (two PNG runs repeat bit for "
-             "bit)" if repeat else
-             f"within {TRAIN_CPU_LOSS_TOL} of the PNG run's (two PNG runs "
-             "differ: the card's training does not repeat bit for bit)"),
-          flush=True)
-    _require(counts, FIT_REQUIRED, "formats fit and post-fit eval")
-    print(f"formats (c) train_torch.py from the converted npz on 2 x 8 CMYK "
-          f"arithmetic-coded 240x320 frames, T=4 B=2 O=8 384px bf16, 3 "
-          f"steps, a validation and the post-fit eval (OpenCV's bits): "
-          f"{wall:.1f} s; eval metrics " + json.dumps(m) + f"; {card}",
-          flush=True)
-    shutil.rmtree(work, ignore_errors=True)
-
-
-# the raster phase: TIFF, BMP and GIF frames (raster fixtures) against
-# Pillow's and OpenCV's digests, decode times beside 8-bit PNG, and the CLI
-# fit + post-fit eval on TIFF frames beside a PNG copy of them
-RASTER_FIXTURES = ("sam2_video_tpu_torch", "data", "fixtures", "raster")
-RASTER_LARGE_HW = (1024, 1280)        # CholecSeg8k's frame size
 
 
 def _tiff8(rgb: np.ndarray, lzw: bool) -> bytes:
@@ -2874,384 +2875,42 @@ def _tiff8(rgb: np.ndarray, lzw: bool) -> bytes:
 
 
 def _lzw(data: bytes) -> bytes:
-    """TIFF LZW of ``data`` (8-bit symbols; see ``_tiff8``)."""
+    """TIFF LZW of ``data`` (8-bit symbols; see ``_tiff8``). The string
+    table maps (prefix code << 8 | next byte) to a code."""
+    table, nxt, width = {}, 258, 9
+    codes = [(256, width)]
+    cur = -1
+    for b in data:
+        if cur < 0:
+            cur = b
+            continue
+        code = table.get(cur << 8 | b)
+        if code is not None:
+            cur = code
+            continue
+        codes.append((cur, width))
+        table[cur << 8 | b] = nxt
+        nxt += 1
+        if nxt >= 4094:
+            codes.append((256, width))
+            table, nxt, width = {}, 258, 9
+        elif nxt >= (1 << width) and width < 12:  # the decoder's early
+            width += 1                            # change, one code later
+        cur = b
+    codes.append((cur, width))
+    if nxt + 1 >= (1 << width) and width < 12:
+        width += 1
+    codes.append((257, width))
     out, acc, nacc = bytearray(), 0, 0
-
-    def put(code, width):
-        nonlocal acc, nacc
-        acc, nacc = (acc << width) | code, nacc + width
+    for code, w in codes:
+        acc, nacc = (acc << w) | code, nacc + w
         while nacc >= 8:
             nacc -= 8
             out.append((acc >> nacc) & 0xFF)
-
-    def fresh():
-        return {bytes([i]): i for i in range(256)}, 258, 9
-
-    table, nxt, width = fresh()
-    put(256, width)
-    cur = b""
-    for b in data:
-        cand = cur + bytes([b])
-        if cand in table:
-            cur = cand
-            continue
-        put(table[cur], width)
-        table[cand] = nxt
-        nxt += 1
-        if nxt >= 4094:
-            put(256, width)
-            table, nxt, width = fresh()
-        elif nxt >= (1 << width) and width < 12:  # the decoder's early
-            width += 1                            # change, one code later
-        cur = bytes([b])
-    put(table[cur], width)
-    if nxt + 1 >= (1 << width) and width < 12:
-        width += 1
-    put(257, width)
+        acc &= (1 << nacc) - 1
     if nacc:
         out.append((acc << (8 - nacc)) & 0xFF)
     return bytes(out)
-
-
-def phase_raster(cfg, seed: int, card: str):
-    """(a) Every raster fixture (TIFF of each layout, compression, sample
-    kind and orientation; BMP of each depth, header and RLE; GIF; the TIFF
-    video; the timing frames) read by the port with the C++ helpers, which
-    must build, equal to its digests: Pillow's ``convert("RGB")`` (the
-    loader), the JAX eval's reader (OpenCV's ``imread``, or Pillow's where
-    it reads nothing), ``np.asarray(Image.open())`` (``read_raw``) and the
-    size. (b) The median decode ms per 240x320 frame of each timing kind
-    and of the video's LZW + predictor frames beside their 8-bit PNG
-    copies, and of a 1024x1280 frame (CholecSeg8k's size, the 480x854 JPEG
-    fixture resized) as uncompressed and LZW TIFF beside PNG. (c)
-    ``train_torch.py`` on the TIFF video (T=4, B=2, 3 train steps, one
-    validation batch) from ``synthetic_params``, with its post-fit eval
-    (predict.json, finite metrics). (d) The same fit on a PNG copy of the
-    loader's decoded frames, eval off: the losses equal bit for bit. (e)
-    Kernels #1-#5 launched in the TIFF run (fit and eval; counts at 0 just
-    before it)."""
-    import os
-    import shutil
-    from pathlib import Path
-
-    import train_torch
-    from sam2_video_tpu_torch.data import host_build, image_io
-    from sam2_video_tpu_torch.training.checkpoint import save_params_npz
-
-    repo = Path(__file__).resolve().parent
-    root = repo.joinpath(*RASTER_FIXTURES)
-    for name in ("raster_decode", "jpeg_decode"):
-        if host_build.load(name) is None:
-            raise SystemExit(f"raster: the C++ helper csrc/{name}.cpp did "
-                             "not build with g++")
-    digests = json.loads((root / "digests.json").read_text())
-    for rel, want in digests.items():
-        p = root / rel
-        got = {"opencv_sha256": _sha256(image_io.read_rgb(p,
-                                                          reader="opencv")),
-               "size": list(image_io.image_size(p))}
-        if want["sha256"] is not None:   # null: Pillow cannot load it
-            raw = image_io.read_raw(p)
-            got.update(sha256=_sha256(image_io.read_rgb(p)),
-                       raw_sha256=_sha256(raw), raw_dtype=raw.dtype.str)
-        need = {k: want[k] for k in got}
-        if got != need:
-            raise SystemExit(f"raster: {rel} reads to {got}, not {need}")
-    print(f"raster (a): {len(digests)} fixtures read by the C++ helpers, "
-          "each equal to its digests of Pillow's convert('RGB') (where "
-          "Pillow loads it), the JAX eval's reader (OpenCV's imread, else "
-          "Pillow) and np.asarray(Image.open()), and to its size",
-          flush=True)
-
-    home = Path.cwd()
-    work = home / "outputs" / "chip_smoke_raster" / str(os.getpid())
-    shutil.rmtree(work, ignore_errors=True)
-    (work / "png" / "images").mkdir(parents=True)
-    video = root / "video"
-    ann = json.loads((video / "annotations.json").read_text())
-    for im in ann["images"]:
-        rgb = image_io.read_rgb(video / "images" / im["file_name"])
-        im["file_name"] = im["file_name"].replace(".tif", ".png")
-        image_io.write_png(work / "png" / "images" / im["file_name"], rgb)
-    (work / "png" / "annotations.json").write_text(json.dumps(ann))
-    timing = root / "timing"
-    kinds = {"LZW TIFF": sorted(timing.glob("lzw_*.tif")),
-             "LZW + predictor TIFF (the video)": sorted(
-                 (video / "images").glob("*.tif")),
-             "PackBits TIFF": sorted(timing.glob("packbits_*.tif")),
-             "24-bit BMP": sorted(timing.glob("bmp24_*.bmp")),
-             "GIF": sorted(timing.glob("gif_*.gif")),
-             "8-bit PNG (the video's copies)": sorted(
-                 (work / "png" / "images").glob("*.png"))}
-    decode_ms = {k: float(np.median([_median_ms(image_io.read_rgb, p)
-                                     for p in files]))
-                 for k, files in kinds.items()}
-    large = image_io.resize_bilinear(image_io.read_rgb(
-        repo.joinpath(*JPEG_FIXTURES) / "coverage" / "large_480x854.jpg"),
-        RASTER_LARGE_HW[::-1])
-    for name, data in (("large.tif", _tiff8(large, False)),
-                       ("large_lzw.tif", _tiff8(large, True))):
-        (work / name).write_bytes(data)
-        if not np.array_equal(image_io.read_rgb(work / name), large):
-            raise SystemExit(f"raster: the port's read of {name} differs "
-                             "from the frame written")
-    image_io.write_png(work / "large.png", large)
-    large_ms = {k: _median_ms(image_io.read_rgb, work / f)
-                for k, f in (("uncompressed TIFF", "large.tif"),
-                             ("LZW TIFF", "large_lzw.tif"),
-                             ("8-bit PNG", "large.png"))}
-    print("raster (b): decode ms per 240x320 frame (read_rgb, the loader's "
-          "bits), median over the files of the median of "
-          f"{JPEG_DECODE_REPEATS} reads of each: "
-          + ", ".join(f"{k} {v:.3f} ({len(kinds[k])} files)"
-                      for k, v in decode_ms.items())
-          + f"; per {RASTER_LARGE_HW[0]}x{RASTER_LARGE_HW[1]} frame: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in large_ms.items())
-          + f"; one thread, warm page cache; host {host_cpu()}; {card}",
-          flush=True)
-
-    npz = work / "weights.npz"
-    save_params_npz(synthetic_params(cfg, seed), npz)
-    datasets = {"tiff": (video / "annotations.json", video / "images"),
-                "png": (work / "png" / "annotations.json",
-                        work / "png" / "images")}
-
-    def cli(name, which, evaluate):
-        json_path, images = datasets[which]
-        (work / name).mkdir()
-        os.chdir(work / name)
-        try:
-            run_dir, _ = train_torch.run(
-                fit_overrides(json_path, npz) + list(FORMATS_FIT)
-                + [f"data.image_root={images}",
-                   f"eval.enabled={str(evaluate).lower()}"])
-        finally:
-            os.chdir(home)
-        log = [(r["split"], r["step"],
-                r.get("train/total_loss", r.get("val/total_loss")))
-               for r in _fit_log(work / name / run_dir)]
-        return log, work / name / run_dir
-
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tiff_log, run = cli("run_tiff", "tiff", True)
-    wall = time.perf_counter() - t0
-    counts = read_counts()
-    metrics = json.loads((run / "eval" / "metrics.json").read_text())
-    m = {k: metrics[f"eval/{k}"] for k in ("dice", "iou", "mae")}
-    if not (run / "eval" / "predict.json").exists() or not all(
-            np.isfinite(v) for v in m.values()):
-        raise SystemExit(f"raster: post-fit eval {m} in {run / 'eval'}")
-    png_log, _ = cli("run_png", "png", False)
-    print("raster (d) losses (split, step, total_loss): TIFF "
-          + json.dumps(tiff_log) + ", PNG " + json.dumps(png_log),
-          flush=True)
-    losses = [v for _, _, v in tiff_log]
-    if len(tiff_log) != 4 or not all(np.isfinite(losses)):
-        raise SystemExit(f"raster fit: log {tiff_log}")
-    if tiff_log != png_log:
-        raise SystemExit("raster fit: the TIFF run's losses differ from the "
-                         "PNG copy's")
-    print("raster (d): the TIFF run's losses equal the PNG copy's bit for "
-          "bit", flush=True)
-    _require(counts, FIT_REQUIRED, "raster fit and post-fit eval")
-    print("raster (e) launches in the TIFF run: " + json.dumps(
-        {k: counts[k] for k in FIT_REQUIRED}), flush=True)
-    print(f"raster (c) train_torch.py on 2 x 8 LZW + predictor TIFF 240x320 "
-          f"frames, T=4 B=2 O=8 384px bf16, 3 steps, a validation and the "
-          f"post-fit eval (OpenCV's bits): {wall:.1f} s; eval metrics "
-          + json.dumps(m) + f"; {card}", flush=True)
-    shutil.rmtree(work, ignore_errors=True)
-
-
-# the webp phase: every WebP fixture against its digests through the C++
-# helper, decode times beside PNG and JPEG of the same pictures, and the train
-# CLI on WebP frames beside a PNG copy of them
-WEBP_FIXTURES = ("sam2_video_tpu_torch", "data", "fixtures", "webp")
-
-
-def phase_webp(cfg, seed: int, card: str):
-    """(a) Every WebP fixture (VP8 lossy of each segment, partition and
-    filter kind, VP8L lossless of each transform, palette bundling, colour
-    cache and meta prefix codes, raw and VP8L-compressed alpha of each
-    filter, animations, the video and the timing frames) read by the port
-    with the C++ helper, which must build, equal to its digests: Pillow's
-    ``convert("RGB")`` (the loader), the JAX eval's reader (OpenCV's
-    ``imread``), ``np.asarray(Image.open())`` (``read_raw``) and the size.
-    (b) The median decode ms per frame of the 240x320 lossy and lossless
-    timing frames and the video's lossy frames beside 8-bit PNG copies of
-    the same pixels and the JPEG frames they were made from, and of a
-    1280x1024 frame (EndoVis's size) as lossy and lossless WebP beside PNG
-    and baseline JPEG. (c) ``train_torch.py`` on the WebP video (T=4, B=2,
-    3 train steps, one validation batch) from ``synthetic_params``, with
-    its post-fit eval (predict.json, finite metrics). (d) The same fit on a
-    PNG copy of the loader's decoded frames, eval off: the losses equal
-    bit for bit. (e) Kernels #1-#5 launched in the WebP run (fit and eval;
-    counts at 0 just before it)."""
-    import os
-    import shutil
-    from pathlib import Path
-
-    import train_torch
-    from sam2_video_tpu_torch.data import host_build, image_io
-    from sam2_video_tpu_torch.training.checkpoint import save_params_npz
-
-    repo = Path(__file__).resolve().parent
-    root = repo.joinpath(*WEBP_FIXTURES)
-    if host_build.load("webp_decode") is None:
-        raise SystemExit("webp: the C++ helper csrc/webp_decode.cpp did not "
-                         "build with g++")
-    digests = json.loads((root / "digests.json").read_text())
-    for rel, want in digests.items():
-        p = root / rel
-        raw = image_io.read_raw(p)
-        got = {"sha256": _sha256(image_io.read_rgb(p)),
-               "opencv_sha256": _sha256(image_io.read_rgb(p,
-                                                          reader="opencv")),
-               "raw_sha256": _sha256(raw), "raw_dtype": raw.dtype.str,
-               "size": list(image_io.image_size(p))}
-        need = {k: want[k] for k in got}
-        if got != need:
-            raise SystemExit(f"webp: {rel} reads to {got}, not {need}")
-    print(f"webp (a): {len(digests)} fixtures read by the C++ helper, each "
-          "equal to its digests of Pillow's convert('RGB'), the JAX eval's "
-          "reader (OpenCV's imread) and np.asarray(Image.open()), and to its "
-          "size", flush=True)
-
-    home = Path.cwd()
-    work = home / "outputs" / "chip_smoke_webp" / str(os.getpid())
-    shutil.rmtree(work, ignore_errors=True)
-    (work / "png" / "images").mkdir(parents=True)
-    video = root / "video"
-    ann = json.loads((video / "annotations.json").read_text())
-    for im in ann["images"]:
-        rgb = image_io.read_rgb(video / "images" / im["file_name"])
-        im["file_name"] = im["file_name"].replace(".webp", ".png")
-        image_io.write_png(work / "png" / "images" / im["file_name"], rgb)
-    (work / "png" / "annotations.json").write_text(json.dumps(ann))
-    timing = root / "timing"
-    for p in sorted(timing.glob("lossless_*.webp")) + [
-            timing / "large_lossless.webp"]:
-        image_io.write_png(work / p.name.replace(".webp", ".png"),
-                           image_io.read_rgb(p))
-    jpeg_video = repo.joinpath(*JPEG_FIXTURES) / "video" / "images"
-    sources = sorted(jpeg_video.glob("*.jpg"))[::8]
-    kinds = {"lossy WebP q80": sorted(timing.glob("lossy_*.webp")),
-             "lossy WebP q80 (the video)": sorted(
-                 (video / "images").glob("*.webp")),
-             "lossless WebP": sorted(timing.glob("lossless_*.webp")),
-             "8-bit PNG (the lossless frames' pixels)": sorted(
-                 work.glob("lossless_*.png")),
-             "baseline JPEG (the frames the WebP were made from)": sources}
-    decode_ms = {k: float(np.median([_median_ms(image_io.read_rgb, p)
-                                     for p in files]))
-                 for k, files in kinds.items()}
-    large_ms = {k: _median_ms(image_io.read_rgb, f)
-                for k, f in (("lossy WebP q80", timing / "large_lossy.webp"),
-                             ("lossless WebP",
-                              timing / "large_lossless.webp"),
-                             ("8-bit PNG", work / "large_lossless.png"),
-                             ("baseline JPEG q90", timing / "large.jpg"))}
-    print("webp (b): decode ms per 240x320 frame (read_rgb, the loader's "
-          "bits), median over the files of the median of "
-          f"{JPEG_DECODE_REPEATS} reads of each: "
-          + ", ".join(f"{k} {v:.3f} ({len(kinds[k])} files)"
-                      for k, v in decode_ms.items())
-          + "; per 1280x1024 frame of smooth content: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in large_ms.items())
-          + f"; one thread, warm page cache; host {host_cpu()}; {card}",
-          flush=True)
-
-    npz = work / "weights.npz"
-    save_params_npz(synthetic_params(cfg, seed), npz)
-    datasets = {"webp": (video / "annotations.json", video / "images"),
-                "png": (work / "png" / "annotations.json",
-                        work / "png" / "images")}
-
-    def cli(name, which, evaluate):
-        json_path, images = datasets[which]
-        (work / name).mkdir()
-        os.chdir(work / name)
-        try:
-            run_dir, _ = train_torch.run(
-                fit_overrides(json_path, npz) + list(FORMATS_FIT)
-                + [f"data.image_root={images}",
-                   f"eval.enabled={str(evaluate).lower()}"])
-        finally:
-            os.chdir(home)
-        log = [(r["split"], r["step"],
-                r.get("train/total_loss", r.get("val/total_loss")))
-               for r in _fit_log(work / name / run_dir)]
-        return log, work / name / run_dir
-
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    webp_log, run = cli("run_webp", "webp", True)
-    wall = time.perf_counter() - t0
-    counts = read_counts()
-    metrics = json.loads((run / "eval" / "metrics.json").read_text())
-    m = {k: metrics[f"eval/{k}"] for k in ("dice", "iou", "mae")}
-    if not (run / "eval" / "predict.json").exists() or not all(
-            np.isfinite(v) for v in m.values()):
-        raise SystemExit(f"webp: post-fit eval {m} in {run / 'eval'}")
-    png_log, _ = cli("run_png", "png", False)
-    print("webp (d) losses (split, step, total_loss): WebP "
-          + json.dumps(webp_log) + ", PNG " + json.dumps(png_log),
-          flush=True)
-    losses = [v for _, _, v in webp_log]
-    if len(webp_log) != 4 or not all(np.isfinite(losses)):
-        raise SystemExit(f"webp fit: log {webp_log}")
-    if webp_log != png_log:
-        raise SystemExit("webp fit: the WebP run's losses differ from the "
-                         "PNG copy's")
-    print("webp (d): the WebP run's losses equal the PNG copy's bit for bit",
-          flush=True)
-    _require(counts, FIT_REQUIRED, "webp fit and post-fit eval")
-    print("webp (e) launches in the WebP run: " + json.dumps(
-        {k: counts[k] for k in FIT_REQUIRED}), flush=True)
-    print(f"webp (c) train_torch.py on 2 x 8 lossy WebP 240x320 frames "
-          f"(quality 80), T=4 B=2 O=8 384px bf16, 3 steps, a validation and "
-          f"the post-fit eval (OpenCV's bits): {wall:.1f} s; eval metrics "
-          + json.dumps(m) + f"; {card}", flush=True)
-    shutil.rmtree(work, ignore_errors=True)
-
-
-# the simple phase: every simple-format fixture against its digests through
-# the C++ helper, decode times beside PNG, and the train CLI on a video whose
-# frames come in eight of the formats beside a PNG copy of them
-SIMPLE_FIXTURES = ("sam2_video_tpu_torch", "data", "fixtures", "simple")
-# the video's frame kinds by file extension (frame i of each video is in
-# the i-th; tests/simple_fixtures.py VIDEO_KINDS)
-SIMPLE_VIDEO_KINDS = {".ppm": "P6 PPM", ".pgm": "P5 PGM",
-                      ".ras": "8-bit Sun RLE with a colour map",
-                      ".tga": "TGA RLE", ".sgi": "SGI RLE",
-                      ".pcx": "24-bit PCX", ".qoi": "QOI",
-                      ".dib": "8-bit RLE8 DIB"}
-
-
-def _simple_reads(p, want: dict) -> dict:
-    """What the port reads of a fixture, in the keys of its digests: each
-    digest, or None where the reader raises ValueError (the digests hold
-    null where the libraries raise)."""
-    from sam2_video_tpu_torch.data import image_io
-
-    def attempt(fn):
-        try:
-            return fn()
-        except ValueError:
-            return None
-
-    rgb = attempt(lambda: image_io.read_rgb(p))
-    cv = attempt(lambda: image_io.read_rgb(p, reader="opencv"))
-    raw = attempt(lambda: image_io.read_raw(p))
-    size = attempt(lambda: list(image_io.image_size(p)))
-    return {"size": size,
-            "sha256": None if rgb is None else _sha256(rgb),
-            "opencv_sha256": None if cv is None else _sha256(cv),
-            "raw_sha256": None if raw is None else _sha256(raw),
-            "raw_dtype": None if raw is None else raw.dtype.str}
 
 
 def _p6(rgb: np.ndarray) -> bytes:
@@ -3269,77 +2928,138 @@ def _tga24(rgb: np.ndarray) -> bytes:
                        0x20) + np.ascontiguousarray(rgb[..., ::-1]).tobytes()
 
 
-def phase_simple(cfg, seed: int, card: str):
-    """(a) Every simple-format fixture (Netpbm ASCII and binary of maxvals
-    1-65535, PAM, PFM, Sun raster of each depth and type, TGA of each image
-    type, map and orientation, SGI verbatim and RLE, PCX and DCX, QOI, XBM,
-    Radiance HDR, DIB, the refused kinds, the video and the timing frames)
-    read by the port with the C++ helper, which must build, equal to its
-    digests: Pillow's ``convert("RGB")`` (the loader), the JAX eval's reader
-    (OpenCV's ``imread``, else Pillow), ``np.asarray(Image.open())``
-    (``read_raw``) and the size, or a ``ValueError`` where the digest is
-    null (the library raises). (b) The median decode ms per 240x320 frame
-    of each of the video's eight kinds beside an 8-bit PNG of the same
-    pixels, and per 1280x1024 frame (EndoVis's size) of QOI and RLE TGA
-    (committed) and uncompressed P6 and TGA (written here from the decoded
-    pixels, read back equal) beside PNG. (c) ``train_torch.py`` on the
-    mixed-format video (T=4, B=2, 3 train steps, one validation batch)
-    from ``synthetic_params``, with its post-fit eval (predict.json,
-    finite metrics). (d) The same fit on a PNG copy of the loader's decoded
-    frames, eval off: the losses equal bit for bit. (e) Kernels #1-#5
-    launched in the run of (c), fit and eval (counts at 0 just before
-    it)."""
-    import os
-    import shutil
-    from pathlib import Path
+def _fixture_reads(kind: str, p, want: dict) -> tuple[dict, dict]:
+    """(what the port reads of fixture ``p`` of set ``kind``, what its
+    digests say), in the digests' keys: Pillow's ``convert("RGB")`` (the
+    loader, ``sha256``), the JAX eval's reader (OpenCV's ``imread``, else
+    Pillow), ``np.asarray(Image.open())`` (``read_raw``) and the size, as
+    far as each set's digests hold them. The simple formats hold null where
+    the library raises: the port must raise ValueError there."""
+    from sam2_video_tpu_torch.data import image_io
 
-    import train_torch
-    from sam2_video_tpu_torch.data import host_build, image_io
-    from sam2_video_tpu_torch.training.checkpoint import save_params_npz
+    if kind == "jpeg":
+        rgb = image_io.read_rgb(p)
+        return ({"shape": list(rgb.shape), "sha256": _sha256(rgb)},
+                {"shape": want["shape"], "sha256": want["sha256"]})
+    if kind == "formats":
+        got = {"sha256": _sha256(image_io.read_rgb(p)),
+               "opencv": _sha256(image_io.read_rgb(p, reader="opencv"))}
+        need = {"sha256": want["sha256"],
+                "opencv": want["opencv_sha256"] or want["sha256"]}
+        if p.suffix == ".png":
+            got["raw"] = _sha256(image_io.read_raw(p))
+            need["raw"] = want["raw_sha256"]
+        return got, need
+    if kind == "simple":
+        def attempt(fn):
+            try:
+                return fn()
+            except ValueError:
+                return None
 
-    repo = Path(__file__).resolve().parent
-    root = repo.joinpath(*SIMPLE_FIXTURES)
-    if host_build.load("simple_decode") is None:
-        raise SystemExit("simple: the C++ helper csrc/simple_decode.cpp did "
-                         "not build with g++")
-    digests = json.loads((root / "digests.json").read_text())
-    refused = 0
-    for rel, want in digests.items():
-        got = _simple_reads(root / rel, want)
-        need = {k: want[k] for k in got}
-        if got != need:
-            raise SystemExit(f"simple: {rel} reads to {got}, not {need}")
-        refused += want["sha256"] is None
-    print(f"simple (a): {len(digests)} fixtures read by the C++ helper, each "
-          "equal to its digests of Pillow's convert('RGB'), the JAX eval's "
-          "reader (OpenCV's imread, else Pillow), np.asarray(Image.open()) "
-          f"and its size ({refused} that Pillow refuses raise ValueError)",
-          flush=True)
+        rgb = attempt(lambda: image_io.read_rgb(p))
+        cv = attempt(lambda: image_io.read_rgb(p, reader="opencv"))
+        raw = attempt(lambda: image_io.read_raw(p))
+        got = {"size": attempt(lambda: list(image_io.image_size(p))),
+               "sha256": None if rgb is None else _sha256(rgb),
+               "opencv_sha256": None if cv is None else _sha256(cv),
+               "raw_sha256": None if raw is None else _sha256(raw),
+               "raw_dtype": None if raw is None else raw.dtype.str}
+        return got, {k: want[k] for k in got}
+    got = {"opencv_sha256": _sha256(image_io.read_rgb(p, reader="opencv")),
+           "size": list(image_io.image_size(p))}
+    if want["sha256"] is not None:   # raster: null where Pillow cannot load
+        raw = image_io.read_raw(p)
+        got.update(sha256=_sha256(image_io.read_rgb(p)),
+                   raw_sha256=_sha256(raw), raw_dtype=raw.dtype.str)
+    return got, {k: want[k] for k in got}
 
-    home = Path.cwd()
-    work = home / "outputs" / "chip_smoke_simple" / str(os.getpid())
-    shutil.rmtree(work, ignore_errors=True)
-    (work / "png" / "images").mkdir(parents=True)
-    video = root / "video"
-    ann = json.loads((video / "annotations.json").read_text())
-    by_kind: dict = {}
-    for im in ann["images"]:
-        src = video / "images" / im["file_name"]
-        rgb = image_io.read_rgb(src)
-        name = Path(im["file_name"]).with_suffix(".png").name
-        image_io.write_png(work / "png" / "images" / name, rgb)
-        by_kind.setdefault(src.suffix, []).append(
-            (src, work / "png" / "images" / name))
-        im["file_name"] = name
-    (work / "png" / "annotations.json").write_text(json.dumps(ann))
-    decode_ms = {}
-    for ext, pairs in by_kind.items():
-        decode_ms[SIMPLE_VIDEO_KINDS[ext]] = (
-            float(np.median([_median_ms(image_io.read_rgb, a)
-                             for a, _ in pairs])),
-            float(np.median([_median_ms(image_io.read_rgb, b)
-                             for _, b in pairs])))
-    timing = root / "timing"
+
+def _decode_kinds(kind: str, root, work, repo) -> tuple[dict, dict, str]:
+    """The decode timings of fixture set ``kind``: ({label: files} of
+    240x320 frames, {label: file} of large frames, what the large frames
+    are), PNG copies of the same pixels written under ``work``."""
+    from sam2_video_tpu_torch.data import image_io
+
+    def png_copies(files, suffix):
+        out = []
+        for p in files:
+            q = work / p.name.replace(suffix, ".png")
+            image_io.write_png(q, image_io.read_rgb(p))
+            out.append(q)
+        return out
+
+    timing, video = root / "timing", root / "video" / "images"
+    jpeg_frames = sorted((repo.joinpath(*JPEG_FIXTURES) / "video" /
+                          "images").glob("*.jpg"))
+    if kind == "jpeg":
+        large = root / "coverage" / "large_480x854.jpg"
+        return ({"240x320 JPEG frames": jpeg_frames,
+                 "their PNG copies": png_copies(jpeg_frames, ".jpg")},
+                {"the 480x854 JPEG": large,
+                 "its PNG copy": png_copies([large], ".jpg")[0]}, "")
+    if kind == "formats":
+        for i, p in enumerate(jpeg_frames[::8]):
+            rgb = image_io.read_rgb(p)
+            image_io.write_png(work / f"png8_{i}.png", rgb)
+            (work / f"png16_{i}.png").write_bytes(
+                _png16(rgb.astype(np.uint16) * 257))
+        return ({"baseline Huffman YCbCr 4:2:0": jpeg_frames,
+                 "arithmetic-coded YCbCr 4:2:0": sorted(
+                     timing.glob("arith_*.jpg")),
+                 "CMYK Huffman": sorted(timing.glob("cmyk_*.jpg")),
+                 "CMYK arithmetic-coded": sorted(video.glob("*.jpg")),
+                 "lossless RGB": sorted(timing.glob("lossless_*.jpg")),
+                 "8-bit RGB PNG": sorted(work.glob("png8_*.png")),
+                 "16-bit RGB PNG": sorted(work.glob("png16_*.png"))},
+                {}, "")
+    if kind == "raster":
+        large = image_io.resize_bilinear(image_io.read_rgb(
+            repo.joinpath(*JPEG_FIXTURES) / "coverage" /
+            "large_480x854.jpg"), RASTER_LARGE_HW[::-1])
+        for name, data in (("large.tif", _tiff8(large, False)),
+                           ("large_lzw.tif", _tiff8(large, True))):
+            (work / name).write_bytes(data)
+            if not np.array_equal(image_io.read_rgb(work / name), large):
+                raise SystemExit(f"raster: the port's read of {name} "
+                                 "differs from the frame written")
+        image_io.write_png(work / "large.png", large)
+        tiffs = sorted(video.glob("*.tif"))
+        return ({"LZW TIFF": sorted(timing.glob("lzw_*.tif")),
+                 "LZW + predictor TIFF (the video)": tiffs,
+                 "PackBits TIFF": sorted(timing.glob("packbits_*.tif")),
+                 "24-bit BMP": sorted(timing.glob("bmp24_*.bmp")),
+                 "GIF": sorted(timing.glob("gif_*.gif")),
+                 "8-bit PNG (the video's copies)": png_copies(tiffs,
+                                                              ".tif")},
+                {"uncompressed TIFF": work / "large.tif",
+                 "LZW TIFF": work / "large_lzw.tif",
+                 "8-bit PNG": work / "large.png"},
+                f"{RASTER_LARGE_HW[0]}x{RASTER_LARGE_HW[1]} frame")
+    if kind == "webp":
+        lossless = sorted(timing.glob("lossless_*.webp"))
+        png_copies(lossless + [timing / "large_lossless.webp"], ".webp")
+        return ({"lossy WebP q80": sorted(timing.glob("lossy_*.webp")),
+                 "lossy WebP q80 (the video)": sorted(video.glob("*.webp")),
+                 "lossless WebP": lossless,
+                 "8-bit PNG (the lossless frames' pixels)": sorted(
+                     work.glob("lossless_*.png")),
+                 "baseline JPEG (the frames the WebP were made from)":
+                     jpeg_frames[::8]},
+                {"lossy WebP q80": timing / "large_lossy.webp",
+                 "lossless WebP": timing / "large_lossless.webp",
+                 "8-bit PNG": work / "large_lossless.png",
+                 "baseline JPEG q90": timing / "large.jpg"},
+                "1280x1024 frame of smooth content")
+    # simple: each of the video's eight kinds beside PNG copies of its
+    # frames, and 1280x1024 QOI and RLE TGA beside uncompressed P6, TGA and
+    # PNG of the same pixels
+    kinds = {}
+    for p in sorted(video.iterdir()):
+        label = SIMPLE_VIDEO_KINDS[p.suffix]
+        kinds.setdefault(label, []).append(p)
+    for label, files in list(kinds.items()):
+        kinds[f"{label} PNG copy"] = png_copies(files, files[0].suffix)
     large = image_io.read_rgb(timing / "large.qoi")
     copies = {"uncompressed P6 PPM": (work / "large.ppm", _p6(large)),
               "uncompressed TGA": (work / "large.tga", _tga24(large))}
@@ -3349,37 +3069,199 @@ def phase_simple(cfg, seed: int, card: str):
             raise SystemExit(f"simple: the {label} copy of the 1280x1024 "
                              "frame does not read back equal")
     image_io.write_png(work / "large.png", large)
-    large_ms = {k: _median_ms(image_io.read_rgb, f)
-                for k, f in (("QOI", timing / "large.qoi"),
-                             ("TGA RLE", timing / "large_rle.tga"),
-                             *((k, p) for k, (p, _) in copies.items()),
-                             ("8-bit PNG", work / "large.png"))}
-    print("simple (b): decode ms per 240x320 frame (read_rgb, the loader's "
-          "bits; median over the video's 2 frames of each kind of the "
-          f"median of {JPEG_DECODE_REPEATS} reads), kind vs an 8-bit PNG of "
-          "the same pixels: "
-          + ", ".join(f"{k} {a:.3f} vs {b:.3f}"
-                      for k, (a, b) in decode_ms.items())
-          + "; per 1280x1024 frame of posterised smooth content: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in large_ms.items())
-          + f"; one thread, warm page cache; host {host_cpu()}; {card}",
-          flush=True)
+    return (kinds, {"QOI": timing / "large.qoi",
+                    "TGA RLE": timing / "large_rle.tga",
+                    **{k: p for k, (p, _) in copies.items()},
+                    "8-bit PNG": work / "large.png"},
+            "1280x1024 frame of posterised smooth content")
 
-    npz = work / "weights.npz"
-    save_params_npz(synthetic_params(cfg, seed), npz)
-    datasets = {"simple": (video / "annotations.json", video / "images"),
-                "png": (work / "png" / "annotations.json",
-                        work / "png" / "images")}
 
-    def cli(name, which, evaluate):
+def _frames_dataset(repo, work) -> tuple[Path, Path]:
+    """One video of each fixture set in one COCO dataset (images copied
+    under ``work/mixed``, named ``<set>_<file>``, video ids ``<set>_vid0``)
+    and a PNG copy of it with the loader's decoded frames (``work/png``).
+    Returns the two annotation files."""
+    import shutil
+    from pathlib import Path
+
+    from sam2_video_tpu_torch.data import image_io
+
+    out = {"images": [], "annotations": [], "categories": None}
+    png = {"images": [], "annotations": out["annotations"],
+           "categories": None}
+    for d in ("mixed", "png"):
+        (work / d / "images").mkdir(parents=True)
+    for kind in FRAME_SETS:
+        video = repo / "sam2_video_tpu_torch" / "data" / "fixtures" / kind \
+            / "video"
+        ann = json.loads((video / "annotations.json").read_text())
+        out["categories"] = png["categories"] = ann["categories"]
+        ids = {}
+        for im in ann["images"]:
+            if im["video_id"] != FRAMES_VIDEO:
+                continue
+            ids[im["id"]] = new = len(out["images"])
+            name = f"{kind}_{im['file_name']}"
+            shutil.copyfile(video / "images" / im["file_name"],
+                            work / "mixed" / "images" / name)
+            out["images"].append({**im, "id": new, "file_name": name,
+                                  "video_id": f"{kind}_{im['video_id']}"})
+            pname = Path(name).with_suffix(".png").name
+            image_io.write_png(work / "png" / "images" / pname,
+                               image_io.read_rgb(video / "images" /
+                                                 im["file_name"]))
+            png["images"].append({**out["images"][-1], "file_name": pname})
+        for a in ann["annotations"]:
+            if a["image_id"] in ids:
+                out["annotations"].append({
+                    **a, "id": len(out["annotations"]),
+                    "image_id": ids[a["image_id"]]})
+    for d, tree in (("mixed", out), ("png", png)):
+        (work / d / "annotations.json").write_text(json.dumps(tree))
+    return work / "mixed" / "annotations.json", work / "png" / \
+        "annotations.json"
+
+
+def phase_frames(cfg, seed: int, card: str):
+    """Every frame format the port reads, one fixture set at a time from
+    FRAME_SETS (JPEG; the other JPEG kinds and 16-bit PNG; TIFF, BMP and
+    GIF; WebP; the simple formats ffmpeg writes):
+    (a) every committed fixture of the set read by the port with its C++
+    helpers, which must build (the numpy references may not stand in), equal
+    to its digests (``_fixture_reads``); (b) the median decode ms per frame
+    of each kind of the set beside an 8-bit PNG of the same pixels (and
+    baseline JPEG, 16-bit PNG; large frames of 480x854 to 1280x1024)
+    (``_decode_kinds``). Then (c) the converter CLI (``python -m
+    sam2_video_tpu_torch.training.convert`` on a Meta-style checkpoint of
+    ``synthetic_params``; the npz equal to the weights bit for bit) and
+    ``data_tools/convert_endovis_to_coco_torch.py`` on the committed
+    EndoVis tree of 16-bit masks (its JSON equal to the JAX converter's
+    committed sha256); (d) ``train_torch.py`` from that npz on one video of
+    each set in one dataset (``_frames_dataset``: 5 videos of 8 240x320
+    frames, T=4, B=2, 5 train steps that read every frame, one validation
+    batch) with its post-fit eval (OpenCV's bits; predict.json, finite
+    metrics), its fit clips/s and loader waits, and the loader's ms per
+    batch on the JPEG set, the mixed dataset and their PNG copies; (e) the
+    same fit on a PNG copy of the loader's decoded frames, eval off: the
+    losses equal bit for bit; (f) kernels #1-#5 launched in the run of
+    (d), fit and eval (counts at 0 just before it)."""
+    import hashlib
+    import os
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    import train_torch
+    from sam2_video_tpu_torch.data import host_build
+    from sam2_video_tpu_torch.data.coco import COCOIndex
+    from sam2_video_tpu_torch.data.pipeline import (ClipDataset,
+                                                    ClipDatasetConfig,
+                                                    ClipLoader)
+    from sam2_video_tpu_torch.data import image_io
+    from sam2_video_tpu_torch.training.checkpoint import load_params_npz
+
+    repo = Path(__file__).resolve().parent
+    home = Path.cwd()
+    work = home / "outputs" / "chip_smoke_frames" / str(os.getpid())
+    shutil.rmtree(work, ignore_errors=True)
+    for kind, (helpers, _) in FRAME_SETS.items():
+        for name in helpers:
+            if host_build.load(name) is None:
+                raise SystemExit(f"{kind}: the C++ helper csrc/{name}.cpp "
+                                 "did not build with g++")
+        root = repo / "sam2_video_tpu_torch" / "data" / "fixtures" / kind
+        digests = json.loads((root / "digests.json").read_text())
+        refused = 0
+        for rel, want in digests.items():
+            got, need = _fixture_reads(kind, root / rel, want)
+            if got != need:
+                raise SystemExit(f"{kind}: {rel} reads to {got}, not "
+                                 f"{need}")
+            refused += want.get("sha256", "") is None
+        print(f"{kind} (a): {len(digests)} fixtures read by the C++ helpers "
+              f"({', '.join(helpers)}), each equal to its digests"
+              + (f" ({refused} that Pillow cannot load or refuses)"
+                 if refused else ""), flush=True)
+        (work / kind).mkdir(parents=True)
+        kinds, large, what = _decode_kinds(kind, root, work / kind, repo)
+        ms = {k: float(np.median([_median_ms(image_io.read_rgb, p)
+                                  for p in files]))
+              for k, files in kinds.items()}
+        large_ms = {k: _median_ms(image_io.read_rgb, p)
+                    for k, p in large.items()}
+        print(f"{kind} (b): decode ms per 240x320 frame (read_rgb, the "
+              "loader's bits), median over the files of the median of "
+              f"{JPEG_DECODE_REPEATS} reads of each: "
+              + ", ".join(f"{k} {v:.3f} ({len(kinds[k])} files)"
+                          for k, v in ms.items())
+              + ("; per " + (what or "frame") + ": " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in large_ms.items())
+                 if large else "")
+              + f"; one thread, warm page cache; host {host_cpu()}; {card}",
+              flush=True)
+
+    # (c) the converter CLI and, as a second process meanwhile, the EndoVis
+    # converter
+    fixtures = repo / "sam2_video_tpu_torch" / "data" / "fixtures"
+    src = (fixtures / "formats" / "endovis16").relative_to(repo)
+    endovis = subprocess.Popen(
+        [sys.executable, "data_tools/convert_endovis_to_coco_torch.py",
+         str(src), str(work / "endovis16.json"), "--n-jobs", "2"],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ckpt, npz = work / "sam2.1_hiera_tiny_synthetic.pt", work / "tiny.npz"
+        weights = {k: v.detach().clone()
+                   for k, v in synthetic_params(cfg, seed).named_parameters()}
+        torch.save({"model": weights}, ckpt)
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "sam2_video_tpu_torch.training.convert",
+             str(ckpt), str(npz), "--backbone", "tiny", "--image-size",
+             str(cfg.image_size)], cwd=repo, capture_output=True, text=True,
+            timeout=600)
+        if out.returncode or "0 missing, 0 unexpected" not in out.stdout:
+            raise SystemExit(f"formats: the converter CLI: {out.stdout} "
+                             f"{out.stderr[-2000:]}")
+        loaded = load_params_npz(npz)
+        if sorted(loaded) != sorted(weights) or any(
+                not torch.equal(loaded[k], v) for k, v in weights.items()):
+            raise SystemExit("formats: the converted npz differs from the "
+                             "checkpoint's weights")
+        print(f"frames (c) converter CLI: {out.stdout.strip()} in "
+              f"{time.perf_counter() - t0:.1f} s (beside the EndoVis "
+              f"converter); the npz loads back equal to the checkpoint's "
+              f"{len(weights)} tensors bit for bit", flush=True)
+    except BaseException:
+        endovis.kill()
+        raise
+    stdout, stderr = endovis.communicate(timeout=600)
+    got = None if endovis.returncode else hashlib.sha256(
+        (work / "endovis16.json").read_bytes()).hexdigest()
+    want = (fixtures / "formats" / "endovis16.json.sha256").read_text(
+        ).strip()
+    if endovis.returncode or got != want:
+        raise SystemExit(f"formats: the EndoVis converter on {src}: "
+                         f"{stdout} {stderr[-2000:]} sha256 {got} != {want}")
+    anns = json.loads((work / "endovis16.json").read_text())["annotations"]
+    print(f"frames (c) EndoVis converter on 16-bit class-id masks (ids "
+          f"256-65535): {len(anns)} annotations, the JSON's sha256 equal to "
+          "the JAX converter's", flush=True)
+
+    # (d)-(f) the CLI on one video of each set, beside a PNG copy
+    mixed, png = _frames_dataset(repo, work)
+    datasets = {"mixed": (mixed, mixed.parent / "images"),
+                "png": (png, png.parent / "images")}
+
+    def cli(name, which, evaluate, step_timer=None, wait_timer=None):
         json_path, images = datasets[which]
         (work / name).mkdir()
         os.chdir(work / name)
         try:
             run_dir, _ = train_torch.run(
-                fit_overrides(json_path, npz) + list(FORMATS_FIT)
+                fit_overrides(json_path, npz) + list(FRAMES_FIT)
                 + [f"data.image_root={images}",
-                   f"eval.enabled={str(evaluate).lower()}"])
+                   f"eval.enabled={str(evaluate).lower()}"],
+                step_timer=step_timer, wait_timer=wait_timer)
         finally:
             os.chdir(home)
         log = [(r["split"], r["step"],
@@ -3387,43 +3269,77 @@ def phase_simple(cfg, seed: int, card: str):
                for r in _fit_log(work / name / run_dir)]
         return log, work / name / run_dir
 
+    steps, waits = [], []
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    simple_log, run = cli("run_simple", "simple", True)
+    mixed_log, run = cli("run_mixed", "mixed", True, steps, waits)
     wall = time.perf_counter() - t0
     counts = read_counts()
     metrics = json.loads((run / "eval" / "metrics.json").read_text())
     m = {k: metrics[f"eval/{k}"] for k in ("dice", "iou", "mae")}
-    if not (run / "eval" / "predict.json").exists() or not all(
-            np.isfinite(v) for v in m.values()):
-        raise SystemExit(f"simple: post-fit eval {m} in {run / 'eval'}")
+    predict = json.loads((run / "eval" / "predict.json").read_text())
+    if not predict or not all(np.isfinite(v) for v in m.values()):
+        raise SystemExit(f"frames: post-fit eval {m} in {run / 'eval'}")
     png_log, _ = cli("run_png", "png", False)
-    print("simple (d) losses (split, step, total_loss): mixed formats "
-          + json.dumps(simple_log) + ", PNG " + json.dumps(png_log),
+    print("frames (e) losses (split, step, total_loss): mixed formats "
+          + json.dumps(mixed_log) + ", PNG " + json.dumps(png_log),
           flush=True)
-    losses = [v for _, _, v in simple_log]
-    if len(simple_log) != 4 or not all(np.isfinite(losses)):
-        raise SystemExit(f"simple fit: log {simple_log}")
-    if simple_log != png_log:
-        raise SystemExit("simple fit: the mixed-format run's losses differ "
+    losses = [v for _, _, v in mixed_log]
+    if len(mixed_log) != 6 or not all(np.isfinite(losses)):
+        raise SystemExit(f"frames fit: log {mixed_log}")
+    if mixed_log != png_log:
+        raise SystemExit("frames fit: the mixed-format run's losses differ "
                          "from the PNG copy's")
-    print("simple (d): the mixed-format run's losses equal the PNG copy's "
+    print("frames (e): the mixed-format run's losses equal the PNG copy's "
           "bit for bit", flush=True)
-    _require(counts, FIT_REQUIRED, "simple fit and post-fit eval")
-    print("simple (e) launches in the mixed-format run: " + json.dumps(
+    _require(counts, FIT_REQUIRED, "frames fit and post-fit eval")
+    print("frames (f) launches in the mixed-format run: " + json.dumps(
         {k: counts[k] for k in FIT_REQUIRED}), flush=True)
-    print("simple (c) train_torch.py on 2 x 8 240x320 frames in eight "
-          "formats (" + ", ".join(SIMPLE_VIDEO_KINDS.values()) + "), T=4 "
-          f"B=2 O=8 384px bf16, 3 steps, a validation and the post-fit eval "
-          f"(OpenCV's bits, else Pillow's): {wall:.1f} s; eval metrics "
-          + json.dumps(m) + f"; {card}", flush=True)
+    B = 2
+    loader_ms = {}
+    jpeg_video = repo.joinpath(*JPEG_FIXTURES) / "video"
+    for which, (json_path, images) in (
+            ("JPEG set", (jpeg_video / "annotations.json",
+                          jpeg_video / "images")),
+            ("JPEG set's PNG copy", (work / "jpeg" / "annotations.json",
+                                     work / "jpeg")),
+            ("mixed", datasets["mixed"]), ("mixed PNG copy",
+                                           datasets["png"])):
+        if which == "JPEG set's PNG copy":
+            ann = json.loads((jpeg_video / "annotations.json").read_text())
+            for im in ann["images"]:
+                im["file_name"] = im["file_name"].replace(".jpg", ".png")
+            json_path.write_text(json.dumps(ann))
+        loader = ClipLoader(ClipDataset(
+            COCOIndex(json_path, 384, 3),
+            ClipDatasetConfig(clip_length=4, stride=4, num_pos_points=2,
+                              image_root=str(images))),
+            batch_size=B, seed=seed)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        loader_ms[which] = 1e3 * (time.perf_counter() - t0) / n
+    per = [w + t for w, t in zip(waits, steps)]
+    print(f"frames (d) train_torch.py from the converted npz on "
+          f"{len(FRAME_SETS)} x 8 240x320 frames ("
+          + "; ".join(f"{k}: {v}" for k, (_, v) in FRAME_SETS.items())
+          + f"), T=4 B={B} O=8 384px bf16, {len(steps)} steps, a validation "
+          f"and the post-fit eval (OpenCV's bits, else Pillow's): "
+          f"{wall:.1f} s; wait + step ms "
+          + ", ".join(f"{1e3 * t:.3f} (wait {1e3 * w:.3f})"
+                      for t, w in zip(per, waits))
+          + f"; clips/s host-inclusive {B * len(per[1:]) / sum(per[1:]):.3f} "
+          f"over the warm steps; step ms median "
+          f"{1e3 * float(np.median(steps)):.3f}; loader ms per batch (alone, "
+          "2 threads) " + ", ".join(f"{k} {v:.3f}"
+                                    for k, v in loader_ms.items())
+          + "; eval metrics " + json.dumps(m) + f"; {card}", flush=True)
     shutil.rmtree(work, ignore_errors=True)
 
 
 # the eval phase: the predictor both ways, several conditioning frames, a
 # correction click; then the train CLI's post-fit eval
-EVAL_FRAMES, EVAL_PROMPT_FRAME = 16, 8
+EVAL_FRAMES, EVAL_PROMPT_FRAME = 12, 8
 EVAL_REQUIRED = ("fused_memory_encoder", "flash_attention_kproj",
                  "fused_self_block", "fused_tail_block")
 NO_OBJ_FLOOR = -1000.0        # NO_OBJ placeholder logits (-1024) lie below
@@ -3561,7 +3477,7 @@ def _logits_close(label, got, want, rel_tol, score_atol=None,
 EVAL_GROUP = 4
 # each video's logits against the card's sequential run: the same kernels
 # at 4x the rows, where kernel #3 may split the keys otherwise (kproj_plan)
-# and so round otherwise, through 16 frames of bf16 memory
+# and so round otherwise, through EVAL_FRAMES frames of bf16 memory
 BATCHED_REL_L2, BATCHED_SCORE_ATOL = 2e-2, 1e-2
 
 
@@ -4083,12 +3999,14 @@ def phase_train_remat(cfg, seed: int):
 DDP_RANKS = 2
 DDP_LOSS_RTOL = 1e-3          # 2 ranks against 1 process: float32 sums
 DDP_PARAM_REL_L2 = 1e-3       # the final trainable parameters, the same
-DDP_VIZ_EVERY = 2             # a GIF every 2 steps: steps 2 and 4
+DDP_VIZ_EVERY = 2             # a GIF every 2 steps: step 2
 DDP_VIZ_FRAMES = 4            # visualization.max_length's default
+DDP_EPOCHS = 1                # of the fit phase's 2 train + 1 val batches
 # centre-point prompts only: no random draw, whose seed depends on the
 # rank (ClipLoader), so every layout sees the same prompts
 DDP_OVERRIDES = ("model.num_pos_points=1", "visualization.enabled=true",
-                 f"visualization.train_every_n_steps={DDP_VIZ_EVERY}")
+                 f"visualization.train_every_n_steps={DDP_VIZ_EVERY}",
+                 f"trainer.max_epochs={DDP_EPOCHS}")
 
 
 def gif_blocks(path) -> tuple:
@@ -4215,7 +4133,8 @@ def _ddp_timing(label, steps, waits, reduce_ms, clips, card):
 def phase_ddp(cfg, seed: int, card: str):
     """Data parallelism through ``train_torch.py`` at the fit phase's
     headline shapes (384 px, T=10, O=8, global batch 2, bf16, memory-only,
-    ``fit_overrides``: 4 train steps and 2 validation batches), centre-point
+    ``fit_overrides`` for DDP_EPOCHS epoch: 2 train steps and a validation
+    batch), centre-point
     prompts and a GIF every DDP_VIZ_EVERY steps in every layout:
 
     - the plain single-process run;
@@ -4398,7 +4317,7 @@ def phase_ddp(cfg, seed: int, card: str):
     gifs = sorted(work.rglob("viz/*.gif"))
     steps = sorted({p.name for p in gifs})
     want_steps = [f"step{s:06d}.gif" for s in range(
-        DDP_VIZ_EVERY, FIT_EPOCHS * FIT_TRAIN_BATCHES + 1, DDP_VIZ_EVERY)]
+        DDP_VIZ_EVERY, DDP_EPOCHS * FIT_TRAIN_BATCHES + 1, DDP_VIZ_EVERY)]
     dirs = sorted({p.parent.parent.relative_to(work).as_posix()
                    for p in gifs})
     if steps != want_steps or len(gifs) != len(want_steps) * (2 + DDP_RANKS):
@@ -4479,12 +4398,15 @@ def main() -> int:
         rows += phase_hiera_bwd_kernels(params, cfg, args.seed, TRAIN_T)
         rows += phase_twoway_kernels(params, cfg, args.seed)
         rows += phase_flash_kernels(args.seed)
-        rows += phase_presets(cfg, args.seed)
+        rows += phase_preset_blocks(cfg, args.seed)
         lap("kernels")
     heads_cfg = dataclasses.replace(cfg, memory_attention_num_heads=HEADS)
     launches = {}
+    if "presets" in phases:
+        launches.update(phase_presets(cfg, args.seed, card))
+        lap("presets")
     if "train" in phases:
-        launches, _ = phase_train(cfg, args.seed)
+        launches.update(phase_train(cfg, args.seed)[0])
         heads, _ = phase_train(heads_cfg, args.seed)
         launches.update({k: heads[k] for k in FLASH})
         lap("train")
@@ -4518,21 +4440,9 @@ def main() -> int:
     if "fit" in phases:
         phase_fit(cfg, args.seed, card)
         lap("fit")
-    if "jpeg" in phases:
-        phase_jpeg(cfg, args.seed, card)
-        lap("jpeg")
-    if "formats" in phases:
-        phase_formats(cfg, args.seed, card)
-        lap("formats")
-    if "raster" in phases:
-        phase_raster(cfg, args.seed, card)
-        lap("raster")
-    if "webp" in phases:
-        phase_webp(cfg, args.seed, card)
-        lap("webp")
-    if "simple" in phases:
-        phase_simple(cfg, args.seed, card)
-        lap("simple")
+    if "frames" in phases:
+        phase_frames(cfg, args.seed, card)
+        lap("frames")
     if "eval" in phases:
         cpu_run = phase_eval_predictor(params, cfg, args.seed, OBJECTS)
         phase_eval_batched(params, cfg, args.seed, OBJECTS, cpu_run)
@@ -4544,9 +4454,9 @@ def main() -> int:
 
     # each kernel's launches on its training path (#1-#5: the memory-only
     # step, #6 per geometry class: the all-trainable step, #7 the two-head
-    # memory-only step, #8 the fused all-trainable steps), else serving's
-    # (#7: the two-head pass, #8: the fused pass), else null (the base+ and
-    # large rows: no path here runs them)
+    # memory-only step, #8 the fused all-trainable steps; each preset's
+    # trunk-pass rows: its memory-only (#1) and all-trainable (#6) steps),
+    # else serving's (#7: the two-head pass, #8: the fused pass), else null
     for r in rows:
         r["launches"] = launches.get(r["name"])
     print(card, flush=True)

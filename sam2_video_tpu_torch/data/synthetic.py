@@ -12,14 +12,21 @@ import numpy as np
 import torch
 
 
-def synthetic_params(cfg, seed: int):
+def synthetic_params(cfg, seed: int, only_constant: bool = False):
     """``models/sam2.py`` ``init`` (on the CPU), moved off its constant
     initialisation so that a check of a kernel against its plain version
     sees every stage: each parameter gets + 0.05 N(0, 1) (LayerNorm ones and
     zeros among them); the memory encoder's CXBlock layer scales, 1e-6 at
     init, which would hide both CXBlocks, are drawn from U(0.5, 1.5); and
     the object-score head's last bias is +10, so every object reads present
-    and mask logits, not a presence threshold, are compared."""
+    and mask logits, not a presence threshold, are compared.
+
+    With ``only_constant`` the noise goes only to the parameters that
+    ``init`` sets to one constant (LayerNorm ones and zeros, zero biases and
+    embeddings; each gets the same draw as without it), and the randomly
+    initialised ones keep the init's scale. On a product with more than
+    ~400 inputs the 0.05 noise is wider than the init's own spread, and the
+    widest presets' features grow with it."""
     from ..models import sam2 as sam2_mod
 
     params = sam2_mod.init(cfg, seed=seed)
@@ -27,7 +34,9 @@ def synthetic_params(cfg, seed: int):
     fuser = params["memory_encoder"]["fuser"]["layers"]
     with torch.no_grad():
         for t in params.parameters():
-            t.add_(torch.randn(t.shape, generator=gen), alpha=0.05)
+            noise = torch.randn(t.shape, generator=gen)
+            if not only_constant or bool((t == t.flatten()[0]).all()):
+                t.add_(noise, alpha=0.05)
         for i in range(cfg.memory_encoder_config.fuser_num_layers):
             gamma = fuser[str(i)]["gamma"]
             gamma.copy_(0.5 + torch.rand(gamma.shape, generator=gen))

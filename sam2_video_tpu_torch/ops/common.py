@@ -17,6 +17,7 @@ Counterpart of ``sam2_video_tpu/ops/common.py``:
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -249,11 +250,57 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+# the ReLU decisions that ``mlp`` records or takes (``relu_decisions``)
+_DECISIONS: dict | None = None
+
+
+@contextlib.contextmanager
+def relu_decisions(take: list | None = None):
+    """Within the block every ReLU of ``mlp`` records its decisions
+    (x > 0, a bool tensor on the CPU) into the yielded list, in call order;
+    or, given ``take`` (such a list from another run of the same
+    computation, on any device or in any dtype), it uses those decisions in
+    its place: x times the decision, the same value where both runs decide
+    alike and a gradient that follows ``take``. A comparison of gradients
+    across dtypes or devices takes one run's decisions into the other, so
+    that a unit whose input lies within rounding of 0 does not switch
+    between them. Raises unless ``take`` is used up, call for call, at
+    equal shapes. ReLUs outside ``mlp`` (memory attention's, in its own
+    code or kernel) decide for themselves."""
+    global _DECISIONS
+    if _DECISIONS is not None:
+        raise RuntimeError("relu_decisions does not nest")
+    rec: list = []
+    _DECISIONS = {"rec": rec, "take": take, "next": 0}
+    try:
+        yield rec
+        if take is not None and _DECISIONS["next"] != len(take):
+            raise RuntimeError(f"relu_decisions: {_DECISIONS['next']} "
+                               f"ReLUs took {len(take)} decisions")
+    finally:
+        _DECISIONS = None
+
+
+def _relu(x: torch.Tensor) -> torch.Tensor:
+    d = _DECISIONS
+    if d is None:
+        return F.relu(x)
+    if d["take"] is None:
+        d["rec"].append((x > 0).detach().cpu())
+        return F.relu(x)
+    i = d["next"]
+    if i >= len(d["take"]) or d["take"][i].shape != x.shape:
+        raise RuntimeError(f"relu_decisions: ReLU {i} of shape "
+                           f"{tuple(x.shape)} has no decision to take")
+    d["next"] = i + 1
+    return x * d["take"][i].to(device=x.device, dtype=x.dtype)
+
+
 def mlp(p, x: torch.Tensor, activation: str = "relu",
         sigmoid_output: bool = False) -> torch.Tensor:
     layers = p["layers"]
     n = len(layers)
-    act = {"relu": F.relu, "gelu": gelu}[activation]
+    act = {"relu": _relu, "gelu": gelu}[activation]
     for i in range(n):
         x = linear(layers[str(i)], x)
         if i < n - 1:

@@ -622,11 +622,12 @@ def _preset(backbone):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("backbone", ["base_plus", "large"])
+@pytest.mark.parametrize("backbone", ["small", "base_plus", "large"])
 @pytest.mark.parametrize("frames", [1, 10])
 def test_preset_blocks_match_plain(card, backbone, frames):
-    """Kernels #1 and #6 at SAM2-base+ (widths 112-896, head dim 56) and
-    SAM2-large (144-1152, head dim 72), 384 px, at the first block of each
+    """Kernels #1 and #6 at SAM2-small (tiny's widths 96-768, 16 blocks),
+    SAM2-base+ (widths 112-896, head dim 56) and SAM2-large (144-1152, head
+    dim 72), 384 px, at the first block of each
     geometry class (windows 8 / 4 / 14 or 16 / 7 or 8, global, the three
     q-pool blocks, stage 4): #1 against the plain block within TOL and
     bit-equal on a second run; #6 as ``_check_trainable_block`` (TOL, the
